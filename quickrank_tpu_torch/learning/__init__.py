@@ -1,0 +1,5 @@
+from quickrank_tpu_torch.learning.base import LTRAlgorithm
+from quickrank_tpu_torch.learning.lambdamart import LambdaMart
+from quickrank_tpu_torch.learning.mart import Mart
+
+__all__ = ["LTRAlgorithm", "LambdaMart", "Mart"]

@@ -1,0 +1,97 @@
+"""Builds the CUDA kernels of ``quickrank_tpu_torch/csrc`` and binds them.
+
+Every ``csrc/*.cu`` file is compiled by nvcc for ``sm_90a`` into one shared
+library with a plain C interface, ``quickrank_tpu_torch/build/libqrkernels.so``,
+loaded with ctypes.  The build runs at the first kernel call, and again
+whenever a source is newer than the library.  Pointers are passed as
+``c_void_p``, sizes as ``c_int64``/``c_int``, the stream as ``c_void_p``.
+Without nvcc the build raises: there is no other route to a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+from typing import Optional
+
+from quickrank_tpu_torch._build import BUILD_DIR, compile_library, is_stale
+
+CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
+)
+LIB_PATH = os.path.join(BUILD_DIR, "libqrkernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: C entry points: name -> argtypes (each returns the launch's cudaError_t)
+SIGNATURES = {
+    # x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
+    # words, out, stream
+    "qs_score": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x, n, f, fid, thr, wleaf, trees, depth, out, stream
+    "perfect_score": [_P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def find_nvcc() -> Optional[str]:
+    """nvcc on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    return cand if os.access(cand, os.X_OK) else None
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernels when the library is missing or stale (always
+    with ``force``).  Returns nvcc's stderr, which holds ptxas's register
+    and spill report ('' when nothing was rebuilt).  Raises RuntimeError
+    when nvcc is missing or fails."""
+    srcs = sources()
+    if not force and not is_stale(LIB_PATH, srcs):
+        return ""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            "quickrank_tpu_torch are compiled from csrc/ with nvcc at first "
+            "use; CUDA tensors have no other path"
+        )
+    cu = [s for s in srcs if s.endswith(".cu")]
+    return compile_library([nvcc, *NVCC_FLAGS], cu, LIB_PATH)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.qr_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.qr_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if rc != 0:
+        msg = library().qr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")

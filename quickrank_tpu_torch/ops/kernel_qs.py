@@ -1,0 +1,67 @@
+"""QuickScorer scoring: the CUDA kernel ``csrc/qs_score.cu`` and its plain
+version (``trees/qs.py::score_qs``).
+
+Replaces quickrank_tpu/ops/pallas_qs.py::score_qs_pallas.  Unlike the Pallas
+kernel, which sums trees in plain float32 block order, the CUDA kernel keeps
+the per-tree Kahan chain of the plain scorer and is bitwise equal to it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quickrank_tpu_torch.ops import _cuda
+from quickrank_tpu_torch.trees.qs import QSEnsemble
+from quickrank_tpu_torch.trees.qs import score_qs as plain_score_qs
+
+#: kernel launches by this wrapper; a run that must show its path went
+#: through the kernel sets it to 0 first and reads it after
+LAUNCHES = 0
+
+
+def check_inputs(features: torch.Tensor, tables, name: str) -> None:
+    """Shared checks of the scoring wrappers: float32 contiguous [N, F]
+    features on the tables' device, wide enough for every split."""
+    if features.dtype != torch.float32 or features.dim() != 2:
+        raise ValueError(
+            f"{name}: features must be float32 [N, F], got "
+            f"{features.dtype} {tuple(features.shape)}"
+        )
+    if not features.is_contiguous():
+        raise ValueError(f"{name}: features must be contiguous")
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {features.device}")
+    if tables.fid.device != features.device:
+        raise ValueError(
+            f"{name}: tables on {tables.fid.device}, features on "
+            f"{features.device}"
+        )
+    if features.shape[1] < tables.min_features:
+        raise ValueError(
+            f"{name}: model splits on feature {tables.min_features - 1}, "
+            f"features have {features.shape[1]} columns"
+        )
+
+
+def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
+    """Weighted ensemble scores f32 [N].  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    global LAUNCHES
+    check_inputs(features, qs, "score_qs")
+    if features.device.type == "cpu":
+        return plain_score_qs(features, qs)
+    N, F = features.shape
+    T, I = qs.fid.shape
+    out = torch.empty(N, dtype=torch.float32, device=features.device)
+    if N == 0:
+        return out
+    lib = _cuda.library()
+    rc = lib.qs_score(
+        features.data_ptr(), N, F, qs.fid.data_ptr(), qs.thr.data_ptr(),
+        qs.excl.data_ptr(), qs.leafval.data_ptr(), qs.weight.data_ptr(),
+        T, I, qs.num_leaves, int(qs.excl.shape[2]), out.data_ptr(),
+        torch.cuda.current_stream(features.device).cuda_stream,
+    )
+    _cuda.check(rc, "qs_score")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,107 @@
+"""XML models and ensembles crossing between the JAX package and the port:
+a model saved by either loads in the other with identical tensors."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quickrank_tpu.io import xml_model as jax_xml
+from quickrank_tpu.learning import LambdaMart as JaxLambdaMart
+from quickrank_tpu.learning import Mart as JaxMart
+from quickrank_tpu.trees import random_ensemble as jax_random
+from quickrank_tpu_torch.io import xml_model
+from quickrank_tpu_torch.learning import LambdaMart, Mart
+from quickrank_tpu_torch.trees import random_ensemble
+from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
+
+ENSEMBLES = {
+    "bestfirst": ("random_bestfirst_ensemble", (15, 16, 30), {"seed": 3}),
+    "balanced": ("random_balanced_ensemble", (12, 4, 30), {"seed": 4}),
+    "balanced-weight": ("random_balanced_ensemble", (5, 2, 7),
+                        {"seed": 1, "weight": 0.37}),
+}
+
+
+def _jax_fields(jens) -> dict:
+    return {k: np.asarray(getattr(jens, k)) for k in FIELDS}
+
+
+def _assert_same(port_ens: EnsembleTensors, fields: dict):
+    got = port_ens.numpy()
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k], fields[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(ENSEMBLES))
+def test_random_ensembles_match_jax(name):
+    fn, args, kw = ENSEMBLES[name]
+    jens = getattr(jax_random, fn)(*args, **kw)
+    _assert_same(getattr(random_ensemble, fn)(*args, **kw), _jax_fields(jens))
+
+
+def test_from_numpy_matches_jax_fields():
+    jens = jax_random.random_bestfirst_ensemble(6, 8, 10, seed=2)
+    jens = jens.replace(num_trees=jnp.asarray(4, jnp.int32))
+    port = EnsembleTensors.from_numpy(_jax_fields(jens))
+    _assert_same(port, _jax_fields(jens))
+    assert port.capacity == 6 and port.max_nodes == 15 and port.num_trees == 4
+    moved = port.to("meta")
+    assert moved.feature.device.type == "meta" and moved.num_trees == 4
+    assert moved.is_leaf.dtype == torch.bool and moved.weight.shape == (6,)
+    with pytest.raises(ValueError):
+        EnsembleTensors.from_numpy({**_jax_fields(jens), "weight": np.ones(5)})
+
+
+@pytest.mark.parametrize("name", sorted(ENSEMBLES))
+def test_jax_saved_model_loads_in_port(tmp_path, name):
+    fn, args, kw = ENSEMBLES[name]
+    jm = JaxLambdaMart(ntrees=50, nleaves=16, shrinkage=0.25, esr=7)
+    jm.ensemble = getattr(jax_random, fn)(*args, **kw)
+    path = str(tmp_path / "jax.xml")
+    jax_xml.save_model(jm, path)
+    pm = xml_model.load_model(path)
+    assert type(pm) is LambdaMart
+    assert (pm.ntrees, pm.nleaves, pm.shrinkage, pm.esr) == (50, 16, 0.25, 7)
+    _assert_same(pm.ensemble, _jax_fields(jax_xml.load_model(path).ensemble))
+
+
+@pytest.mark.parametrize("name", sorted(ENSEMBLES))
+def test_port_saved_model_loads_in_jax(tmp_path, name):
+    """The port writes the same bytes as the JAX package, and JAX loads
+    them into the tensors the port loads."""
+    fn, args, kw = ENSEMBLES[name]
+    pm = Mart(ntrees=9, nleaves=4, shrinkage=0.5, minleafsupport=3,
+              growth="level", max_depth=3)
+    pm.ensemble = getattr(random_ensemble, fn)(*args, **kw)
+    jm = JaxMart(ntrees=9, nleaves=4, shrinkage=0.5, minleafsupport=3,
+                 growth="level", max_depth=3)
+    jm.ensemble = getattr(jax_random, fn)(*args, **kw)
+    ppath, jpath = str(tmp_path / "port.xml"), str(tmp_path / "jax.xml")
+    pm.save(ppath)
+    jax_xml.save_model(jm, jpath)
+    with open(ppath, "rb") as a, open(jpath, "rb") as b:
+        assert a.read() == b.read()
+    jl = jax_xml.load_model(ppath)
+    assert type(jl) is JaxMart and jl.growth == "level" and jl.max_depth == 3
+    _assert_same(xml_model.load_model(ppath).ensemble, _jax_fields(jl.ensemble))
+
+
+def test_unported_types_raise_not_implemented(tmp_path):
+    m = Mart()
+    m.ensemble = random_ensemble.random_balanced_ensemble(2, 2, 3)
+    path = tmp_path / "m.xml"
+    m.save(str(path))
+    text = path.read_text()
+    for other in ("OBVMART", "DART", "RANKBOOST"):
+        path.write_text(text.replace("<type>MART</type>", f"<type>{other}</type>"))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            xml_model.load_model(str(path))
+    path.write_text(text.replace("<type>MART</type>", "<type>NOSUCH</type>"))
+    with pytest.raises(ValueError, match="unknown ranker type"):
+        xml_model.load_model(str(path))
+
+
+def test_learn_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LambdaMart().learn(None)
