@@ -1,11 +1,21 @@
-"""Host-side dataset container (counterpart of quickrank_tpu/data/dataset.py's
-``Dataset``; the padded device layout waits for the training port)."""
+"""Host-side dataset container and the padded per-query layout (counterpart
+of quickrank_tpu/data/dataset.py: ``Dataset``, ``shard_and_pad`` for one
+shard, ``pack_doc_values``, ``gather_padded`` and ``gather_unpad``).
+
+Docs live in one flat ``[num_docs_padded]`` axis, queries contiguous, and
+``pad_index`` turns flat per-doc arrays into ``[num_queries, max_docs]``
+views with a validity mask.  The JAX package's sort-based ``scatter_padded``
+(a TPU workaround for slow gathers) is not carried over: ``gather_padded``
+gives the same view bit for bit.  Sharding over several devices is ROADMAP.md
+§A item 10."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
 
 from quickrank_tpu_torch.types import FEATURE_DTYPE, LABEL_DTYPE, QID_DTYPE
 
@@ -77,3 +87,114 @@ class Dataset:
         ds = Dataset(features, labels, offsets, qids, name=name)
         ds.validate()
         return ds
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class PaddedDataset:
+    """One-shard padded layout, the JAX package's ``PaddedDataset`` with
+    ``num_shards = 1``.  Tensors are CPU torch tensors; callers move what
+    they need to their device.
+
+      features   f32 numpy ``[num_docs_padded, F]`` (padding rows zero)
+      labels     f32 ``[num_docs_padded]``
+      doc_mask   bool ``[num_docs_padded]`` (False on padding rows)
+      pad_index  int64 ``[Q, max_docs]``: row of each (query, slot);
+                 padding slots point at the last (dummy) row
+      slot_mask  bool ``[Q, max_docs]``;  query_mask bool ``[Q]``
+      nvalid     int32 ``[Q]`` docs per query
+      orig_index int64 ``[num_docs_padded]`` dataset row of each padded row
+                 (-1 on padding rows)
+      inv_q, inv_slot  int64 ``[num_docs_padded]`` query and slot of each
+                 row (0 on padding rows; gate with doc_mask)
+    """
+
+    features: np.ndarray
+    labels: torch.Tensor
+    doc_mask: torch.Tensor
+    pad_index: torch.Tensor
+    slot_mask: torch.Tensor
+    query_mask: torch.Tensor
+    nvalid: torch.Tensor
+    orig_index: torch.Tensor
+    inv_q: torch.Tensor
+    inv_slot: torch.Tensor
+    num_docs_padded: int
+
+
+def shard_and_pad(
+    ds: Dataset,
+    num_shards: int = 1,
+    max_docs: Optional[int] = None,
+    doc_align: int = 1024,
+) -> PaddedDataset:
+    """Lay ``ds`` out in the padded format: queries in dataset order, one
+    dummy row after the last doc, rows rounded up to ``doc_align`` (the
+    JAX package's histogram tile; kept so both packages pad alike)."""
+    if num_shards != 1:
+        raise NotImplementedError(
+            "sharded layouts are not ported to quickrank_tpu_torch yet: "
+            "ROADMAP.md §A item 10 (parallel training)"
+        )
+    counts = ds.docs_per_query()
+    dmax = int(max_docs or counts.max())
+    if counts.max() > dmax:
+        raise ValueError(f"max_docs={dmax} < longest query ({counts.max()})")
+    Q = ds.num_queries
+    n_loc = _round_up(ds.num_docs + 1, doc_align)
+    features = np.zeros((n_loc, ds.num_features), dtype=FEATURE_DTYPE)
+    features[: ds.num_docs] = ds.features
+    labels = np.zeros((n_loc,), dtype=LABEL_DTYPE)
+    labels[: ds.num_docs] = ds.labels
+    doc_mask = np.zeros((n_loc,), dtype=bool)
+    doc_mask[: ds.num_docs] = True
+    orig_index = np.full((n_loc,), -1, dtype=np.int64)
+    orig_index[: ds.num_docs] = np.arange(ds.num_docs)
+    q_of_doc = np.repeat(np.arange(Q), counts)
+    slot_of_doc = np.arange(ds.num_docs) - np.repeat(ds.query_offsets[:-1], counts)
+    inv_q = np.zeros((n_loc,), dtype=np.int64)
+    inv_q[: ds.num_docs] = q_of_doc
+    inv_slot = np.zeros((n_loc,), dtype=np.int64)
+    inv_slot[: ds.num_docs] = slot_of_doc
+    pad_index = np.full((Q, dmax), n_loc - 1, dtype=np.int64)
+    pad_index[q_of_doc, slot_of_doc] = np.arange(ds.num_docs)
+    slot_mask = np.zeros((Q, dmax), dtype=bool)
+    slot_mask[q_of_doc, slot_of_doc] = True
+    t = torch.from_numpy
+    return PaddedDataset(
+        features=features,
+        labels=t(labels),
+        doc_mask=t(doc_mask),
+        pad_index=t(pad_index),
+        slot_mask=t(slot_mask),
+        query_mask=torch.ones((Q,), dtype=torch.bool),
+        nvalid=t(counts.astype(np.int32)),
+        orig_index=t(orig_index),
+        inv_q=t(inv_q),
+        inv_slot=t(inv_slot),
+        num_docs_padded=n_loc,
+    )
+
+
+def pack_doc_values(padded: PaddedDataset, values_dataset_order) -> torch.Tensor:
+    """Dataset-order per-doc values -> flat padded order (0 on pad rows)."""
+    v = torch.as_tensor(values_dataset_order)
+    idx = torch.clamp(padded.orig_index, min=0).to(v.device)
+    return torch.where(padded.doc_mask.to(v.device), v[idx], 0).to(v.dtype)
+
+
+def gather_padded(flat, pad_index, slot_mask, fill=0.0):
+    """Flat per-doc array -> padded ``[Q, D]`` per-query view."""
+    return torch.where(slot_mask, flat[pad_index],
+                       torch.as_tensor(fill, dtype=flat.dtype, device=flat.device))
+
+
+def gather_unpad(padded_vals, inv_q, inv_slot, doc_mask):
+    """Padded ``[Q, D, ...]`` per-query values -> flat per-doc array
+    (0 on padding rows)."""
+    out = padded_vals[inv_q, inv_slot]
+    mask = doc_mask.reshape(doc_mask.shape + (1,) * (out.ndim - 1))
+    return torch.where(mask, out, 0).to(padded_vals.dtype)

@@ -73,3 +73,11 @@ def make_ranking_dataset(
     return Dataset.from_arrays(
         feats.astype(FEATURE_DTYPE), labels, qids, name=f"synthetic-{seed}"
     )
+
+
+def make_train_valid_test(num_queries=(64, 24, 24), seed: int = 7, **kw):
+    """Three disjoint splits drawn from the same generator process."""
+    train = make_ranking_dataset(num_queries=num_queries[0], seed=seed, **kw)
+    valid = make_ranking_dataset(num_queries=num_queries[1], seed=seed + 1, **kw)
+    test = make_ranking_dataset(num_queries=num_queries[2], seed=seed + 2, **kw)
+    return train, valid, test

@@ -1,6 +1,7 @@
 """Builds the CUDA kernels of ``quickrank_tpu_torch/csrc`` and binds them.
 
-Every ``csrc/*.cu`` file is compiled by nvcc for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` file is compiled by nvcc for ``sm_90a``, one nvcc process
+per source, all started together, and the objects are linked into one shared
 library with a plain C interface, ``quickrank_tpu_torch/build/libqrkernels.so``,
 loaded with ctypes.  The build runs at the first kernel call, and again
 whenever a source is newer than the library.  Pointers are passed as
@@ -14,6 +15,7 @@ import ctypes
 import glob
 import os
 import shutil
+import subprocess
 from typing import Optional
 
 from quickrank_tpu_torch._build import BUILD_DIR, compile_library, is_stale
@@ -24,7 +26,7 @@ CSRC = os.path.join(
 LIB_PATH = os.path.join(BUILD_DIR, "libqrkernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -35,6 +37,10 @@ SIGNATURES = {
     "qs_score": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # x, n, f, fid, thr, wleaf, trees, depth, out, stream
     "perfect_score": [_P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # binned, bin_bytes, n, width, features, values, channels, stride_c,
+    # stride_n, pos, n0, k, num_bins, maxbits, acc, out, stream
+    "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,
+                         _I, _I, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -70,8 +76,29 @@ def build(force: bool = False) -> str:
             "quickrank_tpu_torch are compiled from csrc/ with nvcc at first "
             "use; CUDA tensors have no other path"
         )
-    cu = [s for s in srcs if s.endswith(".cu")]
-    return compile_library([nvcc, *NVCC_FLAGS], cu, LIB_PATH)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        _, err = proc.communicate()
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode})\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        compile_library([nvcc, "-shared"], objs, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
 
 
 def library() -> ctypes.CDLL:

@@ -1,6 +1,9 @@
 """Plain ensemble scoring by batched descent, Kahan-compensated over trees
 (counterpart of quickrank_tpu/ops/scoring.py's ``kahan_add``,
-``descend_tree`` and ``score_ensemble(compensated=True)``).
+``descend_tree``, ``descend_tree_binned``, ``tree_delta_binned`` and
+``score_ensemble(compensated=True)``).  The bin-space descent uses gathers
+where the JAX package uses one-hot matmuls on the TPU (the two are bitwise
+equal there).
 
 This is the reference the fast scorers are held against.  Its one subtle
 point is the Kahan step.  The JAX package writes ``kahan_add(s, c, w * d)``
@@ -17,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from quickrank_tpu_torch.trees.structs import EnsembleTensors
+from quickrank_tpu_torch.trees.structs import EnsembleTensors, Tree
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -73,6 +76,30 @@ def descend_tree(features: torch.Tensor, ens: EnsembleTensors, t: int,
         nxt = torch.where(x <= threshold[node], left[node], right[node])
         node = torch.where(is_leaf[node], node, nxt)
     return node
+
+
+def descend_tree_binned(binned: torch.Tensor, tree: Tree,
+                        max_depth: int) -> torch.Tensor:
+    """Leaf node id int64 [N] reached by every doc in bin space: route left
+    on ``bin <= threshold_bin``, which is the value routing ``x <=
+    threshold`` by the binning's construction."""
+    feature = tree.feature.long()
+    left = tree.left.long()
+    right = tree.right.long()
+    node = torch.zeros(binned.shape[0], dtype=torch.long, device=binned.device)
+    for _ in range(max_depth):
+        f = feature[node].clamp(min=0)
+        x = binned.gather(1, f[:, None])[:, 0].int()
+        nxt = torch.where(x <= tree.threshold_bin[node], left[node], right[node])
+        node = torch.where(tree.is_leaf[node], node, nxt)
+    return node
+
+
+def tree_delta_binned(binned: torch.Tensor, tree: Tree,
+                      max_depth: int) -> torch.Tensor:
+    """Leaf value f32 [N] reached by every doc, in bin space: the
+    per-iteration validation rescore (mart.cc:361-366)."""
+    return tree.leaf_value[descend_tree_binned(binned, tree, max_depth)]
 
 
 def score_ensemble(features: torch.Tensor, ens: EnsembleTensors,

@@ -1,5 +1,5 @@
-"""Dense (structure-of-arrays) ensemble container (counterpart of
-quickrank_tpu/trees/structs.py's ``EnsembleTensors``).
+"""Dense (structure-of-arrays) tree and ensemble containers (counterpart of
+quickrank_tpu/trees/structs.py's ``Tree`` and ``EnsembleTensors``).
 
 Node layout: node 0 is the root; children are allocated in split order.
 ``is_leaf`` marks leaves; unused padding nodes have ``is_leaf=True`` and
@@ -34,6 +34,47 @@ _DTYPES = {
 
 
 @dataclasses.dataclass
+class Tree:
+    """One regression tree over a fixed ``max_nodes`` node budget."""
+
+    feature: torch.Tensor  # i32, -1 on leaves and unused nodes
+    threshold: torch.Tensor  # f32, go left iff x[f] <= threshold
+    threshold_bin: torch.Tensor  # i32 bin-space split point
+    left: torch.Tensor  # i32
+    right: torch.Tensor  # i32
+    is_leaf: torch.Tensor  # bool
+    leaf_value: torch.Tensor  # f32
+
+    @property
+    def max_nodes(self) -> int:
+        return int(self.feature.shape[-1])
+
+    @staticmethod
+    def empty(max_nodes: int, device="cpu") -> "Tree":
+        def full(v, dt):
+            return torch.full((max_nodes,), v, dtype=dt, device=device)
+
+        return Tree(
+            feature=full(-1, torch.int32),
+            threshold=full(0.0, torch.float32),
+            threshold_bin=full(-1, torch.int32),
+            left=full(0, torch.int32),
+            right=full(0, torch.int32),
+            is_leaf=full(True, torch.bool),
+            leaf_value=full(0.0, torch.float32),
+        )
+
+    @staticmethod
+    def from_numpy(d: Mapping[str, np.ndarray], device="cpu") -> "Tree":
+        """Build from the seven node fields as numpy arrays (or anything
+        ``np.asarray`` takes), e.g. a JAX ``Tree``'s fields."""
+        return Tree(**{
+            k: torch.as_tensor(np.array(d[k])).to(dt).to(device)
+            for k, dt in _DTYPES.items() if k != "weight"
+        })
+
+
+@dataclasses.dataclass
 class EnsembleTensors:
     """Stacked trees ``[T, max_nodes]`` plus per-tree weights ``[T]``."""
 
@@ -54,6 +95,36 @@ class EnsembleTensors:
     @property
     def max_nodes(self) -> int:
         return int(self.feature.shape[1])
+
+    @staticmethod
+    def empty(capacity: int, max_nodes: int, device="cpu") -> "EnsembleTensors":
+        """``capacity`` empty zero-weight slots, none live."""
+        t = Tree.empty(max_nodes, device)
+        kw = {k: getattr(t, k).expand(capacity, max_nodes).clone()
+              for k in _DTYPES if k != "weight"}
+        return EnsembleTensors(
+            weight=torch.zeros(capacity, dtype=torch.float32, device=device),
+            num_trees=0, **kw)
+
+    def push(self, tree: Tree, weight: float) -> None:
+        """Write ``tree`` into slot ``num_trees`` and count it live
+        (Ensemble::push, ensemble.cc:97-105).  In place: the JAX package
+        returns a new pytree, the port updates its buffers."""
+        t = self.num_trees
+        if t >= self.capacity:
+            raise ValueError(f"ensemble full: capacity {self.capacity}")
+        for k in _DTYPES:
+            if k != "weight":
+                getattr(self, k)[t] = getattr(tree, k)
+        self.weight[t] = weight
+        self.num_trees = t + 1
+
+    def live(self) -> "EnsembleTensors":
+        """The first ``num_trees`` slots only (dead capacity trimmed)."""
+        T = self.num_trees
+        return dataclasses.replace(
+            self, **{k: getattr(self, k)[:T].clone() for k in _DTYPES}
+        )
 
     def to(self, device) -> "EnsembleTensors":
         return dataclasses.replace(

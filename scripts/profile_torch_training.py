@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Profile LambdaMART training of quickrank_tpu_torch on one CUDA card.
+
+Trains on MSLR-shaped synthetic data (data/synthetic.py: query lengths in
+[38, 232), 136 features) under ``torch.profiler`` and reports, for the
+boosting iterations after the first ``--skip``: wall seconds per tree, the
+device's busy and idle share (union of kernel intervals over the iteration
+window), and device time by kernel name.  One warm-up run first builds the
+kernels.
+
+Run from the repository root:
+    python scripts/profile_torch_training.py --queries 19000 --growth best
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def busy_share(events, windows):
+    """Sum over ``windows`` of the union of the device's work intervals
+    (kernels, copies, fills) inside each window, and the windows' total
+    length (both in microseconds).  The device-side copies of
+    ``record_function`` ranges and the profiler's own buffer requests are
+    not work."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.name != "boost_iteration"
+                     and not e.name.startswith("Activity Buffer"))
+    busy = total = 0.0
+    for w0, w1 in windows:
+        total += w1 - w0
+        cur0 = cur1 = None
+        for a, b in kernels:
+            a, b = max(a, w0), min(b, w1)
+            if a >= b:
+                continue
+            if cur1 is None or a > cur1:
+                if cur1 is not None:
+                    busy += cur1 - cur0
+                cur0, cur1 = a, b
+            else:
+                cur1 = max(cur1, b)
+        if cur1 is not None:
+            busy += cur1 - cur0
+    return busy, total
+
+
+def main() -> int:
+    import torch
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--queries", type=int, default=19000)
+    p.add_argument("--growth", default="best", choices=["best", "level"])
+    p.add_argument("--trees", type=int, default=6)
+    p.add_argument("--skip", type=int, default=2, help="iterations left out of the window")
+    p.add_argument("--trace", help="write a chrome trace here")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_training: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
+    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.learning.mart import Mart
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    ds = make_ranking_dataset(num_queries=args.queries, seed=11)
+    kw = dict(nleaves=16, nthresholds=255, growth=args.growth, seed=1,
+              max_depth=4 if args.growth == "level" else 0)
+    LambdaMart(ntrees=2, **kw).learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+
+    windows = []
+    step = Mart._step
+
+    def timed_step(self, *a, **k):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("boost_iteration"):
+            out = step(self, *a, **k)
+            float(out[2])  # the host reads the metric each iteration
+        windows.append((t0, time.perf_counter()))
+        return out
+
+    Mart._step = timed_step
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lm = LambdaMart(ntrees=args.trees, **kw)
+        lm.learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+    Mart._step = step
+    events = prof.events()
+    marks = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "boost_iteration")
+    steady = marks[args.skip:]
+    busy, total = busy_share(events, steady)
+    splits = (~lm.ensemble.is_leaf).sum(dim=1).tolist()
+    per_tree = [round(b - a, 6) for a, b in windows[args.skip:]]
+    print(card)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps({
+        "growth": args.growth, "docs": ds.num_docs, "queries": ds.num_queries,
+        "seconds_per_tree": per_tree, "splits_per_tree": splits,
+        "device_busy_share": busy / total if total else None,
+        "device_idle_share": 1 - busy / total if total else None,
+        "window_us": total, "busy_us": busy, "card": card,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

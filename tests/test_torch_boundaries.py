@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from quickrank_tpu_torch.ops import _cuda, kernel_perfect, kernel_qs
+from quickrank_tpu_torch.ops import _cuda, kernel_histogram, kernel_perfect, kernel_qs
 from quickrank_tpu_torch.trees.perfect import ensemble_to_perfect, score_perfect
 from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
 from quickrank_tpu_torch.trees.random_ensemble import (
@@ -105,3 +105,82 @@ def test_perfect_kernel_matches_plain_on_card(cuda_device, depth):
     torch.cuda.synchronize()
     assert kernel_perfect.LAUNCHES == before + 1
     assert torch.equal(got, score_perfect(X, pe))
+
+
+def _histogram_inputs(N=6000, W=40, num_bins=256, seed=0):
+    """u8 bins (some >= num_bins, dropped), channel-major values zero on a
+    tenth of the docs, node ids in [0, 16)."""
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, min(num_bins + 8, 256), size=(N, W)).astype(np.uint8)
+    mask = rng.uniform(size=N) < 0.9
+    g = rng.normal(size=N).astype(np.float32)
+    vt = np.stack([mask, g * mask, g * g * mask]).astype(np.float32)
+    pos = rng.integers(0, 16, size=N).astype(np.int32)
+    return binned, vt, pos
+
+
+def _assert_within_sum_tolerance(got, plain, mass, terms, rounding, count_channels):
+    """Count channels exact; value channels within 1e-4 of the bin's sum of
+    |values| (float32 summation error of the plain version) plus, for each
+    of the bin's ``terms`` values, the kernel's fixed-point ``rounding``."""
+    got, plain, mass, terms = got.cpu(), plain.cpu(), mass.cpu(), terms.cpu()
+    assert torch.equal(got[..., count_channels], plain[..., count_channels])
+    bound = 1e-4 * mass.double() + terms.double() * rounding
+    assert bool(((got.double() - plain.double()).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins,n0,k", [(256, 0, 1), (64, 0, 1), (256, 3, 10), (64, 2, 4)])
+def test_node_histogram_kernel_matches_plain_on_card(cuda_device, num_bins, n0, k):
+    """K4 against its plain version, and bitwise equal to itself across
+    launches (integer sums in any order)."""
+    binned, vt, pos = (torch.from_numpy(a) for a in _histogram_inputs(num_bins=num_bins))
+    dev = [t.to(cuda_device) for t in (binned, vt, pos)]
+    before = kernel_histogram.LAUNCHES["node_histogram"]
+    got = kernel_histogram.node_histogram(*dev, num_bins, n0, k)
+    again = kernel_histogram.node_histogram(*dev, num_bins, n0, k)
+    torch.cuda.synchronize()
+    assert kernel_histogram.LAUNCHES["node_histogram"] == before + 2
+    assert torch.equal(got, again)
+    plain, mass, terms = (kernel_histogram.node_histogram(binned, v, pos, num_bins, n0, k)
+                          for v in (vt, vt.abs(), torch.ones_like(vt)))
+    _assert_within_sum_tolerance(got, plain, mass, terms,
+                                 kernel_histogram.rounding_error(vt).repeat(k),
+                                 slice(0, None, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_slots", [32, 9])
+def test_histogram_kernel_matches_plain_on_card(cuda_device, num_slots):
+    """K5 as segment sums: one column of int32 slot ids, doc-major values."""
+    rng = np.random.default_rng(num_slots)
+    index = torch.from_numpy(rng.integers(0, num_slots + 2, size=(50000, 1)).astype(np.int32))
+    vals = torch.from_numpy(np.stack([rng.normal(size=50000),
+                                      rng.uniform(size=50000)], -1).astype(np.float32))
+    got = kernel_histogram.histogram(index.to(cuda_device), vals.to(cuda_device), num_slots)
+    again = kernel_histogram.histogram(index.to(cuda_device), vals.to(cuda_device), num_slots)
+    assert torch.equal(got, again)
+    plain, mass, terms = (kernel_histogram.histogram(index, v, num_slots)
+                          for v in (vals, vals.abs(), torch.ones_like(vals)))
+    _assert_within_sum_tolerance(got, plain, mass, terms,
+                                 kernel_histogram.rounding_error(vals.T), slice(0, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("growth", ["best", "level"])
+def test_training_on_card_goes_through_kernels(cuda_device, growth):
+    """A short LambdaMART run on the card launches K4 (and K5 for
+    best-first), and tracks the same run on the CPU."""
+    from quickrank_tpu_torch.data.synthetic import make_train_valid_test
+    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, valid, _ = make_train_valid_test(num_queries=(40, 10, 10))
+    kw = dict(ntrees=3, nleaves=16, growth=growth, max_depth=4 if growth == "level" else 0)
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    card = LambdaMart(**kw).learn(train, valid, Ndcg(10), verbose=False, device="cuda")
+    assert kernel_histogram.LAUNCHES["node_histogram"] > 0
+    assert (kernel_histogram.LAUNCHES["histogram"] > 0) == (growth == "best")
+    cpu = LambdaMart(**kw).learn(train, valid, Ndcg(10), verbose=False, device="cpu")
+    np.testing.assert_allclose(card["train"], cpu["train"], atol=1e-3)

@@ -1,0 +1,172 @@
+"""The port's histograms (quickrank_tpu_torch/ops/histogram.py and the CPU
+path of ops/kernel_histogram.py, the plain versions of the K4 and K5
+kernels) against the JAX package on the CPU.
+
+Against JAX's scatter paths the plain versions are bitwise equal: both add
+docs in dataset order, bin by bin.  Against the Pallas kernels in interpret
+mode (bf16 hi/lo value planes) they agree to rtol 2e-4, the JAX package's
+own bound for those kernels (tests/test_trees.py), with the count channel
+to 1e-5."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quickrank_tpu.ops import histogram as jax_hist
+from quickrank_tpu.ops import pallas_histogram as ph
+from quickrank_tpu.trees import grow as jax_grow
+from quickrank_tpu_torch.ops import histogram, kernel_histogram
+from quickrank_tpu_torch.ops.binning import apply_bins, build_thresholds
+from quickrank_tpu_torch.trees.grow import segment_sums
+
+
+def _problem(num_bins, N=700, F=10, seed=0, oob=False):
+    """u8 bins from the port's binner, doc channels (count, g, g^2) zeroed
+    outside a doc mask, node ids in [0, 8)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    th, _ = build_thresholds(X, num_bins - 1)
+    binned = apply_bins(X, th)
+    B = th.shape[1]
+    if oob:  # ids >= num_bins must be dropped per element
+        binned[rng.uniform(size=binned.shape) < 0.05] = B
+    mask = rng.uniform(size=N) < 0.9
+    g = rng.normal(size=N).astype(np.float32)
+    chan = np.stack([mask, g * mask, g * g * mask], -1).astype(np.float32)
+    node = rng.integers(0, 8, size=N).astype(np.int32)
+    node[128:256] = 7  # one 128-doc tile with no doc of nodes 0..6
+    return binned, chan, mask, node, B
+
+
+def _kc(h, k, C):
+    """[F, B, k*C] -> [k, F, B, C]"""
+    F, B, _ = h.shape
+    return np.moveaxis(np.asarray(h).reshape(F, B, k, C), 2, 0)
+
+
+@pytest.mark.parametrize("num_bins", [64, 256])
+@pytest.mark.parametrize("n0,k", [(0, 1), (2, 4)])
+@pytest.mark.parametrize("oob", [False, True])
+def test_node_histogram_plain_matches_jax(num_bins, n0, k, oob):
+    binned, chan, mask, node, B = _problem(num_bins, oob=oob)
+    vt = np.ascontiguousarray(chan.T)
+    got = kernel_histogram.node_histogram(
+        torch.from_numpy(binned.astype(np.uint8) if not oob or B < 256 else binned),
+        torch.from_numpy(vt), torch.from_numpy(node), B, n0, k)
+    assert got.shape == (binned.shape[1], B, k * 3)
+    got = _kc(got.numpy(), k, 3)
+
+    # bitwise: JAX's scatter path over the same nodes
+    want = np.asarray(jax_hist.node_histograms_scatter(
+        jnp.asarray(binned), jnp.asarray(chan), jnp.asarray(node - n0),
+        jnp.ones(len(node), bool), k, B))
+    np.testing.assert_array_equal(got, want)
+
+    # the Pallas kernel in interpret mode (tile 128, 4-feature groups)
+    pallas = _kc(ph.node_histogram_pallas(
+        jnp.asarray(binned), jnp.asarray(vt), jnp.asarray(node), B, n0, k,
+        tile_n=128, feat_group=4, interpret=True), k, 3)
+    np.testing.assert_allclose(got[..., 0], pallas[..., 0], atol=1e-5)
+    np.testing.assert_allclose(got[..., 1:], pallas[..., 1:], rtol=2e-4, atol=1e-4)
+    if oob:  # dropped elements are gone: counts per (node, feature)
+        in_node = (node >= n0) & (node < n0 + k)
+        for i in range(k):
+            sel = (node == n0 + i) & mask & in_node
+            np.testing.assert_array_equal(got[i, ..., 0].sum(-1),
+                                          (binned[sel] < B).sum(0))
+
+
+def test_masked_histogram_t_matches_jax():
+    """The best-first split histogram: subset as a 0/1 node row, f_used."""
+    binned, chan, mask, _, B = _problem(256, seed=1)
+    sub = (np.random.default_rng(2).uniform(size=len(mask)) < 0.5) & mask
+    chan_t = np.ascontiguousarray(chan.T)
+    want = np.asarray(jax_hist.masked_histogram_t(
+        jnp.asarray(binned), jnp.asarray(chan_t), jnp.asarray(sub), B, f_used=7))
+    got = histogram.masked_histogram_t(
+        torch.from_numpy(binned.astype(np.uint8)), torch.from_numpy(chan_t),
+        torch.from_numpy(sub), B, f_used=7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("num_nodes", [3, 16])
+def test_node_histograms_packing_matches_jax(num_nodes):
+    """node_histograms packs 32 // C nodes per pass (16 nodes: two passes)
+    and equals JAX's CPU path, the one scatter over every node."""
+    binned, chan, mask, _, B = _problem(64, seed=3)
+    node = np.random.default_rng(4).integers(0, num_nodes + 1, size=len(mask)).astype(np.int32)
+    want = np.asarray(jax_hist.node_histograms(
+        jnp.asarray(binned), jnp.asarray(chan), jnp.asarray(node),
+        jnp.asarray(mask), num_nodes, B))
+    got = histogram.node_histograms(
+        torch.from_numpy(binned.astype(np.uint8)), torch.from_numpy(chan),
+        torch.from_numpy(node), torch.from_numpy(mask), num_nodes, B)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("num_slots", [32, 9])
+def test_histogram_plain_matches_jax(num_slots):
+    """K5's plain version: JAX's CPU segment sums bitwise, and
+    histogram_pallas in interpret mode within rtol 2e-4."""
+    rng = np.random.default_rng(num_slots)
+    N = 500
+    index = rng.integers(0, num_slots, size=N).astype(np.int32)
+    vals = rng.normal(size=(N, 2)).astype(np.float32)
+    got = segment_sums(torch.from_numpy(index), torch.from_numpy(vals), num_slots)
+    want = np.asarray(jax_grow.segment_sums(jnp.asarray(index), jnp.asarray(vals), num_slots))
+    np.testing.assert_array_equal(got.numpy(), want)
+    pallas = np.asarray(ph.histogram_pallas(
+        jnp.asarray(index)[:, None], jnp.asarray(vals), num_slots,
+        tile_n=128, feat_group=4, interpret=True))[0]
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [3, 16, 17, 40, 64, 255, 256, 257])
+def test_prefix_sum_and_tree_sum_match_xla(n):
+    """Bin-axis sums in XLA's CPU order: cumsum bitwise at every length,
+    the reduction bitwise at the lengths the growers use (<= 64, multiples
+    of 32, 255)."""
+    import jax
+
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(5, n, 3)) * rng.uniform(0, 100, size=(5, n, 3))).astype(np.float32)
+    want = np.asarray(jax.jit(lambda h: jnp.cumsum(h, axis=1))(jnp.asarray(x)))
+    np.testing.assert_array_equal(histogram.prefix_sum(torch.from_numpy(x), 1).numpy(), want)
+    want_s = np.asarray(jax.jit(lambda h: jnp.sum(h[0, :, 1]))(jnp.asarray(x)))
+    got_s = histogram.tree_sum(torch.from_numpy(np.ascontiguousarray(x[0, :, 1]))).numpy()
+    if n <= 64 or n % 32 == 0 or n == 255:
+        assert got_s == want_s
+    else:  # float32 rounding of the sum, relative to its absolute mass
+        assert abs(got_s - want_s) <= 1e-6 * np.abs(x[0, :, 1]).sum()
+
+
+def test_cpu_wrappers_launch_nothing():
+    binned, chan, mask, node, B = _problem(64, seed=5)
+    before = dict(kernel_histogram.LAUNCHES)
+    kernel_histogram.node_histogram(
+        torch.from_numpy(binned.astype(np.uint8)), torch.from_numpy(np.ascontiguousarray(chan.T)),
+        torch.from_numpy(node), B, 0, 2)
+    kernel_histogram.histogram(torch.from_numpy(binned), torch.from_numpy(chan), B)
+    assert kernel_histogram.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "values", "pos", "contiguous", "channels", "device"])
+def test_wrappers_reject_bad_input(bad):
+    binned = torch.zeros((16, 4), dtype=torch.uint8)
+    vt = torch.zeros((3, 16))
+    pos = torch.zeros(16, dtype=torch.int32)
+    if bad == "dtype":
+        binned = binned.long()
+    elif bad == "values":
+        vt = torch.zeros((3, 15))
+    elif bad == "pos":
+        pos = pos.long()
+    elif bad == "contiguous":
+        vt = torch.zeros((16, 3)).T
+    elif bad == "channels":
+        vt = torch.zeros((9, 16))
+    elif bad == "device":
+        binned, vt, pos = binned.to("meta"), vt.to("meta"), pos.to("meta")
+    with pytest.raises(ValueError):
+        kernel_histogram.node_histogram(binned, vt, pos, 8, 0, 1)

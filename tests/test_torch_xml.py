@@ -103,5 +103,7 @@ def test_unported_types_raise_not_implemented(tmp_path):
 
 
 def test_learn_is_not_ported():
+    """Training is ported for best-first and level-wise growth; best-k
+    growth still refuses, naming its ROADMAP item, before touching data."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LambdaMart().learn(None)
+        LambdaMart(growth="bestk").learn(None)
