@@ -9,8 +9,15 @@ file and two XML models.  Training (phases 5-7): the histogram kernels on
 the 2.56M-doc binned matrix of 19,000 MSLR-shaped queries, LambdaMART
 trained on it with both growers (the carried scores held against the saved
 model's kernel scores), and a short run on the card held against the same
-run on the CPU.  The wrappers' launch counters show that each path ran its
-kernels; every kernel is timed beside its plain version.
+run on the CPU.  The oblivious path (phases 8-12): the bit-OR scoring kernel
+at 131,072 x 136 (1000 trees of depth 4 and other shapes, value and bin
+space), ObliviousLambdaMART trained on the 19,000 queries, saved and served
+through ``quickscore.main``, best-k growth beside best-first, a warm start
+whose rescore rides the QuickScorer kernel on the bin matrix, and the
+oblivious learner on the card against the CPU.  The wrappers' launch
+counters show that each path ran its kernels; every kernel is timed beside
+its plain version and its bound (the larger of bytes moved over the card's
+memory rate and operations over its float32 rate).
 
 Run from the repository root: ``python3 chip_smoke.py``.  It exits non-zero
 on any failure, and without printing a result when no CUDA device is
@@ -20,6 +27,8 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -41,8 +50,18 @@ PERFECT_CASES = [(1000, 4, 0), (1000, 5, 0)]  # trees, depth, seed
 TRAIN_QUERIES = 19000
 VALID_QUERIES = 2000
 TRAIN_TREES = 8
-CPU_QUERIES = 200  # phase 7: the card against the CPU
+CPU_QUERIES = 200  # phases 7, 10 and 12: the card against the CPU
 CPU_TREES = 5
+#: trees, depth, docs, features of the oblivious scoring shapes; the first
+#: is the JAX package's headline workload (bench.py:74-86), the third ends
+#: mid-block and has dead levels, and the rows of the last are too wide to
+#: stage in shared memory
+OBLIVIOUS_CASES = [(1000, 4, N_DOCS, N_FEATURES), (200, 6, N_DOCS, N_FEATURES),
+                   (37, 3, 100003, N_FEATURES), (64, 4, 8192, 700)]
+#: published peaks of one H100 SXM: HBM bytes/s, float32 operations/s
+#: outside the tensor cores (integer compares and mask ANDs count at it too)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def require(ok: bool, msg: str) -> None:
@@ -85,6 +104,37 @@ def time_ms(fn, reps, warm=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound_ms(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of bytes moved (each input read once, each output written
+    once) over the memory rate and operations over the float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mean_leaf_depths(ens):
+    """Mean depth of each live tree's leaves, float64 [T]."""
+    import numpy as np
+
+    left, right, is_leaf = (t.cpu().numpy() for t in (ens.left, ens.right, ens.is_leaf))
+    means = []
+    for t in range(int(ens.num_trees)):
+        depths, stack = [], [(0, 0)]
+        while stack:
+            i, d = stack.pop()
+            if is_leaf[t, i]:
+                depths.append(d)
+            else:
+                stack += [(int(left[t, i]), d + 1), (int(right[t, i]), d + 1)]
+        means.append(np.mean(depths))
+    return np.asarray(means)
 
 
 def check_histogram(name, got, plain, exact, mass, terms, count_channels, rounding):
@@ -135,8 +185,8 @@ def main() -> int:
     from quickrank_tpu_torch import quickscore
     from quickrank_tpu_torch.data.svml import read_svml, write_svml
     from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
-    from quickrank_tpu_torch.learning import LambdaMart
-    from quickrank_tpu_torch.ops import _cuda, kernel_perfect, kernel_qs
+    from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
+    from quickrank_tpu_torch.ops import _cuda, kernel_oblivious, kernel_perfect, kernel_qs
     from quickrank_tpu_torch.ops.scoring import score_ensemble
     from quickrank_tpu_torch.trees.perfect import (
         ensemble_to_perfect,
@@ -147,6 +197,7 @@ def main() -> int:
     from quickrank_tpu_torch.trees.random_ensemble import (
         random_balanced_ensemble,
         random_bestfirst_ensemble,
+        random_oblivious_ensemble,
     )
 
     # exact float32 products in every plain-version matmul
@@ -281,6 +332,19 @@ def main() -> int:
               f"({N_DOCS / k * 1e3:.4g} docs/s), plain {p:.4f} ms "
               f"({N_DOCS / p * 1e3:.4g} docs/s)")
 
+    e_qs, t_qs = qs_tables[(1000, 16)]
+    qs_bound = bound_ms(
+        nbytes_of(X, t_qs.fid, t_qs.thr, t_qs.excl, t_qs.leafval, t_qs.weight) + N_DOCS * 4,
+        # what the function needs, not what QuickScorer does: per doc and
+        # tree one compare a level of the path to a leaf (the trees' mean
+        # leaf depth), and 4 for Kahan
+        N_DOCS * float((mean_leaf_depths(e_qs) + 4).sum()))
+    _, t_pf = pf_tables[(1000, 4)]
+    pf_bound = bound_ms(nbytes_of(X, t_pf.fid, t_pf.thr, t_pf.wleaf) + N_DOCS * 4,
+                        N_DOCS * t_pf.fid.shape[0] * (t_pf.depth + 1))
+    print(f"  bounds: qs 1000x16 {qs_bound[0]:.4f} ms by {qs_bound[1]}, perfect 1000xd4 "
+          f"{pf_bound[0]:.4f} ms by {pf_bound[1]}")
+
     # -- phase 5: histogram kernels against their plain versions ----------
     from quickrank_tpu_torch.learning.mart import TrainData
     from quickrank_tpu_torch.ops import kernel_histogram
@@ -304,30 +368,39 @@ def main() -> int:
     pos_nodes = torch.randint(0, 16, (N,), generator=gen, dtype=torch.int32).to(dev)
     bins64 = (binned // 4).contiguous()  # a 64-bin matrix of the same shape
     hist_err = {"node_histogram": 0.0, "histogram": 0.0}
-    k4_cases = [("256 bins, k=1 (root)", binned, 256, pos_root, 0, 1),
-                ("64 bins, k=1 (half the docs)", bins64, 64,
+    vt2 = vt[:2].contiguous()
+    k4_cases = [("256 bins, k=1 (root)", binned, vt, 256, pos_root, 0, 1),
+                ("64 bins, k=1 (half the docs)", bins64, vt, 64,
                  torch.where(sub, 0, 1).to(torch.int32), 0, 1),
-                ("256 bins, k=10, n0=3", binned, 256, pos_nodes, 3, 10),
-                ("64 bins, k=10, n0=3", bins64, 64, pos_nodes, 3, 10)]
+                ("256 bins, k=10, n0=3", binned, vt, 256, pos_nodes, 3, 10),
+                ("64 bins, k=10, n0=3", bins64, vt, 64, pos_nodes, 3, 10),
+                # the oblivious grower's levels: two channels, 8 and 16 nodes a
+                # pass (32 KB and 64 KB of shared memory a feature at 256 bins)
+                ("256 bins, C=2, k=8", binned, vt2, 256, pos_nodes, 0, 8),
+                ("256 bins, C=2, k=16", binned, vt2, 256, pos_nodes, 0, 16)]
     k4_times = {}
-    for label, b, nb, pos, n0, k in k4_cases:
-        got = kernel_histogram.node_histogram(b, vt, pos, nb, n0, k)
-        again = kernel_histogram.node_histogram(b, vt, pos, nb, n0, k)
+    for label, b, v, nb, pos, n0, k in k4_cases:
+        C = v.shape[0]
+        got = kernel_histogram.node_histogram(b, v, pos, nb, n0, k)
+        again = kernel_histogram.node_histogram(b, v, pos, nb, n0, k)
         torch.cuda.synchronize()
         require(torch.equal(got, again), f"K4 {label}: two launches differ")
-        plain = kernel_histogram.node_histogram_plain(b, vt, pos, nb, n0, k)
-        vt64 = vt.double()
+        plain = kernel_histogram.node_histogram_plain(b, v, pos, nb, n0, k)
+        v64 = v.double()
         exact, mass, terms = (
-            kernel_histogram.node_histogram_plain(b, v, pos, nb, n0, k)
-            for v in (vt64, vt64.abs(), torch.ones_like(vt64)))
-        rounding = kernel_histogram.rounding_error(vt).repeat(k)
+            kernel_histogram.node_histogram_plain(b, x, pos, nb, n0, k)
+            for x in (v64, v64.abs(), torch.ones_like(v64)))
+        rounding = kernel_histogram.rounding_error(v).repeat(k)
         hist_err["node_histogram"] = max(hist_err["node_histogram"], check_histogram(
-            f"K4 {label}", got, plain, exact, mass, terms, slice(0, None, 3), rounding))
+            f"K4 {label}", got, plain, exact, mass, terms, slice(0, None, C), rounding))
         k4_times[label] = (
-            time_ms(lambda: kernel_histogram.node_histogram(b, vt, pos, nb, n0, k), reps=20),
-            time_ms(lambda: kernel_histogram.node_histogram_plain(b, vt, pos, nb, n0, k),
+            time_ms(lambda: kernel_histogram.node_histogram(b, v, pos, nb, n0, k), reps=20),
+            time_ms(lambda: kernel_histogram.node_histogram_plain(b, v, pos, nb, n0, k),
                     reps=3),
         )
+    n_root = int(td.step.doc_mask.sum())
+    k4_bound = bound_ms(n_root * W + nbytes_of(vt, pos_root) + W * 256 * 3 * 4,
+                        n_root * W * 3)  # one add per doc, feature and channel
     slots = torch.randint(0, 32, (N, 1), generator=gen, dtype=torch.int32).to(dev)
     vals = torch.stack([g, torch.rand(N, generator=gen).to(dev)], dim=-1).contiguous()
     got = kernel_histogram.histogram(slots, vals, 32)
@@ -343,32 +416,51 @@ def main() -> int:
         kernel_histogram.rounding_error(vals.T))
     k5_times = (time_ms(lambda: kernel_histogram.histogram(slots, vals, 32), reps=20),
                 time_ms(lambda: kernel_histogram.histogram_plain(slots, vals, 32), reps=3))
+    k5_bound = bound_ms(nbytes_of(slots, vals) + 32 * 2 * 4, N * 2)
+    # the one PyTorch call that computes K5's function; timed, never used
+    slot_ids = slots[:, 0].long()
+    k5_library = time_ms(
+        lambda: torch.zeros((32, 2), device=dev).index_add_(0, slot_ids, vals), reps=20)
+    lib = torch.zeros((32, 2), device=dev).index_add_(0, slot_ids, vals)
+    require(bool(((lib - got[0]).abs() <= 1e-4 * mass[0].float() + 1e-6).all()),
+            "K5: index_add_ disagrees with the kernel")
     print(f"  ms per call on {card} (kernel / plain on the card):")
     for label, (k_ms, p_ms) in k4_times.items():
         print(f"    K4 {label}: {k_ms:.4f} / {p_ms:.4f}")
-    print(f"    K5 32 slots, C=2: {k5_times[0]:.4f} / {k5_times[1]:.4f}")
-    del td, binned, bins64, g, vt, sub, pos_root, pos_nodes, slots, vals
+    print(f"    K5 32 slots, C=2: {k5_times[0]:.4f} / {k5_times[1]:.4f}; index_add_ "
+          f"{k5_library:.4f}")
+    print(f"  bounds: K4 root {k4_bound[0]:.4f} ms by {k4_bound[1]}, K5 {k5_bound[0]:.4f} "
+          f"ms by {k5_bound[1]}")
+    del td, binned, bins64, g, vt, vt2, sub, pos_root, pos_nodes, slots, vals, slot_ids
 
     # -- phase 6: LambdaMART training at full width, both growers ----------
     print(f"phase 6: LambdaMART, {TRAIN_TREES} trees, {train_ds.num_queries} train "
           f"+ {valid_ds.num_queries} valid queries, on {card}")
     from quickrank_tpu_torch.learning.base import LTRAlgorithm
     from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.trees import grow
 
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
     train_runs = {}
-    for growth in ("best", "level"):
-        lm = LambdaMart(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, growth=growth,
-                        max_depth=4 if growth == "level" else 0, seed=1, esr=100)
-        hist = lm.learn(train_ds, valid_ds, Ndcg(10), verbose=False, device="cuda")
+
+    def report_run(name, lm, hist):
+        """s/tree (median of iterations 2+), splits and host syncs per tree."""
         it = hist["iter_seconds"]
         per_tree = float(np.median(it[2:]))
         splits = (~lm.ensemble.is_leaf).sum(dim=1).tolist()
+        print(f"  {name}: {per_tree:.4f} s/tree (median of iterations 2+; "
+              f"all: {[round(x, 4) for x in it]}), splits per tree {splits}, host syncs "
+              f"per tree {grow.HOST_SYNCS / len(it):.2f}, init {hist['init_seconds']:.2f} s")
+        return per_tree
+
+    for growth in ("best", "level"):
+        lm = LambdaMart(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, growth=growth,
+                        max_depth=4 if growth == "level" else 0, seed=1, esr=100)
+        grow.HOST_SYNCS = 0
+        hist = lm.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+        per_tree = report_run(f"{growth}@255", lm, hist)
         train_runs[growth] = (lm, per_tree)
-        print(f"  {growth}@255: {per_tree:.4f} s/tree (median of iterations 2+; "
-              f"all: {[round(x, 4) for x in it]}), splits per tree {splits}, "
-              f"init {hist['init_seconds']:.2f} s")
         print(f"    train NDCG@10 {[round(x, 5) for x in hist['train']]}")
         print(f"    valid NDCG@10 {[round(x, 5) for x in hist['valid']]}, best "
               f"iteration {lm.best_iteration}")
@@ -418,33 +510,226 @@ def main() -> int:
         require(root[0] == root[1], f"{growth}: root split differs")
         require(diff <= 1e-3, f"{growth}: train NDCG@10 differs by {diff}")
 
+
+    # -- phase 8: the oblivious bit-OR kernel against its plain version ----
+    print("phase 8: oblivious_score against the plain version and the CPU descent")
+    from quickrank_tpu_torch.ops import oblivious as plain_oblivious
+    from quickrank_tpu_torch.trees.oblivious import FLT_MAX, oblivious_to_tree
+    from quickrank_tpu_torch.trees.structs import EnsembleTensors
+
+    def descent_of_oblivious(obl, feats):
+        """Compensated CPU descent of the perfect trees the level tables
+        stand for, on the first N_CHECK docs."""
+        ens = EnsembleTensors.empty(obl.num_trees, 2 * obl.num_leaves - 1)
+        for t in range(obl.num_trees):
+            ens.push(oblivious_to_tree(obl.fid[t], obl.thr[t], obl.thr_bin[t], obl.leaf[t]),
+                     float(obl.weight[t]))
+        return score_ensemble(feats[:N_CHECK], ens, max_depth=obl.depth + 1).numpy()
+
+    obl_err = 0.0
+    obl_times = {}
+    obl_bound = None
+    for T, depth, n_docs, n_feat in OBLIVIOUS_CASES:
+        feats, obl = random_oblivious_ensemble(T, depth, n_feat, seed=0, num_docs=n_docs)
+        if depth == 3:  # dead levels: the last level of every other tree, and tree 1
+            obl.thr[::2, -1] = FLT_MAX
+            obl.thr[1] = FLT_MAX
+        Xo, obl_dev = torch.from_numpy(feats).to(dev), obl.to(dev)
+        got = kernel_oblivious.score_oblivious(Xo, obl_dev)
+        plain = plain_oblivious.score_oblivious(Xo, obl_dev)
+        torch.cuda.synchronize()
+        require(got.shape == (n_docs,) and bool(torch.isfinite(got).all()),
+                "oblivious_score: bad output")
+        require(torch.equal(got, plain), f"oblivious {T}xd{depth}: kernel and plain version "
+                f"differ on {int((got != plain).sum())} of {n_docs} docs")
+        obl_err = max(obl_err, float((got - plain).abs().max()))
+        ref = descent_of_oblivious(obl, torch.from_numpy(feats))
+        err = float(np.abs(got[:N_CHECK].cpu().numpy() - ref).max())
+        atol = 1e-5 * max(1.0, float(np.abs(ref).max()))
+        print(f"  oblivious {T}xd{depth} at {n_docs} docs x {n_feat}: bitwise equal to the plain version; "
+              f"vs CPU descent max abs err {err:.3g} (atol {atol:.3g}, float32 sum vs Kahan)")
+        require(err <= atol, f"oblivious {T}xd{depth}: {err} > {atol}")
+        k = time_ms(lambda: kernel_oblivious.score_oblivious(Xo, obl_dev), reps=20)
+        p = time_ms(lambda: plain_oblivious.score_oblivious(Xo, obl_dev), reps=3)
+        obl_times[(T, depth)] = (k, p)
+        bound = bound_ms(nbytes_of(Xo, obl_dev.fid, obl_dev.thr, obl_dev.leaf) + n_docs * 4,
+                         n_docs * T * (depth + 1))  # a compare a level, one add
+        obl_bound = obl_bound or bound
+        print(f"    kernel {k:.4f} ms ({n_docs / k * 1e3:.4g} docs/s), plain {p:.4f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]}")
+    # bin space on u8: thresholds are bin ids, routing is bin > thr_bin
+    rng8 = np.random.default_rng(8)
+    bins = torch.from_numpy(rng8.integers(0, 256, size=(N_DOCS, N_FEATURES), dtype=np.uint8))
+    _, obl = random_oblivious_ensemble(1000, 4, N_FEATURES, seed=0, num_docs=1)
+    obl.thr_bin = torch.from_numpy(rng8.integers(0, 255, size=(1000, 4)).astype(np.int32))
+    bins_dev, obl_dev = bins.to(dev), obl.to(dev)
+    got = kernel_oblivious.score_oblivious(bins_dev, obl_dev)
+    plain = plain_oblivious.score_oblivious_binned(bins_dev, obl_dev)
+    require(torch.equal(got, plain), "oblivious bin space: kernel and plain version differ")
+    k = time_ms(lambda: kernel_oblivious.score_oblivious(bins_dev, obl_dev), reps=20)
+    print(f"  oblivious 1000xd4 on u8 bins: bitwise equal to the plain version; kernel "
+          f"{k:.4f} ms")
+    del Xo, bins_dev, obl_dev, got, plain
+
+    # -- phase 9: the oblivious slice end to end at full width --------------
+    print(f"phase 9: ObliviousLambdaMART depth 4, {TRAIN_TREES} trees, "
+          f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, saved and "
+          f"served through quickscore, on {card}")
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    grow.HOST_SYNCS = 0
+    ol = ObliviousLambdaMart(ntrees=TRAIN_TREES, treedepth=4, nthresholds=255, seed=1,
+                             esr=100)
+    hist = ol.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+    obl_launches = dict(kernel_histogram.LAUNCHES)
+    obl_per_tree = report_run("oblivious@255 depth 4", ol, hist)
+    print(f"    train NDCG@10 {[round(x, 5) for x in hist['train']]}")
+    print(f"    valid NDCG@10 {[round(x, 5) for x in hist['valid']]}, best iteration "
+          f"{ol.best_iteration}; histogram kernel launches {obl_launches}")
+    require(hist["train"][-1] > hist["train"][0], "oblivious: train NDCG@10 did not rise")
+    require(all(v > 0 for v in obl_launches.values()),
+            f"a histogram kernel of the oblivious path was not launched: {obl_launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path, svml = os.path.join(tmp, "obv.xml"), os.path.join(tmp, "serve.svml")
+        ol.save(path)
+        serve_ds = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+                                        num_features=N_FEATURES, seed=0)
+        write_svml(serve_ds, svml)
+        kernel_oblivious.LAUNCHES = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = quickscore.main(["-d", svml, "-m", path, "--device", "cuda", "-r", "10",
+                                  "-s", os.path.join(tmp, "obv.scores")])
+        k3_launches = kernel_oblivious.LAUNCHES
+        print("".join(f"    {line}\n" for line in out.getvalue().splitlines()), end="")
+        require(rc == 0, f"quickscore on the oblivious model: exit {rc}")
+        require("Scorer path: oblivious bit-OR kernel on cuda" in out.getvalue(),
+                "quickscore did not take the oblivious path")
+        print(f"  oblivious_score launches during quickscore: {k3_launches}")
+        require(k3_launches > 0, "the oblivious kernel was not launched by quickscore")
+        served = np.loadtxt(os.path.join(tmp, "obv.scores")).astype(np.float32)
+        model = LTRAlgorithm.load(path)
+        require(type(model) is ObliviousLambdaMart and model.scorer_path() == "oblivious",
+                "the saved model did not load as an oblivious model")
+        want = plain_oblivious.score_oblivious(
+            torch.from_numpy(read_svml(svml).features).to(dev),
+            model.oblivious_ensemble().to(dev)).cpu().numpy()
+        require(served.shape == (serve_ds.num_docs,) and np.array_equal(served, want),
+                "quickscore's oblivious scores differ from the plain version")
+        scored = model.score_dataset(train_ds)
+        carried = ol.train_scores[: train_ds.num_docs].cpu().numpy()
+        err = float(np.abs(scored - carried).max())
+        atol = 1e-5 * max(1.0, float(np.abs(carried).max()))
+        print(f"  carried scores vs K3 of the saved model: max abs err {err:.3g} "
+              f"(atol {atol:.3g}, float32 sum vs Kahan)")
+        require(np.isfinite(scored).all() and err <= atol, f"oblivious: {err} > {atol}")
+
+    # -- phase 10: best-k growth beside best-first --------------------------
+    print(f"phase 10: LambdaMART bestk@255, split_pack 4, {TRAIN_TREES} trees at "
+          f"{train_ds.num_queries} queries (best-first above: "
+          f"{train_runs['best'][1]:.4f} s/tree)")
+    grow.HOST_SYNCS = 0
+    bk = LambdaMart(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, growth="bestk",
+                    split_pack=4, seed=1, esr=100)
+    hist = bk.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+    bestk_per_tree = report_run("bestk@255 split_pack 4", bk, hist)
+    print(f"    train NDCG@10 {[round(x, 5) for x in hist['train']]}")
+    print(f"    valid NDCG@10 {[round(x, 5) for x in hist['valid']]}")
+    require(hist["train"][-1] > hist["train"][0], "bestk: train NDCG@10 did not rise")
+    pair = []
+    for kw in (dict(growth="best"), dict(growth="bestk", split_pack=1)):
+        lm = LambdaMart(ntrees=CPU_TREES, nleaves=16, nthresholds=255, seed=1, **kw)
+        lm.learn(small, None, Ndcg(10), verbose=False)
+        pair.append(lm.ensemble)
+    same = all(torch.equal(getattr(pair[0], f), getattr(pair[1], f))
+               for f in ("feature", "threshold", "threshold_bin", "left", "right",
+                         "is_leaf", "leaf_value"))
+    print(f"  split_pack 1 against best-first on the card, {CPU_TREES} trees at "
+          f"{CPU_QUERIES} queries: trees equal: {same}")
+    require(same, "bestk with split_pack 1 differs from best-first on the card")
+
+    # -- phase 11: warm start, rescoring through K1 in bin space ------------
+    print(f"phase 11: warm start at {train_ds.num_queries} queries, 4 trees and then 4 more")
+    from quickrank_tpu_torch.learning.mart import rebin_ensemble, rescore_binned
+
+    kw = dict(nleaves=16, nthresholds=255, seed=1)
+    ws = LambdaMart(ntrees=4, **kw)
+    ws.learn(train_ds, None, Ndcg(10), verbose=False)
+    carried = ws.train_scores.clone()
+    td = TrainData.build(train_ds, 255)
+    kernel_qs.LAUNCHES = 0
+    rebinned = rebin_ensemble(ws.ensemble, td.thresholds, force=True)
+    rescored = rescore_binned(rebinned, td.step, ws._descend_depth())
+    ms = time_ms(lambda: rescore_binned(ws.ensemble, td.step, ws._descend_depth()), reps=3)
+    require(kernel_qs.LAUNCHES > 0, "the rescore did not launch the QuickScorer kernel")
+    n_diff = int((rescored != carried).sum())
+    print(f"  rescore of 4 trees on the u8 bin matrix {tuple(td.step.binned.shape)} through "
+          f"qs_score: {n_diff} docs differ from the carried scores; {ms:.4f} ms with the "
+          f"table build")
+    require(n_diff == 0, "the warm-start rescore differs from the carried scores")
+    # the u8 entry of the kernel against its own plain version, on the same
+    # bin matrix and bin-space tables
+    plain = score_qs(td.step.binned, ensemble_to_qs(rebinned, space="bin").to(dev))
+    require(torch.equal(rescored, plain), "qs_score on u8 bins: kernel and plain version "
+            f"differ on {int((rescored != plain).sum())} docs")
+    print("  qs_score on the u8 bin matrix: bitwise equal to the plain version")
+    del td, rescored, plain
+    kernel_qs.LAUNCHES = 0
+    ws.ntrees = TRAIN_TREES
+    resumed = ws.learn(train_ds, None, Ndcg(10), verbose=False, warm_start=True)
+    warm_launches = kernel_qs.LAUNCHES
+    whole = LambdaMart(ntrees=TRAIN_TREES, **kw)
+    straight = whole.learn(train_ds, None, Ndcg(10), verbose=False)
+    diff = float(np.abs(np.array(resumed["train"]) - np.array(straight["train"][4:])).max())
+    print(f"  resumed run: {len(resumed['train'])} new iterations, {ws.ensemble.num_trees} "
+          f"trees, qs_score launches {warm_launches}; train NDCG@10 "
+          f"{[round(x, 6) for x in resumed['train']]} against the uninterrupted run's "
+          f"{[round(x, 6) for x in straight['train'][4:]]} (max difference {diff:.3g})")
+    require(warm_launches > 0, "the warm start did not rescore through the QuickScorer kernel")
+    require(ws.ensemble.num_trees == TRAIN_TREES and len(resumed["train"]) == 4,
+            "the warm start did not continue from the model")
+    require(diff <= 1e-4, f"warm start: train NDCG@10 differs by {diff}")
+
+    # -- phase 12: the oblivious learner, card against CPU ------------------
+    print(f"phase 12: ObliviousLambdaMART, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
+          f"against CPU")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        om = ObliviousLambdaMart(ntrees=CPU_TREES, treedepth=4, nthresholds=255, seed=1)
+        runs[device] = (om, om.learn(small, None, Ndcg(10), verbose=False, device=device))
+    (gpu_m, gpu_h), (cpu_m, cpu_h) = runs["cuda"], runs["cpu"]
+    levels = [(m.oblivious_ensemble().fid[0].tolist(), m.oblivious_ensemble().thr_bin[0].tolist())
+              for m in (gpu_m, cpu_m)]
+    diff = float(np.abs(np.array(gpu_h["train"]) - np.array(cpu_h["train"])).max())
+    print(f"  first tree's levels (features, bins): card {levels[0]}, cpu {levels[1]}; max "
+          f"train NDCG@10 difference {diff:.3g} over {CPU_TREES} iterations")
+    require(levels[0] == levels[1], "oblivious: the first tree's levels differ")
+    require(diff <= 1e-3, f"oblivious: train NDCG@10 differs by {diff}")
+
+    def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"quickrank_tpu_torch/csrc/{source}",
+                "replaces": f"quickrank_tpu/ops/{replaces}", "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
+
     report = {"kernels": [
-        {"name": "qs_score", "route": "cuda",
-         "source": "quickrank_tpu_torch/csrc/qs_score.cu",
-         "replaces": "quickrank_tpu/ops/pallas_qs.py:100",
-         "launches": launches["qs_score"], "max_abs_err": qs_err,
-         "ms": times[("qs", 1000, 16)][0],
-         "plain_ms": times[("qs", 1000, 16)][1]},
-        {"name": "perfect_score", "route": "cuda",
-         "source": "quickrank_tpu_torch/csrc/perfect_score.cu",
-         "replaces": "quickrank_tpu/ops/pallas_perfect.py:102",
-         "launches": launches["perfect_score"], "max_abs_err": pf_err,
-         "ms": times[("perfect", 1000, 4)][0],
-         "plain_ms": times[("perfect", 1000, 4)][1]},
-        {"name": "node_histogram", "route": "cuda",
-         "source": "quickrank_tpu_torch/csrc/histogram.cu",
-         "replaces": "quickrank_tpu/ops/pallas_histogram.py:183",
-         "launches": train_launches["node_histogram"],
-         "max_abs_err": hist_err["node_histogram"],
-         "ms": k4_times["256 bins, k=1 (root)"][0],
-         "plain_ms": k4_times["256 bins, k=1 (root)"][1]},
-        {"name": "histogram", "route": "cuda",
-         "source": "quickrank_tpu_torch/csrc/histogram.cu",
-         "replaces": "quickrank_tpu/ops/pallas_histogram.py:278",
-         "launches": train_launches["histogram"],
-         "max_abs_err": hist_err["histogram"],
-         "ms": k5_times[0], "plain_ms": k5_times[1]},
+        row("qs_score", "qs_score.cu", "pallas_qs.py:100", launches["qs_score"], qs_err,
+            *times[("qs", 1000, 16)], qs_bound),
+        row("perfect_score", "perfect_score.cu", "pallas_perfect.py:102",
+            launches["perfect_score"], pf_err, *times[("perfect", 1000, 4)], pf_bound),
+        row("oblivious_score", "oblivious_score.cu", "pallas_oblivious.py:100", k3_launches,
+            obl_err, *obl_times[(1000, 4)], obl_bound),
+        row("node_histogram", "histogram.cu", "pallas_histogram.py:183",
+            train_launches["node_histogram"], hist_err["node_histogram"],
+            *k4_times["256 bins, k=1 (root)"], k4_bound),
+        row("histogram", "histogram.cu", "pallas_histogram.py:278",
+            train_launches["histogram"], hist_err["histogram"], *k5_times, k5_bound,
+            library_ms=k5_library),
     ]}
+    print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
+          f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
+          f"{bestk_per_tree:.4f}, oblivious@255 {obl_per_tree:.4f}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

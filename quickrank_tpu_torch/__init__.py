@@ -7,7 +7,18 @@ nvcc on first use (``ops/_cuda.py``).  A wrapper given a CPU tensor runs the
 kernel's plain PyTorch version; given a CUDA tensor it launches the kernel
 or raises.
 
-Ported so far: the scoring path (``quickscore``): SVML and XML model I/O,
-``Mart``/``LambdaMart`` inference, and the QuickScorer and perfect-tree
-kernels.  ROADMAP.md lists what follows.
+Ported so far: scoring (``quickscore``: SVML and XML model I/O, the
+QuickScorer, perfect-tree and oblivious bit-OR kernels) and training of
+``Mart``/``LambdaMart`` (best-first, best-k and level-wise growth, warm
+start) and ``ObliviousMart``/``ObliviousLambdaMart`` on the histogram
+kernels.  Entry points run on the CUDA card unless given ``device="cpu"``.
+ROADMAP.md lists what follows.
 """
+
+from quickrank_tpu_torch.learning import (  # noqa: F401
+    LambdaMart,
+    LTRAlgorithm,
+    Mart,
+    ObliviousLambdaMart,
+    ObliviousMart,
+)

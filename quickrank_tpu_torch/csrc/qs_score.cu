@@ -38,7 +38,8 @@ namespace {
 
 constexpr int kThreads = 128;
 
-__global__ void qs_score_kernel(const float* __restrict__ x, int64_t n,
+template <typename X>
+__global__ void qs_score_kernel(const X* __restrict__ x, int64_t n,
                                 int64_t f, const int32_t* __restrict__ fid,
                                 const float* __restrict__ thr,
                                 const unsigned long long* __restrict__ excl,
@@ -48,7 +49,7 @@ __global__ void qs_score_kernel(const float* __restrict__ x, int64_t n,
                                 float* __restrict__ out) {
   const int64_t doc = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (doc >= n) return;
-  const float* row = x + doc * f;
+  const X* row = x + doc * f;
   float s = 0.f;
   float c = 0.f;
   for (int t = 0; t < trees; ++t) {
@@ -59,7 +60,7 @@ __global__ void qs_score_kernel(const float* __restrict__ x, int64_t n,
     for (int w = 0; w < words; ++w) {
       unsigned long long mask = ~0ull;
       for (int i = 0; i < nodes; ++i) {
-        if (__ldg(row + tf[i]) > tt[i]) mask &= ~te[static_cast<int64_t>(i) * words + w];
+        if (static_cast<float>(__ldg(row + tf[i])) > tt[i]) mask &= ~te[static_cast<int64_t>(i) * words + w];
       }
       if (mask != 0ull) {
         exit_leaf = w * 64 + __ffsll(static_cast<long long>(mask)) - 1;
@@ -75,6 +76,20 @@ __global__ void qs_score_kernel(const float* __restrict__ x, int64_t n,
   out[doc] = s;
 }
 
+template <typename X>
+int launch(const X* x, int64_t n, int64_t f, const int32_t* fid,
+           const float* thr, const unsigned long long* excl,
+           const float* leafval, const float* weight, int trees, int nodes,
+           int leaves, int words, float* out, void* stream) {
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  qs_score_kernel<X><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves, words,
+      out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.
@@ -83,13 +98,20 @@ extern "C" int qs_score(const float* x, int64_t n, int64_t f,
                         const unsigned long long* excl, const float* leafval,
                         const float* weight, int trees, int nodes, int leaves,
                         int words, float* out, void* stream) {
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  qs_score_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves, words,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
+                words, out, stream);
+}
+
+// The same scorer on uint8 bin ids, for bin-space tables (thresholds hold
+// bin ids as float32, exact): rescoring the binned training matrix without a
+// float32 copy of it.
+extern "C" int qs_score_u8(const uint8_t* x, int64_t n, int64_t f,
+                           const int32_t* fid, const float* thr,
+                           const unsigned long long* excl, const float* leafval,
+                           const float* weight, int trees, int nodes,
+                           int leaves, int words, float* out, void* stream) {
+  return launch(x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
+                words, out, stream);
 }
 
 extern "C" const char* qr_cuda_error_string(int code) {

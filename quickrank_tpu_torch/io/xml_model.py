@@ -176,8 +176,6 @@ def parse_ensemble(ranker: ET.Element) -> tuple[EnsembleTensors, int]:
 #: ranker types the JAX package loads that the port does not yet, with the
 #: ROADMAP.md §A item that ports each
 _NOT_PORTED = {
-    "OBVMART": "§A item 5 (K3 + ObliviousMart)",
-    "OBVLAMBDAMART": "§A item 5 (K3 + ObliviousMart)",
     "DART": "§A item 6 (DART)",
     "RANDOMFOREST": "§A item 7 (other learners)",
     "LAMBDAMART-SELECTIVE": "§A item 7 (other learners)",
@@ -193,8 +191,13 @@ _NOT_PORTED = {
 def _registry():
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
     from quickrank_tpu_torch.learning.mart import Mart
+    from quickrank_tpu_torch.learning.obliviousmart import (
+        ObliviousLambdaMart,
+        ObliviousMart,
+    )
 
-    return {"MART": Mart, "LAMBDAMART": LambdaMart}
+    return {"MART": Mart, "LAMBDAMART": LambdaMart, "OBVMART": ObliviousMart,
+            "OBVLAMBDAMART": ObliviousLambdaMart}
 
 
 def load_model(path: str):

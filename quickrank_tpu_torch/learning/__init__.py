@@ -1,5 +1,7 @@
 from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.learning.lambdamart import LambdaMart
 from quickrank_tpu_torch.learning.mart import Mart
+from quickrank_tpu_torch.learning.obliviousmart import ObliviousLambdaMart, ObliviousMart
 
-__all__ = ["LTRAlgorithm", "LambdaMart", "Mart"]
+__all__ = ["LTRAlgorithm", "LambdaMart", "Mart", "ObliviousLambdaMart",
+           "ObliviousMart"]

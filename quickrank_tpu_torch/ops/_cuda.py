@@ -35,8 +35,11 @@ SIGNATURES = {
     # x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
     # words, out, stream
     "qs_score": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "qs_score_u8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # x, n, f, fid, thr, wleaf, trees, depth, out, stream
     "perfect_score": [_P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
+    "oblivious_score": [_P, _I, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # binned, bin_bytes, n, width, features, values, channels, stride_c,
     # stride_n, pos, n0, k, num_bins, maxbits, acc, out, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,

@@ -54,20 +54,28 @@ def node_histograms(binned, values, node_of_doc, doc_mask, num_nodes: int,
                     num_bins: int, values_premasked: bool = False):
     """Histograms of every node at once: ``[num_nodes, F, B, C]``.  Docs
     with a node id outside [0, num_nodes), or outside ``doc_mask``,
-    contribute nothing.  Up to ``32 // C`` nodes share one kernel pass (the
-    JAX package's packing, histogram.py:151-161)."""
-    from quickrank_tpu_torch.ops import kernel_histogram
-
+    contribute nothing."""
     if not values_premasked:
         values = torch.where(doc_mask[:, None], values, 0.0)
-    C = values.shape[-1]
-    vt = values.T.contiguous()
+    return node_histograms_t(binned, values.T.contiguous(), node_of_doc,
+                             num_nodes, num_bins)
+
+
+def node_histograms_t(binned, values_t, node_of_doc, num_nodes: int,
+                      num_bins: int):
+    """:func:`node_histograms` from channel-major values ``[C, N]`` that are
+    already zero outside the doc mask (a grower builds them once a tree).
+    Up to ``32 // C`` nodes share one kernel pass (the JAX package's
+    packing, histogram.py:151-161)."""
+    from quickrank_tpu_torch.ops import kernel_histogram
+
+    C = values_t.shape[0]
     pos = node_of_doc.to(torch.int32).contiguous()
     per_pass = max(1, 32 // C)
     outs = []
     for n0 in range(0, num_nodes, per_pass):
         k = min(per_pass, num_nodes - n0)
-        h = kernel_histogram.node_histogram(binned, vt, pos, num_bins, n0, k)
+        h = kernel_histogram.node_histogram(binned, values_t, pos, num_bins, n0, k)
         outs.append(h.reshape(h.shape[0], num_bins, k, C).permute(2, 0, 1, 3))
     return torch.cat(outs)
 

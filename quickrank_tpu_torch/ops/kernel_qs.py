@@ -19,13 +19,14 @@ from quickrank_tpu_torch.trees.qs import score_qs as plain_score_qs
 LAUNCHES = 0
 
 
-def check_inputs(features: torch.Tensor, tables, name: str) -> None:
-    """Shared checks of the scoring wrappers: float32 contiguous [N, F]
-    features on the tables' device, wide enough for every split."""
-    if features.dtype != torch.float32 or features.dim() != 2:
+def check_inputs(features: torch.Tensor, tables, name: str,
+                 dtypes=(torch.float32,)) -> None:
+    """Shared checks of the scoring wrappers: contiguous [N, F] features of
+    one of ``dtypes`` on the tables' device, wide enough for every split."""
+    if features.dtype not in dtypes or features.dim() != 2:
         raise ValueError(
-            f"{name}: features must be float32 [N, F], got "
-            f"{features.dtype} {tuple(features.shape)}"
+            f"{name}: features must be {' or '.join(str(d) for d in dtypes)} "
+            f"[N, F], got {features.dtype} {tuple(features.shape)}"
         )
     if not features.is_contiguous():
         raise ValueError(f"{name}: features must be contiguous")
@@ -44,10 +45,12 @@ def check_inputs(features: torch.Tensor, tables, name: str) -> None:
 
 
 def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
-    """Weighted ensemble scores f32 [N].  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    """Weighted ensemble scores f32 [N].  ``features`` are float32 values,
+    or uint8 bin ids for bin-space tables (``ensemble_to_qs(space="bin")``).
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises."""
     global LAUNCHES
-    check_inputs(features, qs, "score_qs")
+    check_inputs(features, qs, "score_qs", (torch.float32, torch.uint8))
     if features.device.type == "cpu":
         return plain_score_qs(features, qs)
     N, F = features.shape
@@ -56,7 +59,8 @@ def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
     if N == 0:
         return out
     lib = _cuda.library()
-    rc = lib.qs_score(
+    entry = lib.qs_score if features.dtype == torch.float32 else lib.qs_score_u8
+    rc = entry(
         features.data_ptr(), N, F, qs.fid.data_ptr(), qs.thr.data_ptr(),
         qs.excl.data_ptr(), qs.leafval.data_ptr(), qs.weight.data_ptr(),
         T, I, qs.num_leaves, int(qs.excl.shape[2]), out.data_ptr(),

@@ -50,6 +50,7 @@ def main(argv=None) -> int:
     path = {
         "perfect": "perfect-tree kernel (depth <= 5)",
         "qs": "QuickScorer kernel (any depth)",
+        "oblivious": "oblivious bit-OR kernel",
     }[model.scorer_path()]
     print(f"#\t Scorer path: {path} on {device.type}")
 

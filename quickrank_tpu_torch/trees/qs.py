@@ -1,6 +1,6 @@
 """QuickScorer bitvector tables and the plain QuickScorer scorer
-(counterpart of quickrank_tpu/trees/qs.py: ``ensemble_to_qs(space="value")``
-and ``score_qs``).
+(counterpart of quickrank_tpu/trees/qs.py: ``ensemble_to_qs`` in value and
+bin space, and ``score_qs``).
 
 QuickScorer (Lucchese et al., SIGIR 2015) evaluates a tree without walking
 it.  Every internal node carries the set of leaves that become unreachable
@@ -63,16 +63,25 @@ class QSEnsemble:
         )
 
 
-def ensemble_to_qs(ens) -> QSEnsemble:
-    """Host-side table build from an EnsembleTensors (value space).
+def ensemble_to_qs(ens, space: str = "value") -> QSEnsemble:
+    """Host-side table build from an EnsembleTensors.
+
+    ``space="bin"`` takes the thresholds from ``threshold_bin``: scoring the
+    binned matrix through the same scorer is then the training-time routing
+    (``bin <= threshold_bin`` is ``v <= threshold`` by the binning's
+    construction, and bin ids are exact in the float32 compare).  Warm
+    starts rescore that way, because raw features never reach the device.
 
     Iterative walks, so a chain-shaped imported tree does not ride Python's
     recursion limit."""
+    if space not in ("value", "bin"):
+        raise ValueError(f"space must be 'value' or 'bin', got {space!r}")
     h = ens.numpy()
     T = int(ens.num_trees)
     cap = ens.capacity
     max_nodes = ens.max_nodes
-    feat, thrv = h["feature"], h["threshold"]
+    feat = h["feature"]
+    thrv = h["threshold"] if space == "value" else h["threshold_bin"].astype(np.float32)
     left, right = h["left"], h["right"]
     isleaf, lv = h["is_leaf"], h["leaf_value"]
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from quickrank_tpu_torch.trees.oblivious import ObliviousEnsemble
 from quickrank_tpu_torch.trees.structs import EnsembleTensors
 
 
@@ -81,3 +82,24 @@ def random_bestfirst_ensemble(num_trees, nleaves, num_features, seed=0):
         left=left, right=right, is_leaf=is_leaf, leaf_value=leaf_value,
         weight=np.full((T,), 0.1, np.float32), num_trees=T,
     ))
+
+
+def random_oblivious_ensemble(num_trees: int, depth: int, num_features: int,
+                              seed: int = 0, num_docs: int = 1 << 17):
+    """(features f32 [num_docs, num_features], ObliviousEnsemble): the
+    scoring workload of the JAX package's ``bench.py`` (bench.py:74-86),
+    drawn as it draws it: one ``default_rng(seed)`` gives the normal
+    features first, then the split features, thresholds and leaf values;
+    every tree weighs 0.1.  Features and model come from one generator, so
+    they are returned together."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(num_docs, num_features)).astype(np.float32)
+    ens = ObliviousEnsemble.from_numpy(dict(
+        fid=rng.integers(0, num_features, size=(num_trees, depth)).astype(np.int32),
+        thr=rng.normal(size=(num_trees, depth)).astype(np.float32),
+        thr_bin=np.zeros((num_trees, depth), np.int32),
+        leaf=rng.normal(size=(num_trees, 2 ** depth)).astype(np.float32),
+        weight=np.full((num_trees,), 0.1, np.float32),
+        num_trees=num_trees,
+    ))
+    return feats, ens

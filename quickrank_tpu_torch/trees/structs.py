@@ -119,6 +119,10 @@ class EnsembleTensors:
         self.weight[t] = weight
         self.num_trees = t + 1
 
+    def tree(self, t: int) -> Tree:
+        """Slot ``t`` as a :class:`Tree` (views, not copies)."""
+        return Tree(**{k: getattr(self, k)[t] for k in _DTYPES if k != "weight"})
+
     def live(self) -> "EnsembleTensors":
         """The first ``num_trees`` slots only (dead capacity trimmed)."""
         T = self.num_trees

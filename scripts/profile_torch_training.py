@@ -59,7 +59,10 @@ def main() -> int:
 
     p = argparse.ArgumentParser()
     p.add_argument("--queries", type=int, default=19000)
-    p.add_argument("--growth", default="best", choices=["best", "level"])
+    p.add_argument("--growth", default="best",
+                   choices=["best", "level", "bestk", "oblivious"],
+                   help="grower; 'oblivious' trains ObliviousLambdaMart of depth 4")
+    p.add_argument("--split-pack", type=int, default=4, help="splits a round for bestk")
     p.add_argument("--trees", type=int, default=6)
     p.add_argument("--skip", type=int, default=2, help="iterations left out of the window")
     p.add_argument("--trace", help="write a chrome trace here")
@@ -69,17 +72,24 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
-    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
     from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.trees import grow
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     ds = make_ranking_dataset(num_queries=args.queries, seed=11)
-    kw = dict(nleaves=16, nthresholds=255, growth=args.growth, seed=1,
-              max_depth=4 if args.growth == "level" else 0)
-    LambdaMart(ntrees=2, **kw).learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+    if args.growth == "oblivious":
+        def make(ntrees):
+            return ObliviousLambdaMart(ntrees=ntrees, treedepth=4, nthresholds=255, seed=1)
+    else:
+        def make(ntrees):
+            return LambdaMart(ntrees=ntrees, nleaves=16, nthresholds=255, seed=1,
+                              growth=args.growth, split_pack=args.split_pack,
+                              max_depth=4 if args.growth == "level" else 0)
+    make(2).learn(ds, None, Ndcg(10), verbose=False, device="cuda")
 
     windows = []
     step = Mart._step
@@ -95,7 +105,8 @@ def main() -> int:
     Mart._step = timed_step
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        lm = LambdaMart(ntrees=args.trees, **kw)
+        lm = make(args.trees)
+        grow.HOST_SYNCS = 0
         lm.learn(ds, None, Ndcg(10), verbose=False, device="cuda")
     Mart._step = step
     events = prof.events()
@@ -112,6 +123,7 @@ def main() -> int:
     print(json.dumps({
         "growth": args.growth, "docs": ds.num_docs, "queries": ds.num_queries,
         "seconds_per_tree": per_tree, "splits_per_tree": splits,
+        "host_syncs_per_tree": grow.HOST_SYNCS / args.trees,
         "device_busy_share": busy / total if total else None,
         "device_idle_share": 1 - busy / total if total else None,
         "window_us": total, "busy_us": busy, "card": card,

@@ -10,7 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from quickrank_tpu_torch.ops import _cuda, kernel_histogram, kernel_perfect, kernel_qs
+from quickrank_tpu_torch.ops import (
+    _cuda,
+    kernel_histogram,
+    kernel_oblivious,
+    kernel_perfect,
+    kernel_qs,
+)
+from quickrank_tpu_torch.ops import oblivious as plain_oblivious
+from quickrank_tpu_torch.trees.oblivious import ObliviousEnsemble
 from quickrank_tpu_torch.trees.perfect import ensemble_to_perfect, score_perfect
 from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
 from quickrank_tpu_torch.trees.random_ensemble import (
@@ -107,6 +115,75 @@ def test_perfect_kernel_matches_plain_on_card(cuda_device, depth):
     assert torch.equal(got, score_perfect(X, pe))
 
 
+def _oblivious(T, D, F, seed, dead_tree=None):
+    rng = np.random.default_rng(seed)
+    d = dict(fid=rng.integers(0, F, size=(T, D)), thr=rng.normal(size=(T, D)),
+             thr_bin=rng.integers(0, 200, size=(T, D)), leaf=rng.normal(size=(T, 2 ** D)),
+             weight=rng.uniform(0.05, 0.3, size=T), num_trees=T)
+    if dead_tree is not None:
+        d["thr"][dead_tree] = np.finfo(np.float32).max
+        d["thr_bin"][dead_tree] = 2 ** 30
+    return ObliviousEnsemble.from_numpy(d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,T,D,F", [(1, 30, 4, 24), (257, 30, 4, 24), (1000, 1, 4, 24),
+                                     (1000, 30, 1, 24), (1000, 100, 8, 24),
+                                     (300, 7, 12, 24), (300, 30, 4, 700)])
+def test_oblivious_kernel_matches_plain_on_card(cuda_device, N, T, D, F):
+    """K3 bitwise against its plain version: one doc, one past two blocks,
+    one tree, depth 1, depth 8 (several tiles of trees), depth 12 (one tree
+    a tile), rows too wide to stage in shared memory, with an all-dead tree
+    where there is room for one."""
+    ens = _oblivious(T, D, F, seed=N + T + D, dead_tree=1 if T > 1 else None)
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((N, F), dtype=np.float32))
+    before = kernel_oblivious.LAUNCHES
+    got = kernel_oblivious.score_oblivious(X.to(cuda_device), ens.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernel_oblivious.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), plain_oblivious.score_oblivious(X, ens))
+    assert torch.equal(got, plain_oblivious.score_oblivious(X.to(cuda_device),
+                                                          ens.to(cuda_device)))
+
+
+@pytest.mark.gpu
+def test_oblivious_kernel_scores_bins_on_card(cuda_device):
+    ens = _oblivious(40, 4, 24, seed=3, dead_tree=2)
+    bins = torch.from_numpy(np.random.default_rng(1).integers(0, 256, size=(999, 24))).to(
+        torch.uint8)
+    got = kernel_oblivious.score_oblivious(bins.to(cuda_device), ens.to(cuda_device))
+    assert torch.equal(got.cpu(), plain_oblivious.score_oblivious_binned(bins, ens))
+
+
+@pytest.mark.gpu
+def test_oblivious_kernel_threshold_equality_on_card(cuda_device):
+    """A feature equal to its threshold routes left, on the card too."""
+    ens = _oblivious(4, 2, 8, seed=5)
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal((16, 8), dtype=np.float32))
+    for t in range(4):
+        for d in range(2):
+            X[t * 2 + d, int(ens.fid[t, d])] = ens.thr[t, d]
+    idx = plain_oblivious.leaf_index(X, ens.fid, ens.thr)
+    assert all(int(idx[t * 2, t]) < 2 and int(idx[t * 2 + 1, t]) % 2 == 0 for t in range(4))
+    got = kernel_oblivious.score_oblivious(X.to(cuda_device), ens.to(cuda_device))
+    assert torch.equal(got.cpu(), plain_oblivious.score_oblivious(X, ens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["contiguous", "dtype", "int32-bins", "cpu-model", "deep"])
+def test_oblivious_kernel_refuses_on_card(cuda_device, bad):
+    """What the kernel does not take raises; nothing falls to the plain
+    version."""
+    ens = _oblivious(3, 13 if bad == "deep" else 2, 8, seed=1)
+    X = torch.zeros((16, 8), device=cuda_device)
+    X = {"contiguous": torch.zeros((8, 16), device=cuda_device).T, "dtype": X.double(),
+         "int32-bins": X.int(), "cpu-model": X, "deep": X}[bad]
+    before = kernel_oblivious.LAUNCHES
+    with pytest.raises(ValueError):
+        kernel_oblivious.score_oblivious(X, ens if bad == "cpu-model" else ens.to(cuda_device))
+    assert kernel_oblivious.LAUNCHES == before
+
+
 def _histogram_inputs(N=6000, W=40, num_bins=256, seed=0):
     """u8 bins (some >= num_bins, dropped), channel-major values zero on a
     tenth of the docs, node ids in [0, 16)."""
@@ -130,11 +207,14 @@ def _assert_within_sum_tolerance(got, plain, mass, terms, rounding, count_channe
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("num_bins,n0,k", [(256, 0, 1), (64, 0, 1), (256, 3, 10), (64, 2, 4)])
-def test_node_histogram_kernel_matches_plain_on_card(cuda_device, num_bins, n0, k):
+@pytest.mark.parametrize("num_bins,n0,k,C", [(256, 0, 1, 3), (64, 0, 1, 3), (256, 3, 10, 3),
+                                             (64, 2, 4, 3), (256, 0, 16, 2), (256, 0, 8, 2)])
+def test_node_histogram_kernel_matches_plain_on_card(cuda_device, num_bins, n0, k, C):
     """K4 against its plain version, and bitwise equal to itself across
-    launches (integer sums in any order)."""
+    launches (integer sums in any order); C = 2 with k = 8 and 16 are the
+    oblivious grower's levels (64 KB of shared memory a feature at k = 16)."""
     binned, vt, pos = (torch.from_numpy(a) for a in _histogram_inputs(num_bins=num_bins))
+    vt = vt[:C].contiguous()
     dev = [t.to(cuda_device) for t in (binned, vt, pos)]
     before = kernel_histogram.LAUNCHES["node_histogram"]
     got = kernel_histogram.node_histogram(*dev, num_bins, n0, k)
@@ -146,7 +226,7 @@ def test_node_histogram_kernel_matches_plain_on_card(cuda_device, num_bins, n0, 
                           for v in (vt, vt.abs(), torch.ones_like(vt)))
     _assert_within_sum_tolerance(got, plain, mass, terms,
                                  kernel_histogram.rounding_error(vt).repeat(k),
-                                 slice(0, None, 3))
+                                 slice(0, None, C))
 
 
 @pytest.mark.gpu
@@ -167,20 +247,49 @@ def test_histogram_kernel_matches_plain_on_card(cuda_device, num_slots):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("growth", ["best", "level"])
+@pytest.mark.parametrize("growth", ["best", "level", "bestk", "oblivious"])
 def test_training_on_card_goes_through_kernels(cuda_device, growth):
-    """A short LambdaMART run on the card launches K4 (and K5 for
-    best-first), and tracks the same run on the CPU."""
+    """A short LambdaMART run on the card (the default device) launches K4
+    (and K5 unless level-wise), and tracks the same run on the CPU."""
     from quickrank_tpu_torch.data.synthetic import make_train_valid_test
-    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
     from quickrank_tpu_torch.metrics import Ndcg
 
     train, valid, _ = make_train_valid_test(num_queries=(40, 10, 10))
-    kw = dict(ntrees=3, nleaves=16, growth=growth, max_depth=4 if growth == "level" else 0)
+    if growth == "oblivious":
+        make = lambda: ObliviousLambdaMart(ntrees=3, treedepth=4)  # noqa: E731
+    else:
+        make = lambda: LambdaMart(ntrees=3, nleaves=16, growth=growth,  # noqa: E731
+                                  max_depth=4 if growth == "level" else 0)
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
-    card = LambdaMart(**kw).learn(train, valid, Ndcg(10), verbose=False, device="cuda")
+    card = make().learn(train, valid, Ndcg(10), verbose=False)
     assert kernel_histogram.LAUNCHES["node_histogram"] > 0
-    assert (kernel_histogram.LAUNCHES["histogram"] > 0) == (growth == "best")
-    cpu = LambdaMart(**kw).learn(train, valid, Ndcg(10), verbose=False, device="cpu")
+    assert (kernel_histogram.LAUNCHES["histogram"] > 0) == (growth != "level")
+    cpu = make().learn(train, valid, Ndcg(10), verbose=False, device="cpu")
     np.testing.assert_allclose(card["train"], cpu["train"], atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_warm_start_rescore_on_card_goes_through_qs_kernel(cuda_device):
+    """On the card a warm start rescoring rides K1 on the u8 bin matrix and
+    reproduces the carried scores bit for bit."""
+    from quickrank_tpu_torch.data.synthetic import make_train_valid_test
+    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.learning.mart import TrainData, rebin_ensemble, rescore_binned
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, _, _ = make_train_valid_test(num_queries=(40, 10, 10))
+    lm = LambdaMart(ntrees=4, nleaves=16)
+    lm.learn(train, None, Ndcg(10), verbose=False)
+    td = TrainData.build(train, lm.nthresholds)
+    before = kernel_qs.LAUNCHES
+    rebinned = rebin_ensemble(lm.ensemble, td.thresholds, force=True)
+    got = rescore_binned(rebinned, td.step, lm._descend_depth())
+    assert kernel_qs.LAUNCHES == before + 1
+    assert torch.equal(got, lm.train_scores)
+    # and the kernel's u8 entry equals its own plain version on those bins
+    tables = ensemble_to_qs(rebinned, space="bin").to(cuda_device)
+    assert torch.equal(got, score_qs(td.step.binned, tables))
+    lm.ntrees = 6
+    assert len(lm.learn(train, None, Ndcg(10), verbose=False, warm_start=True)["train"]) == 2

@@ -85,7 +85,7 @@ def test_splits_generator_and_layout_match_jax():
     for k in ("labels", "doc_mask", "pad_index", "slot_mask", "query_mask",
               "nvalid", "orig_index", "inv_q", "inv_slot"):
         np.testing.assert_array_equal(getattr(p, k).numpy(), np.asarray(getattr(jp, k)))
-    jt, t = JaxTrainData.build(jtr, 255), TrainData.build(tr, 255)
+    jt, t = JaxTrainData.build(jtr, 255), TrainData.build(tr, 255, device="cpu")
     assert t.step.binned.dtype == torch.uint8
     np.testing.assert_array_equal(t.step.binned.numpy(), np.asarray(jt.step.binned))
     np.testing.assert_array_equal(t.thresholds, np.asarray(jt.step.thresholds))

@@ -88,7 +88,7 @@ def test_lambdamart_gradients_match_jax():
     jds = jax_make(num_queries=11, num_features=5, seed=6)
     ds = Dataset(jds.features, jds.labels, jds.query_offsets, jds.qids)
     jtr = JaxTrainData.build(jds, 31)
-    tr = TrainData.build(ds, 31)
+    tr = TrainData.build(ds, 31, device="cpu")
     N = tr.padded.num_docs_padded
     rng = np.random.default_rng(4)
     scores = rng.normal(size=N).astype(np.float32)

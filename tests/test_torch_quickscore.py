@@ -86,10 +86,9 @@ def test_quickscore_matches_jax(files, name, capsys):
 
 def test_quickscore_refuses_unported_type(files, capsys):
     svml, models, d = files
-    bad = d / "obv.xml"
+    bad = d / "dart.xml"
     with open(models["balanced"]) as f:
-        bad.write_text(f.read().replace("<type>LAMBDAMART</type>",
-                                        "<type>OBVLAMBDAMART</type>"))
+        bad.write_text(f.read().replace("<type>LAMBDAMART</type>", "<type>DART</type>"))
     with pytest.raises(NotImplementedError):
         quickscore.main(["-d", svml, "-m", str(bad), "--device", "cpu"])
 

@@ -104,16 +104,16 @@ def test_xml_round_trip_scores_equal_in_jax(runs, tmp_path):
     assert type(jm).__name__.upper() == p.NAME
     assert (jm.growth, jm.nleaves, jm.max_depth) == (p.growth, p.nleaves, p.max_depth)
     want = np.asarray(jm.score_dataset(test))
-    got = p.score_dataset(_port_ds(test))
+    got = p.score_dataset(_port_ds(test), device="cpu")
     if p.scorer_path() == "qs":
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=2e-6 * max(1.0, np.abs(want).max()))
     back = LTRAlgorithm.load(path)
-    np.testing.assert_array_equal(back.score_dataset(_port_ds(test)), got)
+    np.testing.assert_array_equal(back.score_dataset(_port_ds(test), device="cpu"), got)
     # evaluate: the metric of the model's scores, as JAX computes it
-    assert p.evaluate(_port_ds(test), Ndcg(10)) == pytest.approx(
+    assert p.evaluate(_port_ds(test), Ndcg(10), device="cpu") == pytest.approx(
         jm.evaluate(test, JaxNdcg(10)), abs=1e-5)
 
 
@@ -126,7 +126,7 @@ def test_carried_scores_equal_rescore(splits, with_valid):
     train, valid, _ = splits
     p = LambdaMart(ntrees=6, nleaves=8, nthresholds=63, seed=1, esr=2)
     p.learn(_port_ds(train), _port_ds(valid) if with_valid else None, Ndcg(10),
-            verbose=False)
+            verbose=False, device="cpu")
     ds = _port_ds(train)
     want = score_ensemble(torch.from_numpy(ds.features), p.ensemble, max_depth=8)
     np.testing.assert_array_equal(p.train_scores[: ds.num_docs].numpy(), want.numpy())
@@ -174,21 +174,58 @@ def test_kahan_carry_is_fused_like_jax(growth):
 
 
 @pytest.mark.parametrize("setting,item", [
-    (dict(growth="bestk"), "item 4"),
-    (dict(collapse_leaves_factor=0.5), "item 4"),
+    (dict(growth="bestk"), None),
+    (dict(collapse_leaves_factor=0.5), None),
     (dict(cluster="on"), "item 11"),
 ])
 def test_unported_settings_raise(setting, item, splits):
+    """Settings that are not ported raise, naming their ROADMAP item, before
+    any device work; best-k growth and the leaf collapse (``item`` None)
+    train."""
+    lm = LambdaMart(ntrees=1, **setting)
+    if item is None:
+        hist = lm.learn(_port_ds(splits[0]), verbose=False, device="cpu")
+        assert lm.ensemble.num_trees == 1 and np.isfinite(hist["train"]).all()
+        assert int((~lm.ensemble.is_leaf[0]).sum()) >= 1
+        return
     with pytest.raises(NotImplementedError, match=item):
-        LambdaMart(ntrees=1, **setting).learn(_port_ds(splits[0]), verbose=False)
+        lm.learn(_port_ds(splits[0]), verbose=False)
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 10"), (dict(warm_start=True), "item 4"),
+    (dict(mesh=object()), "item 10"), (dict(warm_start=True), None),
     (dict(partial_save=5), "item 9")])
 def test_unported_learn_options_raise(kw, item, splits):
+    """A mesh and partial saves raise; a warm start without a model
+    (``item`` None) trains from scratch, as in the JAX package."""
+    lm = LambdaMart(ntrees=1)
+    if item is None:
+        hist = lm.learn(_port_ds(splits[0]), verbose=False, device="cpu", **kw)
+        assert lm.ensemble.num_trees == 1 and len(hist["train"]) == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
-        LambdaMart(ntrees=1).learn(_port_ds(splits[0]), verbose=False, **kw)
+        lm.learn(_port_ds(splits[0]), verbose=False, **kw)
+
+
+def test_entry_points_default_to_the_card(splits):
+    """learn, score_dataset, evaluate, device_scorer and TrainData.build run
+    on the CUDA card unless told otherwise; where there is none they raise,
+    naming ``device="cpu"``, and never carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    ds = _port_ds(splits[0])
+    lm = LambdaMart(ntrees=1, nleaves=4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm.learn(ds, verbose=False)
+    assert lm.ensemble is None
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TrainData.build(ds, 31)
+    lm.learn(ds, verbose=False, device="cpu")
+    for call in (lambda: lm.score_dataset(ds), lambda: lm.evaluate(ds, Ndcg(10)),
+                 lambda: lm.device_scorer(ds)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert lm.score_dataset(ds, device="cpu").shape == (ds.num_docs,)
 
 
 def test_wide_bins_refused_on_cuda(splits):

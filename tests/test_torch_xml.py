@@ -93,7 +93,7 @@ def test_unported_types_raise_not_implemented(tmp_path):
     path = tmp_path / "m.xml"
     m.save(str(path))
     text = path.read_text()
-    for other in ("OBVMART", "DART", "RANKBOOST"):
+    for other in ("COORDASC", "DART", "RANKBOOST"):
         path.write_text(text.replace("<type>MART</type>", f"<type>{other}</type>"))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             xml_model.load_model(str(path))
@@ -103,7 +103,8 @@ def test_unported_types_raise_not_implemented(tmp_path):
 
 
 def test_learn_is_not_ported():
-    """Training is ported for best-first and level-wise growth; best-k
-    growth still refuses, naming its ROADMAP item, before touching data."""
+    """Training is ported for best-first, best-k and level-wise growth; the
+    node-clustered grower still refuses, naming its ROADMAP item, before
+    touching data."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LambdaMart(growth="bestk").learn(None)
+        LambdaMart(cluster="on").learn(None)
