@@ -14,7 +14,13 @@ at 131,072 x 136 (1000 trees of depth 4 and other shapes, value and bin
 space), ObliviousLambdaMART trained on the 19,000 queries, saved and served
 through ``quickscore.main``, best-k growth beside best-first, a warm start
 whose rescore rides the QuickScorer kernel on the bin matrix, and the
-oblivious learner on the card against the CPU.  The wrappers' launch
+oblivious learner on the card against the CPU.  The node-clustered grower
+(phases 13-16): the row-partition kernel on the 2,655,232 x 160 work buffer
+under three directive sets, the clustered tree held against the
+dataset-order tree, LambdaMART with ``cluster="on"`` beside ``cluster="off"``,
+and the card against the CPU.  Phase 17 trains, saves and scores through the
+quicklearn command line (``quickrank_tpu_torch.cli.main``) and holds its
+scores against quickscore's.  The wrappers' launch
 counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
 memory rate and operations over its float32 rate).
@@ -706,6 +712,279 @@ def main() -> int:
     require(levels[0] == levels[1], "oblivious: the first tree's levels differ")
     require(diff <= 1e-3, f"oblivious: train NDCG@10 differs by {diff}")
 
+
+    # -- phase 13: the row-partition kernel against its plain version -------
+    from quickrank_tpu_torch.ops import kernel_partition
+    from quickrank_tpu_torch.ops.histogram import masked_histogram_t
+    from quickrank_tpu_torch.trees import grow_cluster
+
+    td = TrainData.build(train_ds, 255)
+    binned = td.step.binned
+    N, W = binned.shape
+    F_real = td.num_real_features
+    cfg = grow.GrowConfig(nleaves=16, min_leaf_support=1, num_bins=256,
+                          num_real_features=F_real)
+    n_work = grow_cluster.work_rows(N, cfg.max_nodes)
+    T_w = n_work // kernel_partition.TILE
+    pos_col = W + grow_cluster._POS
+    print(f"phase 13: partition_rows against the plain version on the {n_work} x {W} u8 "
+          f"work buffer ({T_w} tiles) of {N} docs, on {card}")
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    # integer pseudoresponses: every histogram sum is exact in the kernels'
+    # fixed point, so the clustered and the dataset-order tree must be equal
+    g_int = torch.randint(-8, 9, (N,), generator=gen).float().to(dev)
+    thr_dev = torch.from_numpy(td.thresholds)
+
+    def split_bits(data, fstar, tstar):
+        """Routing bits of every row from per-tile (feature, bin) splits: what
+        the kernel recomputes and the plain version is given."""
+        tile = torch.arange(data.shape[0], device=dev) // kernel_partition.TILE
+        left = data.gather(1, fstar[tile].long()[:, None])[:, 0].int() <= tstar[tile]
+        return torch.where(data[:, pos_col] > 0, torch.where(left, 0, 1), 2).to(torch.int32)
+
+    def check_partition(label, data, mode, dsta, dstb, sz, so, fstar, tstar):
+        """Kernel against plain version, byte for byte; (kernel ms, plain ms,
+        row-scatter ms, bound, largest byte difference)."""
+        bit = split_bits(data, fstar, tstar)
+        out = torch.empty_like(data)
+        run = lambda: kernel_partition.partition_rows(  # noqa: E731
+            data, None, mode, dsta, dstb, sz, so, pos_col, fstar=fstar, tstar=tstar, out=out)
+        plain_fn = lambda: kernel_partition.partition_rows_plain(  # noqa: E731
+            data, bit, mode, dsta, dstb, sz, so, pos_col)
+        got, plain = run(), plain_fn()
+        torch.cuda.synchronize()
+        differs = got != plain
+        n_diff = int(differs.any(dim=1).sum())
+        byte_err = max(int((got[r:r + (1 << 20)].int() - plain[r:r + (1 << 20)].int())
+                           .abs().max()) for r in range(0, n_work, 1 << 20))
+        modes = torch.bincount(mode, minlength=3).tolist()
+        live = int((got[:, pos_col] > 0).sum())
+        print(f"  {label}: tiles copy/move/dead {modes}, {live} live rows out, {n_diff} rows "
+              f"differ from the plain version, largest byte difference {byte_err}")
+        require(n_diff == 0 and byte_err == 0, f"partition_rows {label}: {n_diff} rows differ")
+        require(live == int(((mode[torch.arange(n_work, device=dev) // 1024] != 2)
+                             & (data[:, pos_col] > 0)).sum()),
+                f"partition_rows {label}: live rows were lost")
+        k_ms = time_ms(run, reps=20)
+        p_ms = time_ms(plain_fn, reps=3)
+        # the nearest library figure: the row scatter alone, destinations given
+        dest, _ = kernel_partition.row_destinations(data, bit, mode, dsta, dstb, sz, so,
+                                                    pos_col)
+        keep = (dest < n_work).nonzero()[:, 0]
+        rows, dest = data[keep], dest[keep]
+        s_ms = time_ms(lambda: out.index_copy_(0, dest, rows), reps=10)
+        moved = int((mode == kernel_partition.MODE_MOVE).sum()) * kernel_partition.TILE
+        bound = bound_ms(2 * nbytes_of(data) + nbytes_of(mode, dsta, dstb, sz, so, fstar, tstar),
+                         2 * moved)  # a liveness test and a compare a moved row
+        print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, row scatter alone "
+              f"(index_copy_, destinations given) {s_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+              f"{bound[1]}")
+        return k_ms, p_ms, s_ms, bound, byte_err
+
+    full = lambda v: torch.full((T_w,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    # (a) and (b): the root split and a mid-tree split, taken from the grower
+    captured = {}
+    real_partition = grow_cluster.partition_rows
+
+    def capture(data, bit, mode, dsta, dstb, sz, so, pc, fstar=None, tstar=None, out=None):
+        k = len(captured)
+        if k in (0, 7):
+            captured[k] = (data.clone() if k else None, mode, dsta, dstb, sz, so, fstar, tstar)
+        else:
+            captured[k] = None
+        return real_partition(data, bit, mode, dsta, dstb, sz, so, pc, fstar=fstar,
+                              tstar=tstar, out=out)
+
+    grow_cluster.partition_rows = capture
+    try:
+        ctree, cnode = grow_cluster.fit_tree_clustered(binned, g_int, td.step.doc_mask,
+                                                       thr_dev, cfg)
+    finally:
+        grow_cluster.partition_rows = real_partition
+    require(len(captured) == 15, f"the clustered tree took {len(captured)} splits, not 15")
+    work0 = grow_cluster.build_work_buffer(binned, g_int, td.step.doc_mask, n_work)
+    k6_runs = [check_partition("root split (every data tile MOVE)", work0, *captured[0][1:])]
+    require(int((captured[0][1] == kernel_partition.MODE_MOVE).sum()) == N // 1024,
+            "the root split does not move every data tile")
+    mid = captured[7]
+    k6_runs.append(check_partition("split 8 of the tree (from the grower)", *mid))
+
+    # K4 as the clustered grower calls it (a row range of the work buffer,
+    # f_used = the real features, payload bytes in the pad columns, channel
+    # values rebuilt from the payload) against its plain version
+    def hold_k4(label, rows, chan, mask):
+        pos = torch.where(mask, 0, 1).to(torch.int32)
+        got = masked_histogram_t(rows, chan, mask, 256, f_used=F_real)
+        plain = kernel_histogram.node_histogram_plain(rows, chan, pos, 256, 0, 1, f_used=F_real)
+        c64 = chan.double()
+        exact, mass, terms = (
+            kernel_histogram.node_histogram_plain(rows, x, pos, 256, 0, 1, f_used=F_real)
+            for x in (c64, c64.abs(), torch.ones_like(c64)))
+        require(got.shape == (F_real, 256, 3), f"K4 {label}: shape {tuple(got.shape)}")
+        hist_err["node_histogram"] = max(hist_err["node_histogram"], check_histogram(
+            f"K4 {label}", got, plain, exact, mass, terms, slice(0, None, 3),
+            kernel_histogram.rounding_error(chan)))
+        return got
+
+    chan_root, pos_r, live_r = grow_cluster._channels(work0[:N])
+    hold_k4(f"clustered root ({N} rows, f_used={F_real})", work0[:N], chan_root,
+            (pos_r == 0) & live_r)
+    mid_data, mid_mode, fs, ts = mid[0], mid[1], int(mid[6][0]), int(mid[7][0])
+    move_tiles = (mid_mode == kernel_partition.MODE_MOVE).nonzero()[:, 0]
+    r0, r1 = int(move_tiles[0]) * 1024, (int(move_tiles[-1]) + 1) * 1024
+    chan_t, _, live = grow_cluster._channels(mid_data)
+    in_run = torch.zeros(n_work, dtype=torch.bool, device=dev)
+    in_run[r0:r1] = True
+    to_left = in_run & live & (mid_data[:, fs] <= ts)
+    run_args = (mid_data[r0:r1], chan_t[:, r0:r1].contiguous(), to_left[r0:r1].contiguous())
+    h_run = hold_k4(f"split 8's run ({r1 - r0} rows, f_used={F_real})", *run_args)
+    # the same run with float gradients, where the fixed point does round
+    g_f = torch.randn(r1 - r0, generator=gen).to(dev) * run_args[1][0]
+    hold_k4("split 8's run, float gradients", run_args[0],
+            torch.stack([run_args[1][0], g_f, g_f * g_f]), run_args[2])
+    # K4 over the splitting node's run alone against K4 over the whole buffer;
+    # integer gradients are exact in the fixed point at either launch's scale
+    h_all = hold_k4(f"split 8 over the whole buffer ({n_work} rows)", mid_data, chan_t, to_left)
+    require(torch.equal(h_run, h_all),
+            "K4 over the run and over the whole buffer differ on integer gradients")
+    k4_run_ms = time_ms(lambda: masked_histogram_t(*run_args, 256, f_used=F_real), reps=20)
+    k4_all_ms = time_ms(lambda: masked_histogram_t(mid_data, chan_t, to_left, 256,
+                                                   f_used=F_real), reps=20)
+    print(f"  K4 for split 8's left child ({int(to_left.sum())} docs of a run of {r1 - r0} "
+          f"rows): {k4_run_ms:.4f} ms over the run, {k4_all_ms:.4f} ms over the whole "
+          f"buffer; the two histograms are equal")
+    # (c) randomized: per-tile modes, splits and stamps, dead rows in MOVE tiles
+    rnd = work0.clone()
+    rnd[(torch.rand(n_work, generator=gen) < 0.1).to(dev), pos_col] = 0
+    mode = torch.where(torch.arange(T_w) < N // 1024,
+                       torch.randint(0, 3, (T_w,), generator=gen), 2).to(torch.int32).to(dev)
+    fstar = torch.randint(0, F_real, (T_w,), generator=gen, dtype=torch.int32).to(dev)
+    tstar = torch.randint(0, 256, (T_w,), generator=gen, dtype=torch.int32).to(dev)
+    sz = torch.randint(1, 256, (T_w,), generator=gen, dtype=torch.int32).to(dev)
+    so = torch.randint(1, 256, (T_w,), generator=gen, dtype=torch.int32).to(dev)
+    bit = split_bits(rnd, fstar, tstar).view(T_w, 1024)
+    is_move, is_copy = mode == kernel_partition.MODE_MOVE, mode == kernel_partition.MODE_COPY
+    zc = torch.where(is_move, ((bit == 0).sum(dim=1) + 7) // 8 * 8, 0)
+    oc = torch.where(is_move, ((bit == 1).sum(dim=1) + 7) // 8 * 8, 0)
+    size = torch.where(is_copy, 1024, zc + oc)
+    start = size.cumsum(0) - size  # every tile's rows follow the tile's before it
+    require(int(size.sum()) <= n_work, "the randomized layout overruns the work buffer")
+    k6_runs.append(check_partition(
+        "randomized directives (dead rows in MOVE tiles)", rnd, mode, start.to(torch.int32),
+        (start + zc).to(torch.int32), sz, so, fstar, tstar))
+    k6_times, k6_err = k6_runs[0], max(r[4] for r in k6_runs)
+    del captured, mid, mid_data, rnd, work0, chan_t, in_run, to_left, run_args, bit
+    del chan_root, pos_r, live_r, h_run, h_all, g_f
+
+    # -- phase 14: the clustered tree against the dataset-order tree ---------
+    print("phase 14: fit_tree_clustered against fit_tree on the card, integer gradients")
+    ptree, pnode = grow.fit_tree(binned, g_int, td.step.doc_mask, thr_dev, cfg)
+    fields = ("feature", "threshold", "threshold_bin", "left", "right", "is_leaf")
+    bad = [f for f in fields if not torch.equal(getattr(ctree, f), getattr(ptree, f))]
+    n_docs_diff = int((cnode != pnode).sum())
+    print(f"  {int((~ctree.is_leaf).sum())} splits; node fields that differ: {bad or 'none'}; "
+          f"docs routed to another node: {n_docs_diff} of {N}")
+    require(not bad and n_docs_diff == 0, "the clustered tree differs from fit_tree's")
+    del td, binned, g_int, ctree, cnode, ptree, pnode
+
+    # -- phase 15: LambdaMART with the clustered layout beside dataset order -
+    print(f"phase 15: LambdaMART cluster=on beside cluster=off, {TRAIN_TREES} trees at "
+          f"{train_ds.num_queries} queries, on {card}")
+    cluster_runs = {}
+    for cluster in ("off", "on"):
+        for counters in (kernel_histogram.LAUNCHES, kernel_partition.LAUNCHES):
+            for name in counters:
+                counters[name] = 0
+        grow.HOST_SYNCS = 0
+        lm = LambdaMart(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, seed=1, esr=100,
+                        cluster=cluster)
+        # no valid fold: no rollback, so all the trees stay to be compared
+        hist = lm.learn(train_ds, None, Ndcg(10), verbose=False)
+        per_tree = report_run(f"best@255 cluster={cluster}", lm, hist)
+        counts = {**kernel_histogram.LAUNCHES, **kernel_partition.LAUNCHES}
+        print(f"    kernel launches per tree: "
+              f"{ {k: v / TRAIN_TREES for k, v in counts.items()} }")
+        print(f"    train NDCG@10 {[round(x, 5) for x in hist['train']]}")
+        cluster_runs[cluster] = (lm, hist, per_tree, counts)
+    (off_m, off_h, off_s, _), (on_m, on_h, on_s, on_counts) = (cluster_runs["off"],
+                                                              cluster_runs["on"])
+    require(on_counts["partition_rows"] > 0 and on_counts["node_histogram"] > 0
+            and on_counts["histogram"] > 0,
+            f"a kernel of the clustered path was not launched: {on_counts}")
+    require(cluster_runs["off"][3]["partition_rows"] == 0,
+            "cluster=off launched the partition kernel")
+    root = [(int(m.ensemble.feature[0, 0]), int(m.ensemble.threshold_bin[0, 0]))
+            for m in (on_m, off_m)]
+    diff = float(np.abs(np.array(on_h["train"]) - np.array(off_h["train"])).max())
+    kept = min(on_m.ensemble.num_trees, off_m.ensemble.num_trees)
+    require(kept == TRAIN_TREES, f"a run kept {kept} trees, not {TRAIN_TREES}")
+    equal = sum(all(torch.equal(getattr(on_m.ensemble, f)[t], getattr(off_m.ensemble, f)[t])
+                    for f in fields) for t in range(kept))
+    print(f"  root split (feature, bin) on {root[0]}, off {root[1]}; max train NDCG@10 "
+          f"difference {diff:.3g}; {equal} of the {kept} trees are equal node for node "
+          f"(float gradients: reported, not required); s/tree on {on_s:.4f}, off {off_s:.4f} ({on_s / off_s:.2f}x)")
+    require(root[0] == root[1], "cluster=on: the root split differs from cluster=off's")
+    require(diff <= 1e-3, f"cluster=on: train NDCG@10 differs by {diff}")
+
+    # -- phase 16: the clustered grower, card against CPU --------------------
+    print(f"phase 16: LambdaMART cluster=on, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
+          f"against CPU")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        lm = LambdaMart(ntrees=CPU_TREES, nleaves=16, nthresholds=255, seed=1, cluster="on")
+        runs[device] = (lm, lm.learn(small, None, Ndcg(10), verbose=False, device=device))
+    (gpu_m, gpu_h), (cpu_m, cpu_h) = runs["cuda"], runs["cpu"]
+    root = [(int(m.ensemble.feature[0, 0]), int(m.ensemble.threshold_bin[0, 0]))
+            for m in (gpu_m, cpu_m)]
+    diff = float(np.abs(np.array(gpu_h["train"]) - np.array(cpu_h["train"])).max())
+    print(f"  root split (feature, bin) card {root[0]}, cpu {root[1]}; max train NDCG@10 "
+          f"difference {diff:.3g} over {CPU_TREES} iterations")
+    require(root[0] == root[1], "cluster=on: the root split differs between card and CPU")
+    require(diff <= 1e-3, f"cluster=on: train NDCG@10 differs by {diff} between card and CPU")
+
+    # -- phase 17: quicklearn on the card ------------------------------------
+    print("phase 17: quicklearn (cli.main) trains, saves and scores on the card")
+    from quickrank_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        write_svml(make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+                                        num_features=N_FEATURES, seed=0), svml)
+        model, scores = os.path.join(tmp, "cli.xml"), os.path.join(tmp, "cli.scores")
+        for counters in (kernel_histogram.LAUNCHES, kernel_partition.LAUNCHES):
+            for name in counters:
+                counters[name] = 0
+        kernel_qs.LAUNCHES = kernel_perfect.LAUNCHES = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--algo", "LAMBDAMART", "--train", svml, "--test", svml,
+                           "--num-trees", "4", "--num-leaves", "16", "--partial", "2",
+                           "--model-out", model, "--scores", scores])
+        print("".join(f"    {line}\n" for line in out.getvalue().splitlines()
+                      if line.startswith("# ") and not line.startswith("#  ")), end="")
+        cli_launches = {**kernel_histogram.LAUNCHES, "qs_score": kernel_qs.LAUNCHES,
+                        "perfect_score": kernel_perfect.LAUNCHES}
+        print(f"  kernel launches during quicklearn: {cli_launches}")
+        require(rc == 0, f"quicklearn: exit {rc}")
+        require(cli_launches["node_histogram"] > 0 and cli_launches["histogram"] > 0
+                and cli_launches["qs_score"] + cli_launches["perfect_score"] > 0,
+                f"quicklearn did not run its kernels: {cli_launches}")
+        require(os.path.exists(os.path.join(tmp, "cli.T2.xml")),
+                "quicklearn wrote no partial model")
+        loaded = LTRAlgorithm.load(model)
+        require(type(loaded) is LambdaMart and loaded.ensemble.num_trees == 4,
+                "quicklearn's model did not load as a 4-tree LambdaMART")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = quickscore.main(["-d", svml, "-m", model, "-r", "1",
+                                  "-s", os.path.join(tmp, "qs.scores")])
+        require(rc == 0, f"quickscore on quicklearn's model: exit {rc}")
+        got, want = np.loadtxt(scores), np.loadtxt(os.path.join(tmp, "qs.scores"))
+        require(got.shape == want.shape and np.isfinite(got).all()
+                and np.array_equal(got, want),
+                "quicklearn's test scores differ from quickscore's on the saved model")
+        print(f"  {got.shape[0]} test scores equal quickscore's on the saved model "
+              f"({loaded.scorer_path()} path)")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -726,10 +1005,16 @@ def main() -> int:
         row("histogram", "histogram.cu", "pallas_histogram.py:278",
             train_launches["histogram"], hist_err["histogram"], *k5_times, k5_bound,
             library_ms=k5_library),
+        # the largest byte difference over the three directive sets; no
+        # single PyTorch call computes the function (the row scatter alone is
+        # printed by phase 13)
+        row("partition_rows", "partition_rows.cu", "pallas_partition.py:236",
+            on_counts["partition_rows"], k6_err, k6_times[0], k6_times[1], k6_times[3]),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
-          f"{bestk_per_tree:.4f}, oblivious@255 {obl_per_tree:.4f}")
+          f"{bestk_per_tree:.4f}, oblivious@255 {obl_per_tree:.4f}, best@255 cluster=on "
+          f"{on_s:.4f} beside cluster=off {off_s:.4f}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Host-side dataset container and the padded per-query layout (counterpart
 of quickrank_tpu/data/dataset.py: ``Dataset``, ``shard_and_pad`` for one
-shard, ``pack_doc_values``, ``gather_padded`` and ``gather_unpad``).
+shard, ``select_columns``, ``pack_doc_values``, ``gather_padded`` and
+``gather_unpad``).
 
 Docs live in one flat ``[num_docs_padded]`` axis, queries contiguous, and
 ``pad_index`` turns flat per-doc arrays into ``[num_queries, max_docs]``
@@ -87,6 +88,22 @@ class Dataset:
         ds = Dataset(features, labels, offsets, qids, name=name)
         ds.validate()
         return ds
+
+
+def select_columns(ds: Dataset, keep: np.ndarray, name: str = "") -> Dataset:
+    """Dataset restricted to the 0-based feature columns ``keep`` (the
+    driver's --features selection; Cleaver::filter_dataset,
+    cleaver.cc:448-481).  ``keep`` must be in [0, num_features)."""
+    keep = np.asarray(keep)
+    if keep.size and (keep.min() < 0 or keep.max() >= ds.num_features):
+        raise ValueError(
+            f"feature selection out of range [0, {ds.num_features}): "
+            f"{int(keep.min())}..{int(keep.max())}"
+        )
+    qids = np.repeat(ds.qids, ds.docs_per_query())
+    return Dataset.from_arrays(
+        ds.features[:, keep], ds.labels, qids, name=name or ds.name
+    )
 
 
 def _round_up(x: int, m: int) -> int:

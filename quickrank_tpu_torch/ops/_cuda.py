@@ -44,6 +44,9 @@ SIGNATURES = {
     # stride_n, pos, n0, k, num_bins, maxbits, acc, out, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,
                          _I, _I, _P, _P, _P, _P],
+    # data, n, width, mode, dsta, dstb, stamp_z, stamp_o, fstar, tstar,
+    # pos_col, out, stream
+    "partition_rows": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -61,6 +61,11 @@ class GrowConfig:
     #: collapses into a leaf while n_nodes <= (2^(depth+1) - 1) * factor,
     #: and the pass stops at the first violation
     collapse_factor: float = 0.0
+    #: number of real feature columns (0 = all of binned's columns).  The
+    #: clustered grower (trees/grow_cluster.py) writes per-doc payload bytes
+    #: over binned's last pad columns, and keeps its histograms and split
+    #: scan to the real columns.
+    num_real_features: int = 0
 
     @property
     def max_nodes(self) -> int:

@@ -10,6 +10,7 @@ kernels.
 
 Run from the repository root:
     python scripts/profile_torch_training.py --queries 19000 --growth best
+    python scripts/profile_torch_training.py --growth best --cluster on
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ def main() -> int:
                    choices=["best", "level", "bestk", "oblivious"],
                    help="grower; 'oblivious' trains ObliviousLambdaMart of depth 4")
     p.add_argument("--split-pack", type=int, default=4, help="splits a round for bestk")
+    p.add_argument("--cluster", default="off", choices=["on", "off"],
+                   help="best-first growth over the node-clustered work buffer")
     p.add_argument("--trees", type=int, default=6)
     p.add_argument("--skip", type=int, default=2, help="iterations left out of the window")
     p.add_argument("--trace", help="write a chrome trace here")
@@ -88,6 +91,7 @@ def main() -> int:
         def make(ntrees):
             return LambdaMart(ntrees=ntrees, nleaves=16, nthresholds=255, seed=1,
                               growth=args.growth, split_pack=args.split_pack,
+                              cluster=args.cluster,
                               max_depth=4 if args.growth == "level" else 0)
     make(2).learn(ds, None, Ndcg(10), verbose=False, device="cuda")
 
@@ -121,7 +125,8 @@ def main() -> int:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
-        "growth": args.growth, "docs": ds.num_docs, "queries": ds.num_queries,
+        "growth": args.growth, "cluster": args.cluster, "docs": ds.num_docs,
+        "queries": ds.num_queries,
         "seconds_per_tree": per_tree, "splits_per_tree": splits,
         "host_syncs_per_tree": grow.HOST_SYNCS / args.trees,
         "device_busy_share": busy / total if total else None,

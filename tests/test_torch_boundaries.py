@@ -247,10 +247,13 @@ def test_histogram_kernel_matches_plain_on_card(cuda_device, num_slots):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("growth", ["best", "level", "bestk", "oblivious"])
+@pytest.mark.parametrize("growth", ["best", "level", "bestk", "oblivious", "clustered"])
 def test_training_on_card_goes_through_kernels(cuda_device, growth):
     """A short LambdaMART run on the card (the default device) launches K4
-    (and K5 unless level-wise), and tracks the same run on the CPU."""
+    (and K5 unless level-wise, and K6 when node-clustered), and tracks the
+    same run on the CPU."""
+    from quickrank_tpu_torch.ops import kernel_partition
+
     from quickrank_tpu_torch.data.synthetic import make_train_valid_test
     from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
     from quickrank_tpu_torch.metrics import Ndcg
@@ -258,12 +261,16 @@ def test_training_on_card_goes_through_kernels(cuda_device, growth):
     train, valid, _ = make_train_valid_test(num_queries=(40, 10, 10))
     if growth == "oblivious":
         make = lambda: ObliviousLambdaMart(ntrees=3, treedepth=4)  # noqa: E731
+    elif growth == "clustered":
+        make = lambda: LambdaMart(ntrees=3, nleaves=16, cluster="on")  # noqa: E731
     else:
         make = lambda: LambdaMart(ntrees=3, nleaves=16, growth=growth,  # noqa: E731
                                   max_depth=4 if growth == "level" else 0)
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
+    kernel_partition.LAUNCHES["partition_rows"] = 0
     card = make().learn(train, valid, Ndcg(10), verbose=False)
+    assert (kernel_partition.LAUNCHES["partition_rows"] > 0) == (growth == "clustered")
     assert kernel_histogram.LAUNCHES["node_histogram"] > 0
     assert (kernel_histogram.LAUNCHES["histogram"] > 0) == (growth != "level")
     cpu = make().learn(train, valid, Ndcg(10), verbose=False, device="cpu")

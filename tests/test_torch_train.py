@@ -176,12 +176,12 @@ def test_kahan_carry_is_fused_like_jax(growth):
 @pytest.mark.parametrize("setting,item", [
     (dict(growth="bestk"), None),
     (dict(collapse_leaves_factor=0.5), None),
-    (dict(cluster="on"), "item 11"),
+    pytest.param(dict(cluster="on"), None, id="setting2-item 11"),
 ])
 def test_unported_settings_raise(setting, item, splits):
     """Settings that are not ported raise, naming their ROADMAP item, before
-    any device work; best-k growth and the leaf collapse (``item`` None)
-    train."""
+    any device work; best-k growth, the leaf collapse and the node-clustered
+    layout (``item`` None; once ROADMAP item 11) train."""
     lm = LambdaMart(ntrees=1, **setting)
     if item is None:
         hist = lm.learn(_port_ds(splits[0]), verbose=False, device="cpu")
@@ -194,10 +194,11 @@ def test_unported_settings_raise(setting, item, splits):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 10"), (dict(warm_start=True), None),
-    (dict(partial_save=5), "item 9")])
+    pytest.param(dict(partial_save=5), None, id="kw2-item 9")])
 def test_unported_learn_options_raise(kw, item, splits):
-    """A mesh and partial saves raise; a warm start without a model
-    (``item`` None) trains from scratch, as in the JAX package."""
+    """A mesh raises; a warm start without a model (``item`` None) trains
+    from scratch, as in the JAX package, and so does ``partial_save`` without
+    a basename to save under (once ROADMAP item 9)."""
     lm = LambdaMart(ntrees=1)
     if item is None:
         hist = lm.learn(_port_ds(splits[0]), verbose=False, device="cpu", **kw)

@@ -103,8 +103,8 @@ def test_unported_types_raise_not_implemented(tmp_path):
 
 
 def test_learn_is_not_ported():
-    """Training is ported for best-first, best-k and level-wise growth; the
-    node-clustered grower still refuses, naming its ROADMAP item, before
-    touching data."""
+    """Training is ported for best-first (dataset order and node-clustered),
+    best-k and level-wise growth; a mesh still refuses, naming its ROADMAP
+    item, before touching data."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LambdaMart(cluster="on").learn(None)
+        LambdaMart(cluster="on").learn(None, mesh=object())
