@@ -3,10 +3,15 @@
 
 Builds the CUDA kernels from ``quickrank_tpu_torch/csrc`` and holds each
 against its plain PyTorch version at full width.  Scoring (phases 1-4): the
-QuickScorer and perfect-tree kernels at 131,072 docs x 136 features, and the
+QuickScorer and perfect-tree kernels at 131,072 docs x 136 features (the
+QuickScorer kernel also on rows too wide to stage in shared memory, on a
+doc count that ends mid-block and on uint8 bin rows), and the
 scoring slice end to end through ``quickscore.main`` on an MSLR-shaped SVML
 file and two XML models.  Training (phases 5-7): the histogram kernels on
-the 2.56M-doc binned matrix of 19,000 MSLR-shaped queries, LambdaMART
+the 2.56M-doc binned matrix of 19,000 MSLR-shaped queries (against their
+plain versions and, bit for bit, against their fixed-point arithmetic in
+plain PyTorch; a best-first-shaped pass over a scattered tenth of the docs
+beside the same docs as a contiguous run), LambdaMART
 trained on it with both growers (the carried scores held against the saved
 model's kernel scores), and a short run on the card held against the same
 run on the CPU.  The oblivious path (phases 8-12): the bit-OR scoring kernel
@@ -34,6 +39,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -223,8 +229,10 @@ def main() -> int:
     _cuda.library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:  # the mangled name holds the template's types
+            print("  ptxas:", line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print("  ptxas:  ", line.strip())
 
     rng = np.random.default_rng(1)
     X_host = rng.standard_normal((N_DOCS, N_FEATURES), dtype=np.float32)
@@ -252,6 +260,44 @@ def main() -> int:
         check_bitwise(f"qs {T}x{leaves} vs plain on card", got, plain, N_DOCS)
         check_bitwise(f"qs {T}x{leaves} vs CPU descent", got[:N_CHECK],
                       descent(ens), N_CHECK)
+
+    # the kernel's other paths: rows too wide to stage in shared memory (read
+    # from global memory), a doc count that ends mid-block, and uint8 bin rows
+    # against bin-space tables (the warm-start rescore's form)
+    rng_x = np.random.default_rng(21)
+    ens_wide = random_bestfirst_ensemble(64, 16, 700, seed=8)
+    X_wide = rng_x.standard_normal((8192, 700), dtype=np.float32)
+    ens_bins = random_bestfirst_ensemble(1000, 16, N_FEATURES, seed=5)
+    ens_bins.threshold_bin = torch.from_numpy(
+        rng_x.integers(0, 255, size=tuple(ens_bins.threshold.shape)).astype(np.int32))
+    bins_host = rng_x.integers(0, 256, size=(N_DOCS, N_FEATURES), dtype=np.uint8)
+    # the same trees in value space, their thresholds the bin ids: the CPU
+    # descent of these on the bins as float32 is the reference of the u8 entry
+    ens_bins_value = dataclasses.replace(ens_bins, threshold=ens_bins.threshold_bin.float())
+    qs_extra = {
+        "64x16 at 8192 docs x 700 (unstaged)": (
+            torch.from_numpy(X_wide).to(dev), ensemble_to_qs(ens_wide).to(dev),
+            ens_wide, torch.from_numpy(X_wide[:N_CHECK])),
+        "1000x16 at 100003 docs (ends mid-block)": (
+            X[:100003], qs_tables[(1000, 16)][1], qs_tables[(1000, 16)][0], X_check),
+        "1000x16 on u8 bins": (
+            torch.from_numpy(bins_host).to(dev),
+            ensemble_to_qs(ens_bins, space="bin").to(dev), ens_bins_value,
+            torch.from_numpy(bins_host[:N_CHECK]).float()),
+    }
+    for label, (feats, tables, ens, feats_check) in qs_extra.items():
+        got = kernel_qs.score_qs(feats, tables)
+        torch.cuda.synchronize()
+        plain = score_qs(feats, tables)
+        require(got.shape == (feats.shape[0],) and bool(torch.isfinite(got).all()),
+                f"qs_score {label}: bad output")
+        qs_err = max(qs_err, float((got - plain).abs().max()))
+        require(torch.equal(got, plain), f"qs {label}: kernel and plain version differ on "
+                f"{int((got != plain).sum())} of {feats.shape[0]} docs")
+        ref = score_ensemble(feats_check, ens, max_depth=int(tree_depths(ens).max()) + 1)
+        require(torch.equal(got[:N_CHECK].cpu(), ref),
+                f"qs {label}: differs from the CPU descent")
+        print(f"  qs {label}: bitwise equal to the plain version and to the CPU descent")
 
     # -- phase 2: perfect kernel against its plain version ------------------
     print("phase 2: perfect_score against the plain version and the CPU descent")
@@ -330,6 +376,12 @@ def main() -> int:
         print(f"  qs {T}x{leaves} leaves: kernel {k:.4f} ms "
               f"({N_DOCS / k * 1e3:.4g} docs/s), plain {p:.4f} ms "
               f"({N_DOCS / p * 1e3:.4g} docs/s)")
+    for label, (feats, tables, _, _) in qs_extra.items():
+        k = time_ms(lambda: kernel_qs.score_qs(feats, tables), reps=20)
+        p = time_ms(lambda: score_qs(feats, tables), reps=3)
+        print(f"  qs {label}: kernel {k:.4f} ms ({feats.shape[0] / k * 1e3:.4g} docs/s), "
+              f"plain {p:.4f} ms")
+    del qs_extra
     for (T, depth), (_, pe) in pf_tables.items():
         k = time_ms(lambda: kernel_perfect.score_perfect(X, pe), reps=20)
         p = time_ms(lambda: score_perfect(X, pe), reps=3)
@@ -340,7 +392,7 @@ def main() -> int:
 
     e_qs, t_qs = qs_tables[(1000, 16)]
     qs_bound = bound_ms(
-        nbytes_of(X, t_qs.fid, t_qs.thr, t_qs.excl, t_qs.leafval, t_qs.weight) + N_DOCS * 4,
+        nbytes_of(X, t_qs.packed()) + N_DOCS * 4,
         # what the function needs, not what QuickScorer does: per doc and
         # tree one compare a level of the path to a leaf (the trees' mean
         # leaf depth), and 4 for Kahan
@@ -384,6 +436,17 @@ def main() -> int:
                 # pass (32 KB and 64 KB of shared memory a feature at 256 bins)
                 ("256 bins, C=2, k=8", binned, vt2, 256, pos_nodes, 0, 8),
                 ("256 bins, C=2, k=16", binned, vt2, 256, pos_nodes, 0, 16)]
+    # a best-first split's pass: the smaller child's docs, a tenth of all,
+    # scattered over the matrix (0 in the node, 1 outside), and the same docs
+    # gathered into a contiguous run, as the node-clustered layout holds them
+    tenth = td.step.doc_mask & (torch.rand(N, generator=gen).to(dev) < 0.1)
+    tenth_rows = tenth.nonzero()[:, 0]
+    scattered, as_run = "256 bins, k=1, a tenth of the docs, scattered", \
+        "256 bins, k=1, the same docs as a run"
+    k4_cases += [
+        (scattered, binned, vt, 256, torch.where(tenth, 0, 1).to(torch.int32), 0, 1),
+        (as_run, binned[tenth_rows].contiguous(), vt[:, tenth_rows].contiguous(), 256,
+         torch.zeros(tenth_rows.shape[0], dtype=torch.int32, device=dev), 0, 1)]
     k4_times = {}
     for label, b, v, nb, pos, n0, k in k4_cases:
         C = v.shape[0]
@@ -391,6 +454,10 @@ def main() -> int:
         again = kernel_histogram.node_histogram(b, v, pos, nb, n0, k)
         torch.cuda.synchronize()
         require(torch.equal(got, again), f"K4 {label}: two launches differ")
+        # the kernel's own arithmetic in plain torch: equal bit for bit
+        fixed = kernel_histogram.node_histogram_fixed(b, v, pos, nb, n0, k)
+        require(torch.equal(got, fixed), f"K4 {label}: differs from node_histogram_fixed "
+                f"in {int((got != fixed).sum())} cells")
         plain = kernel_histogram.node_histogram_plain(b, v, pos, nb, n0, k)
         v64 = v.double()
         exact, mass, terms = (
@@ -413,6 +480,8 @@ def main() -> int:
     again = kernel_histogram.histogram(slots, vals, 32)
     torch.cuda.synchronize()
     require(torch.equal(got, again), "K5: two launches differ")
+    require(torch.equal(got, kernel_histogram.node_histogram_fixed(
+        slots, vals.T.contiguous(), None, 32, 0, 1)), "K5: differs from node_histogram_fixed")
     plain = kernel_histogram.histogram_plain(slots, vals, 32)
     v64 = vals.double()
     exact, mass, terms = (kernel_histogram.histogram_plain(slots, v, 32)
@@ -435,9 +504,13 @@ def main() -> int:
         print(f"    K4 {label}: {k_ms:.4f} / {p_ms:.4f}")
     print(f"    K5 32 slots, C=2: {k5_times[0]:.4f} / {k5_times[1]:.4f}; index_add_ "
           f"{k5_library:.4f}")
+    print(f"  every K4 and K5 case equals node_histogram_fixed bit for bit; the scattered "
+          f"tenth ({tenth_rows.shape[0]} docs) takes "
+          f"{k4_times[scattered][0] / k4_times[as_run][0]:.2f}x the same docs as a run")
     print(f"  bounds: K4 root {k4_bound[0]:.4f} ms by {k4_bound[1]}, K5 {k5_bound[0]:.4f} "
           f"ms by {k5_bound[1]}")
     del td, binned, bins64, g, vt, vt2, sub, pos_root, pos_nodes, slots, vals, slot_ids
+    del k4_cases, tenth, tenth_rows
 
     # -- phase 6: LambdaMART training at full width, both growers ----------
     print(f"phase 6: LambdaMART, {TRAIN_TREES} trees, {train_ds.num_queries} train "
@@ -821,6 +894,9 @@ def main() -> int:
             kernel_histogram.node_histogram_plain(rows, x, pos, 256, 0, 1, f_used=F_real)
             for x in (c64, c64.abs(), torch.ones_like(c64)))
         require(got.shape == (F_real, 256, 3), f"K4 {label}: shape {tuple(got.shape)}")
+        require(torch.equal(got, kernel_histogram.node_histogram_fixed(
+            rows, chan, pos, 256, 0, 1, f_used=F_real)),
+            f"K4 {label}: differs from node_histogram_fixed")
         hist_err["node_histogram"] = max(hist_err["node_histogram"], check_histogram(
             f"K4 {label}", got, plain, exact, mass, terms, slice(0, None, 3),
             kernel_histogram.rounding_error(chan)))

@@ -26,21 +26,63 @@
 // (ops/kernel_histogram.py::rounding_error states the bound).  A
 // non-finite value makes its channel NaN.
 //
-// Layout of the work: block (g, s) holds the histograms of feature group g
-// ([features_per_block, B, k*C] int64 in shared memory, sized from
-// k*C*B*8 bytes a feature, about 110 KB so two blocks share an SM) and
-// walks doc range s, one doc per thread: a doc outside [n0, n0 + k), or
-// whose values all round to 0, is skipped before its bins are read; a bin
-// id >= num_bins is dropped per element.  Shared-memory 64-bit sums
-// accumulate through 32-bit atomics with a carry (add_u64), then each block
-// adds its non-zero cells into a global int64 accumulator with global
-// atomics, and a last pass converts to float32.
+// Layout of the work.  The first kernel gave a block a group of features
+// and walked its docs one a thread: all 32 lanes of a warp were on the same
+// feature, so lanes whose docs shared a bin hit the same cell and their
+// atomics serialized; a doc outside the node idled its lane through the
+// feature loop; and the bins were read a byte at a time at a 160-byte
+// stride.  scripts/profile_torch_kernels.py splits that kernel's time on
+// the card (PERF.md holds the split).  Now block (g, i, s) holds the
+// histograms of features [32 g, 32 g + 32) for ONE node slot i, and takes
+// every s-th round of 4 * blockDim docs (rounds are dealt to the blocks in
+// turn, so any order of the docs spreads evenly), in two steps:
+//   compact: a thread reads the node ids of its four docs of the next round
+//     while it works on this one's, drops a doc of another node (or one
+//     whose values all round to 0), rounds the doc's C values to fixed
+//     point, and a ballot + popcount pass (the block's count comes with the
+//     barrier, __syncthreads_count; the warps' counts are scanned with
+//     shuffles) packs the docs that are left into a dense list in shared
+//     memory: doc index and C integers, once a doc and block.  Docs join
+//     the list until it is full, so a stretch with no doc of the node costs
+//     its node ids and one barrier a blockDim docs;
+//   add: when the list is full (and at the end) a warp takes one doc of it
+//     and its 32 lanes take the 32 features: the doc's integers are a
+//     broadcast read, the bins are 32 neighbouring bytes of one row (one
+//     sector), four docs' reads in flight, and the 32 atomics of an
+//     instruction go to 32 different histograms, so they can never share an
+//     address.  Every lane is live whatever the order of the docs.
+// Node slots are a grid dimension, so a pass over k nodes (level-wise,
+// best-k and oblivious growth) keeps the same mapping with k times the
+// blocks; each block reads the node ids of its rounds again, which stay in
+// L2.  Where 32 features' cells do not fit shared memory (C * B * 8 bytes a
+// feature: more than 7 KB), a block takes 16, 8, ... features and a warp 2,
+// 4, ... docs at a time; with one feature (K5: one column of slot ids) that
+// is the old doc-a-lane mapping over the dense list.  The kernel is
+// compiled for each channel count, so a doc's values stay in registers.
+//
+// A cell is two 32-bit words kept in two arrays (low words, high words)
+// with a feature's words padded to 1 mod 32, so lanes on different
+// features with equal bins fall into different banks, and all 32 banks
+// serve either word.  Shared-memory 64-bit sums accumulate through 32-bit
+// atomics with a carry (add_doc), the low adds of a doc's channels started
+// before the high ones; then each block adds its non-zero cells into a
+// global int64 accumulator with global atomics, and a last pass converts to
+// float32.  A bin id >= num_bins is dropped per element.
 //
 // What bounds it on an H100: per pass it reads the u8 bins of the docs in
 // range (N x W bytes, 410 MB at 2.56M docs x 160 columns, when all are in
-// range) and does one or two shared-memory atomics per (doc, feature,
-// channel): 1.2e9 adds at 2.56M docs x 160 x 3.  The atomics, not the
-// 3.35 TB/s of HBM, set the time; later work: warp-aggregate equal bins.
+// range: 0.13 ms) and does one or two shared-memory atomics per (doc,
+// feature, channel): 1.2e9 adds, about 2e9 atomics, at 2.56M docs x 160 x
+// 3.  The histograms of 32 features fill an SM's shared memory, so one
+// block of 32 warps is all an SM holds: the kernel is bound by the latency
+// of its bin reads and of its atomics (scripts/profile_torch_kernels.py on
+// an NVIDIA H100 80GB HBM3 at 700 W, at the root pass, 1.64 ms where the
+// first kernel took 5.9: half the threads take 1.6x the time, one doc in
+// flight 1.4x, the pass without the low words' adds 0.7x, a pass with no
+// doc in range 0.13 ms), not by the 3.35 TB/s of HBM.  Later
+// work: a count channel kept as a 32-bit counter (one atomic less a doc
+// and feature where the values are 0/1), 16-byte bin reads shared by
+// shuffles.
 
 #include <algorithm>
 #include <cstdint>
@@ -48,10 +90,15 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+// scripts/profile_torch_kernels.py times other values of the next three
+constexpr int kMaxThreads = 1024;         // threads a block, and docs its list holds
+constexpr int kMaxWaves = 8;              // waves of resident blocks a launch, at most
+constexpr int kMinThreads = 32;
 constexpr int kMaxChannels = 8;
-constexpr int kSmemTarget = 110 * 1024;   // two blocks per SM
+constexpr int kDocsInFlight = 4;          // docs a warp reads bins of at a time
+constexpr int kDocsPerThread = 4;         // docs a thread scans a round
 constexpr int kSmemMax = 232448;          // one block's dynamic maximum
+constexpr int kSmemPerSm = 233472;        // shared memory of one SM
 
 __device__ inline int channel_shift(unsigned int maxbits, int64_t n) {
   const float m = __uint_as_float(maxbits);
@@ -62,20 +109,30 @@ __device__ inline int channel_shift(unsigned int maxbits, int64_t n) {
   return 62 - e - nb;
 }
 
-// cell += v (mod 2^64) in shared memory with 32-bit atomics: a 64-bit
-// shared atomicAdd compiles to a compare-and-swap loop on sm_90, the 32-bit
-// one to a native add.  The low word's add returns the old word, so the
-// thread whose add wraps it knows, and carries one into the high word; the
-// two words then hold the exact 64-bit sum (little-endian: low word first).
-__device__ inline void add_u64(unsigned long long* cell, unsigned long long v) {
-  unsigned int* w = reinterpret_cast<unsigned int*>(cell);
-  const unsigned int lo = static_cast<unsigned int>(v);
-  unsigned int hi = static_cast<unsigned int>(v >> 32);
-  if (lo != 0u) {
-    const unsigned int old = atomicAdd(w, lo);
-    hi += (old + lo < lo) ? 1u : 0u;
+// cell += v (mod 2^64) for each of one doc's C channels, in shared memory
+// with 32-bit atomics: a 64-bit shared atomicAdd compiles to a
+// compare-and-swap loop on sm_90, the 32-bit one to a native add.  The low
+// word's add returns the old word, so the thread whose add wraps it knows,
+// and carries one into the high word; the two words then hold the exact
+// 64-bit sum.  The low adds of all channels are started before the high
+// ones, so their round trips overlap.
+template <int C>
+__device__ __forceinline__ void add_doc(unsigned int* lo_cells, unsigned int* hi_cells,
+                                        const unsigned long long* q, int q_stride) {
+  unsigned int high[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const unsigned long long v = q[c * q_stride];
+    const unsigned int lo = static_cast<unsigned int>(v);
+    high[c] = static_cast<unsigned int>(v >> 32);
+    if (lo != 0u) {
+      const unsigned int old = atomicAdd(lo_cells + c, lo);
+      high[c] += (old + lo < lo) ? 1u : 0u;
+    }
   }
-  if (hi != 0u) atomicAdd(w + 1, hi);
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (high[c] != 0u) atomicAdd(hi_cells + c, high[c]);
 }
 
 // max |v| per channel, as IEEE bits (they order like the values for
@@ -98,65 +155,180 @@ __global__ void absmax_kernel(const float* __restrict__ values, int64_t n,
   }
 }
 
-template <typename BinT>
-__global__ void histogram_kernel(const BinT* __restrict__ binned, int64_t n,
-                                 int64_t width, int features,
-                                 int features_per_block,
-                                 const float* __restrict__ values, int channels,
-                                 int64_t stride_c, int64_t stride_n,
-                                 const int32_t* __restrict__ pos, int n0, int k,
-                                 int num_bins, int64_t docs_per_block,
-                                 const unsigned int* __restrict__ maxbits,
-                                 unsigned long long* __restrict__ acc) {
-  extern __shared__ unsigned long long cells[];
-  const int f0 = blockIdx.x * features_per_block;
-  const int fb = min(features_per_block, features - f0);
-  const int kc = k * channels;
-  const int per_feature = num_bins * kc;
-  const int ncells = fb * per_feature;
-  for (int i = threadIdx.x; i < ncells; i += blockDim.x) cells[i] = 0ull;
-  double scale[kMaxChannels];
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c)
-    scale[c] = c < channels ? ldexp(1.0, channel_shift(maxbits[c], n)) : 0.0;
-  __syncthreads();
+// The dense list: docs of the block's node, with their values in fixed
+// point, channel-major so neighbouring ranks write neighbouring words.
+struct DocList {
+  unsigned int* doc;        // [cap] doc index
+  unsigned long long* q;    // [C][cap]
+  int cap;
+};
 
-  const int64_t d0 = static_cast<int64_t>(blockIdx.y) * docs_per_block;
-  const int64_t d1 = min(n, d0 + docs_per_block);
-  for (int64_t d = d0 + threadIdx.x; d < d1; d += blockDim.x) {
-    int node = 0;
-    if (pos != nullptr) {
-      node = pos[d] - n0;
-      if (node < 0 || node >= k) continue;
-    }
-    unsigned long long q[kMaxChannels];
-    bool any = false;
+// The add step: the first `count` docs of the list into the block's cells.
+// Lane -> (feature fl of the block, doc dl of the warp's turn); kInFlight docs
+// a lane and turn, their bin reads started together before the first atomic.
+template <typename BinT, int C, int kInFlight>
+__device__ __forceinline__ void add_list(const DocList& list, int count,
+                                         const BinT* __restrict__ binned, int64_t width,
+                                         int column, bool has_feature, int num_bins,
+                                         unsigned int* my_lo, unsigned int* my_hi,
+                                         int warp, int nwarps, int dl, int docs_per_warp) {
+  const int turn = docs_per_warp * kInFlight;
+  for (int e0 = warp * turn + dl; e0 < count; e0 += nwarps * turn) {
+    int64_t b[kInFlight];
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      q[c] = 0ull;
-      if (c < channels) {
-        const double v = static_cast<double>(values[c * stride_c + d * stride_n]);
-        q[c] = static_cast<unsigned long long>(__double2ll_rn(v * scale[c]));
-        any |= q[c] != 0ull;
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * docs_per_warp;
+      b[u] = -1;
+      if (e < count && has_feature) {
+        const int64_t d = list.doc[e];
+        b[u] = static_cast<int64_t>(binned[d * width + column]);
       }
     }
-    if (!any) continue;
-    const BinT* row = binned + d * width + f0;
-    for (int f = 0; f < fb; ++f) {
-      const int64_t b = static_cast<int64_t>(row[f]);
-      if (b < 0 || b >= num_bins) continue;
-      unsigned long long* cell =
-          cells + (static_cast<int64_t>(f) * num_bins + b) * kc + node * channels;
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < channels && q[c] != 0ull) add_u64(cell + c, q[c]);
+    for (int u = 0; u < kInFlight; ++u) {
+      if (b[u] < 0 || b[u] >= num_bins) continue;
+      const int cell = static_cast<int>(b[u]) * C;
+      add_doc<C>(my_lo + cell, my_hi + cell, list.q + e0 + u * docs_per_warp, list.cap);
+    }
+  }
+}
+
+template <typename BinT, int C>
+__global__ void __launch_bounds__(kMaxThreads)
+histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
+                 int features, int log2_fpb, int cell_stride,
+                 const float* __restrict__ values, int64_t stride_c, int64_t stride_n,
+                 const int32_t* __restrict__ pos, int n0, int k, int num_bins,
+                 const unsigned int* __restrict__ maxbits,
+                 unsigned long long* __restrict__ acc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int fpb = 1 << log2_fpb;           // features a block
+  const int cap = blockDim.x;              // docs the list holds
+  const int ncells = fpb * cell_stride;    // 32-bit words of either half
+  DocList list;
+  list.cap = cap;
+  list.q = reinterpret_cast<unsigned long long*>(smem);
+  double* s_scale = reinterpret_cast<double*>(list.q + C * cap);
+  unsigned int* s_lo = reinterpret_cast<unsigned int*>(s_scale + kMaxChannels);
+  unsigned int* s_hi = s_lo + ncells;
+  list.doc = s_hi + ncells;
+  int* s_wcount = reinterpret_cast<int*>(list.doc + cap);  // [2][32] docs a warp adds
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int f0 = blockIdx.x << log2_fpb;
+  const int node = blockIdx.y;
+  for (int i = tid; i < 2 * ncells; i += blockDim.x) s_lo[i] = 0u;
+  if (tid < C) s_scale[tid] = ldexp(1.0, channel_shift(maxbits[tid], n));
+  __syncthreads();
+  double scale[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) scale[c] = s_scale[c];
+
+  // the add step's mapping: lane -> (feature of the block, doc of the warp)
+  const int fl = lane & (fpb - 1);
+  const int dl = lane >> log2_fpb;
+  const int docs_per_warp = 32 >> log2_fpb;
+  const bool has_feature = f0 + fl < features;
+  unsigned int* my_lo = s_lo + fl * cell_stride;
+  unsigned int* my_hi = s_hi + fl * cell_stride;
+
+  // Rounds of kDocsPerThread * blockDim docs, dealt to the blocks of a
+  // (feature group, node) in turn so that any order of the docs spreads
+  // evenly.  A thread reads the node ids of the next round's docs while it
+  // works on this round's.
+  const int64_t round_docs = static_cast<int64_t>(cap) * kDocsPerThread;
+  const int64_t rounds = (n + round_docs - 1) / round_docs;
+  // with a warp a doc, four docs' bin reads in flight hide their latency;
+  // with several docs a warp (few features a block) a turn is wide already
+  auto add = [&](int count) {
+    if (log2_fpb == 5)
+      add_list<BinT, C, kDocsInFlight>(list, count, binned, width, f0 + fl, has_feature,
+                                       num_bins, my_lo, my_hi, warp, nwarps, dl,
+                                       docs_per_warp);
+    else
+      add_list<BinT, C, 1>(list, count, binned, width, f0 + fl, has_feature, num_bins,
+                           my_lo, my_hi, warp, nwarps, dl, docs_per_warp);
+  };
+  auto in_node = [&](int64_t d) {
+    return d < n && (pos == nullptr || pos[d] - n0 == node);
+  };
+  bool in_next[kDocsPerThread];
+#pragma unroll
+  for (int r = 0; r < kDocsPerThread; ++r)
+    in_next[r] = in_node(blockIdx.z * round_docs + r * cap + tid);
+  int total = 0;   // docs in the list
+  int parity = 0;
+  for (int64_t round = blockIdx.z; round < rounds; round += gridDim.z) {
+    const int64_t base = round * round_docs;
+    bool in[kDocsPerThread];
+    float v[kDocsPerThread][C];
+#pragma unroll
+    for (int r = 0; r < kDocsPerThread; ++r) {
+      in[r] = in_next[r];
+      const int64_t d = base + r * cap + tid;
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[r][c] = in[r] ? values[c * stride_c + d * stride_n] : 0.f;
+    }
+    const int64_t next = (round + gridDim.z) * round_docs;
+#pragma unroll
+    for (int r = 0; r < kDocsPerThread; ++r) in_next[r] = in_node(next + r * cap + tid);
+
+#pragma unroll
+    for (int r = 0; r < kDocsPerThread; ++r) {
+      // -- compact: this thread's doc joins the list unless it is of
+      // another node or all its values round to 0
+      unsigned long long q[C];
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        q[c] = static_cast<unsigned long long>(
+            __double2ll_rn(static_cast<double>(v[r][c]) * scale[c]));
+        any |= q[c] != 0ull;
+      }
+      const bool joins = in[r] && any;
+      const unsigned int ballot = __ballot_sync(0xffffffffu, joins);
+      if (lane == 0) s_wcount[parity * 32 + warp] = __popc(ballot);
+      const int count = __syncthreads_count(joins);
+      if (total + count > cap) {  // no room: add what the list holds first
+        add(total);
+        __syncthreads();
+        total = 0;
+      }
+      // ranks: the docs of the warps before this one, then of the lanes
+      int before = (lane < warp) ? s_wcount[parity * 32 + lane] : 0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) before += __shfl_xor_sync(0xffffffffu, before, off);
+      const int slot = total + before + __popc(ballot & ((1u << lane) - 1u));
+      if (joins) {
+        list.doc[slot] = static_cast<unsigned int>(base + r * cap + tid);
+#pragma unroll
+        for (int c = 0; c < C; ++c) list.q[c * cap + slot] = q[c];
+      }
+      total += count;
+      parity ^= 1;
     }
   }
   __syncthreads();
-  unsigned long long* out = acc + static_cast<int64_t>(f0) * per_feature;
-  for (int i = threadIdx.x; i < ncells; i += blockDim.x) {
-    const unsigned long long v = cells[i];
-    if (v != 0ull) atomicAdd(out + i, v);
+  add(total);
+  __syncthreads();
+
+  // this block's cells into the accumulator [features, num_bins, k, C]
+  const int per_feature = num_bins * C;
+  const int fb = min(fpb, features - f0);
+  for (int i = tid; i < fb * per_feature; i += blockDim.x) {
+    const int f = i / per_feature;
+    const int j = i - f * per_feature;
+    const unsigned long long v =
+        (static_cast<unsigned long long>(s_hi[f * cell_stride + j]) << 32) |
+        s_lo[f * cell_stride + j];
+    if (v != 0ull) {
+      const int b = j / C;
+      const int c = j - b * C;
+      atomicAdd(acc + ((static_cast<int64_t>(f0 + f) * num_bins + b) * k + node) * C + c, v);
+    }
   }
 }
 
@@ -176,57 +348,120 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
   out[i] = static_cast<float>(ldexp(sum, -channel_shift(bits, n)));
 }
 
-template <typename BinT>
-cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
-                   const float* values, int channels, int64_t stride_c,
-                   int64_t stride_n, const int32_t* pos, int n0, int k,
-                   int num_bins, unsigned int* maxbits,
-                   unsigned long long* acc, float* out, cudaStream_t stream) {
-  const int64_t per_feature_bytes =
-      static_cast<int64_t>(num_bins) * k * channels * 8;
-  if (per_feature_bytes > kSmemMax) return cudaErrorInvalidValue;
-  const int fpb = static_cast<int>(std::max<int64_t>(
-      1, std::min<int64_t>(features, kSmemTarget / per_feature_bytes)));
-  const int smem = static_cast<int>(fpb * per_feature_bytes);
-  const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * channels;
+// 32-bit words a feature's cells take in either half: num_bins * channels,
+// rounded up to 1 mod 32
+inline int cell_stride_of(int num_bins, int channels) {
+  return (num_bins * channels + 30) / 32 * 32 + 1;
+}
 
-  cudaError_t err = cudaMemsetAsync(maxbits, 0, sizeof(unsigned int) * channels, stream);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * ncells, stream);
-  if (err != cudaSuccess) return err;
+// shared memory of a block of `threads` threads that holds 2^log2_fpb
+// features: the doc list, the scales, both halves of the cells, the warps'
+// counts
+inline size_t smem_bytes(int threads, int log2_fpb, int num_bins, int channels) {
+  return static_cast<size_t>(threads) * (8 * channels + 4) + 8 * kMaxChannels +
+         (static_cast<size_t>(8) << log2_fpb) * cell_stride_of(num_bins, channels) + 256;
+}
+
+template <typename BinT, int C>
+cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
+                   const float* values, int64_t stride_c, int64_t stride_n,
+                   const int32_t* pos, int n0, int k, int num_bins,
+                   unsigned int* maxbits, unsigned long long* acc, float* out,
+                   cudaStream_t stream) {
+  if (n > 0xffffffffll) return cudaErrorInvalidValue;  // the list's doc indices
+  // features a block: the most, up to a warp's 32, whose cells fit beside
+  // the doc list of at least 256 threads
+  int log2_fpb = 5;
+  while (log2_fpb > 0 && (1 << (log2_fpb - 1)) >= features) --log2_fpb;
+  int threads = kMaxThreads;
+  while (smem_bytes(threads, log2_fpb, num_bins, C) > kSmemMax) {
+    if (threads > 256) threads /= 2;
+    else if (log2_fpb > 0) --log2_fpb, threads = kMaxThreads;
+    else if (threads > kMinThreads) threads /= 2;
+    else return cudaErrorInvalidValue;
+  }
+  // several blocks an SM where they fit: 512 threads each
+  if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
+  const size_t smem = smem_bytes(threads, log2_fpb, num_bins, C);
+  const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * C;
+
+  cudaError_t err = cudaSuccess;  // the caller has cleared maxbits and acc
   if (n > 0) {
     int device = 0, sms = 0;
     err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
-    const int64_t max_blocks = (n + kThreads - 1) / kThreads;
+    const int64_t max_blocks = (n + 511) / 512;
     absmax_kernel<<<static_cast<unsigned int>(std::min<int64_t>(max_blocks, 4 * sms)),
-                    kThreads, 0, stream>>>(values, n, channels, stride_c,
-                                           stride_n, maxbits);
+                    512, 0, stream>>>(values, n, C, stride_c, stride_n, maxbits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    err = cudaFuncSetAttribute(histogram_kernel<BinT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    auto kernel = histogram_kernel<BinT, C>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const int groups = (features + fpb - 1) / fpb;
-    // about four blocks per SM over the whole grid
-    const int64_t splits = std::max<int64_t>(
-        1, std::min<int64_t>(max_blocks, (4 * sms + groups - 1) / groups));
-    const int64_t docs_per_block = (n + splits - 1) / splits;
-    const dim3 grid(groups, static_cast<unsigned int>((n + docs_per_block - 1) / docs_per_block));
-    histogram_kernel<BinT><<<grid, kThreads, smem, stream>>>(
-        binned, n, width, features, fpb, values, channels, stride_c, stride_n,
-        pos, n0, k, num_bins, docs_per_block, maxbits, acc);
+    // blocks a (feature group, node): the count, of one to kMaxWaves waves
+    // of resident blocks, that leaves the fewest SMs idle in its last
+    // wave; with several node slots the blocks' work differs with the
+    // nodes' sizes, and the most waves even it out best
+    const int64_t resident = static_cast<int64_t>(sms) * std::max<int64_t>(
+        1, std::min<int64_t>(2048 / threads, kSmemPerSm / (smem + 1024)));
+    const int64_t items = static_cast<int64_t>((features + (1 << log2_fpb) - 1) >> log2_fpb) * k;
+    const int64_t round_docs = static_cast<int64_t>(threads) * kDocsPerThread;
+    const int64_t rounds = (n + round_docs - 1) / round_docs;
+    int64_t splits = 1;
+    double best = 0.0;
+    for (int waves = k > 1 ? kMaxWaves : 1; waves <= kMaxWaves; ++waves) {
+      const int64_t s = std::max<int64_t>(
+          1, std::min<int64_t>(rounds, waves * resident / items));
+      const int64_t blocks = items * s;
+      const double use = static_cast<double>(blocks) /
+                         (static_cast<double>((blocks + resident - 1) / resident) * resident);
+      if (use > best + 0.02) best = use, splits = s;
+    }
+    splits = std::min<int64_t>(splits, 65535);
+    const dim3 grid(static_cast<unsigned int>(items / k), static_cast<unsigned int>(k),
+                    static_cast<unsigned int>(splits));
+    kernel<<<grid, threads, smem, stream>>>(
+        binned, n, width, features, log2_fpb, cell_stride_of(num_bins, C), values, stride_c,
+        stride_n, pos, n0, k, num_bins, maxbits, acc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (ncells > 0) {
     to_float_kernel<<<static_cast<unsigned int>((ncells + 255) / 256), 256, 0,
-                      stream>>>(acc, ncells, channels, n, maxbits, out);
+                      stream>>>(acc, ncells, C, n, maxbits, out);
   }
   return cudaGetLastError();
+}
+
+// the kernel is compiled for each channel count, so a doc's values stay in
+// registers
+template <typename BinT>
+cudaError_t launch_channels(int channels, const BinT* binned, int64_t n, int64_t width,
+                            int features, const float* values, int64_t stride_c,
+                            int64_t stride_n, const int32_t* pos, int n0, int k,
+                            int num_bins, unsigned int* maxbits,
+                            unsigned long long* acc, float* out, cudaStream_t stream) {
+#define QR_CASE(C)                                                                       \
+  case C:                                                                                \
+    return launch<BinT, C>(binned, n, width, features, values, stride_c, stride_n, pos,  \
+                           n0, k, num_bins, maxbits, acc, out, stream)
+  switch (channels) {
+    QR_CASE(1);
+    QR_CASE(2);
+    QR_CASE(3);
+    QR_CASE(4);
+    QR_CASE(5);
+    QR_CASE(6);
+    QR_CASE(7);
+    QR_CASE(8);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef QR_CASE
 }
 
 }  // namespace
@@ -234,29 +469,34 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
 // hist[f, b, i*C + c] = sum over docs d with pos[d] == n0 + i (every doc,
 // i = 0, when pos is null) of values[c * stride_c + d * stride_n] where
 // binned[d * width + f] == b, for f < features, b < num_bins, i < k.
-// binned holds bin_bytes-wide ids (1: uint8, 4: int32).  maxbits [C] and
-// acc [features * num_bins * k * C] are scratch; out is float32 of acc's
-// size.  Launches on `stream`; returns the first CUDA error.
+// binned holds bin_bytes-wide ids (1: uint8, 4: int32).  scratch is 64-bit
+// words [features * num_bins * k * C + 4]: the accumulator, then the
+// channels' largest |value| bits; one memset clears both.  out is float32
+// of the accumulator's size.  Launches on `stream`; returns the first CUDA
+// error.
 extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
                                 int64_t width, int features,
                                 const float* values, int channels,
                                 int64_t stride_c, int64_t stride_n,
                                 const int32_t* pos, int n0, int k, int num_bins,
-                                unsigned int* maxbits, unsigned long long* acc,
-                                float* out, void* stream) {
+                                unsigned long long* scratch, float* out,
+                                void* stream) {
   if (channels < 1 || channels > kMaxChannels || k < 1 || num_bins < 1 ||
       features < 1 || features > width)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * channels;
+  unsigned int* maxbits = reinterpret_cast<unsigned int*>(scratch + ncells);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (ncells + 4), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (bin_bytes == 1)
-    err = launch(static_cast<const uint8_t*>(binned), n, width, features, values,
-                 channels, stride_c, stride_n, pos, n0, k, num_bins, maxbits, acc,
-                 out, s);
+    err = launch_channels(channels, static_cast<const uint8_t*>(binned), n, width,
+                          features, values, stride_c, stride_n, pos, n0, k, num_bins,
+                          maxbits, scratch, out, s);
   else if (bin_bytes == 4)
-    err = launch(static_cast<const int32_t*>(binned), n, width, features, values,
-                 channels, stride_c, stride_n, pos, n0, k, num_bins, maxbits, acc,
-                 out, s);
+    err = launch_channels(channels, static_cast<const int32_t*>(binned), n, width,
+                          features, values, stride_c, stride_n, pos, n0, k, num_bins,
+                          maxbits, scratch, out, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

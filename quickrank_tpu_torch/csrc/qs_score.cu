@@ -6,112 +6,270 @@
 // planes); here they are a 64-bit `&` and `__ffsll`, and the feature is
 // compared in float32 directly.
 //
-// One thread scores one document over all trees, in slot order:
+// What is computed, per document and tree, in slot order:
 //   mask = all ones over the tree's leaves
 //   for each internal node i: if (x[fid[i]] > thr[i]) mask &= ~excl[i]
 //   exit = first set bit of mask;  d = leafval[t][exit]
-// and folds w_t * d into a Kahan-compensated float32 sum exactly as the
+// and w_t * d is folded into a Kahan-compensated float32 sum exactly as the
 // plain scorer (trees/qs.py) and the compensated descent
 // (ops/scoring.py::score_ensemble) do: y = fma(w, d, -c) rounded once,
 // then s + y and (t - s) - y each rounded on its own.  The explicit _rn
-// intrinsics keep nvcc from contracting any other step.  The leaf sets of
-// trees with more than 64 leaves take several words; the words are
-// scanned left to right and the comparisons repeated per word, which
-// keeps the mask in one register.
+// intrinsics keep nvcc from contracting any other step.  Every node is
+// tested, dead slots (thr = FLT_MAX, weight 0) take their Kahan step.  The
+// leaf sets of trees with more than 64 leaves take several words; the words
+// are scanned left to right and the comparisons repeated per word, which
+// keeps the mask in one register pair.
 //
-// What bounds it on an H100: per document about T * I scattered 4-byte
-// reads of its own feature row (15k for 1000 trees of 16 leaves, all
-// inside its 544-byte row), and table reads that every
-// thread of a warp makes at the same address (broadcasts; 1000 x 16-leaf
-// tables are ~0.25 MB and stay in L2).  Measured on an H100 SXM at 700 W:
-// 31.3 ms for 1000 x 16-leaf trees at 131,072 docs x 136 features, and
-// the same ~62 G feature reads/s at 64 and 128 leaves and in
-// perfect_score.cu, so the feature-row reads bound it: ~1,000 docs per
-// SM hold ~540 KB of rows, more than L1, and most reads go to L2.  Later
-// work: stage a tile of document rows in shared memory (128 x 544 B =
-// 70 KB), or give a warp a block of trees per document tile.
+// The design.  The first kernel (one thread a doc, x[fid] read from global
+// memory) ran at 62 G feature reads/s at every shape: a warp's 32 reads of
+// x[fid] touched 32 different rows, 32 sectors for 128 useful bytes.  Now
+//   - a block of kDocs = 128 docs stages its rows in shared memory,
+//     feature-major (s_x[feature][doc], the pitch padded by one 32-bit
+//     word): the block's rows are one contiguous range of global memory,
+//     read in order as 16-byte vectors, so each feature byte leaves device
+//     memory once; every thread of a warp tests the same node, so
+//     s_x[fid * pitch + doc] is one conflict-free row of shared memory;
+//   - the model streams through shared memory in tiles of whole trees, in
+//     the packed form trees/qs.py::pack_tables builds once per table: a
+//     16-byte record {fid, thr, excl word} a node and word (one LDS.128
+//     broadcast in place of three loads from three arrays), then the
+//     tree's leaf values and its weight;
+//   - a doc is given to kLanes threads.  The exit leaf of tree t depends on
+//     nothing before it, only the Kahan fold is ordered: thread j of a doc
+//     finds the exit leaves of the tile's trees t = j, j + kLanes, ... and
+//     leaves d_t in shared memory; after a barrier one thread a doc folds
+//     the tile in slot order.  That buys kLanes times the warps for the
+//     same staged rows.  scripts/profile_torch_kernels.py builds and times
+//     kLanes = 1, 2, 4 and 8: on an NVIDIA H100 80GB HBM3 at 700 W, at 1000
+//     trees of 16 leaves and 131,072 docs x 136 features, 1.68, 1.41, 1.32
+//     and 1.46 ms (62 registers and no spill at 4; 8 halves the blocks an SM
+//     holds), so 4 was taken;
+//   - rows too wide to stage beside a model tile (more than about 370
+//     float32 features) are read from global memory by the same kernel
+//     (kStaged = false), chosen from the shape.
+// The same kernel scores uint8 bin ids against bin-space tables (thresholds
+// hold bin ids as float32, exact): the warm-start rescore of the binned
+// training matrix, without a float32 copy of it.
+//
+// What bounds it on an H100: the least the card could take is the feature
+// matrix once over HBM (71 MB, 0.02 ms at 131,072 x 136).  The kernel is
+// bound by its instruction rate and shared-memory loads: per node and warp
+// one LDS.128 broadcast, one LDS of the feature row, a compare and two
+// mask words, T * I times a doc (15,000 at 1000 trees of 16 leaves: 1.30 ms
+// on an NVIDIA H100 80GB HBM3 at 700 W, 1.5e12 node tests a second, where
+// the first kernel took 31.5 ms).
+// Later work: 32-bit masks for trees of at most 32 leaves, and the same
+// staging for perfect_score.cu.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kDocs = 128;                // docs a block
+constexpr int kLanes = 4;                 // threads a doc
+constexpr int kThreads = kDocs * kLanes;
+constexpr int kModelTile = 40 * 1024;     // model bytes staged at a time
+constexpr int kSmemMax = 232448;          // one block's dynamic maximum
 
+static_assert(kLanes >= 1 && kThreads <= 1024, "kLanes must be 1..8");
+
+// s, c <- Kahan step of w * d (see the note above; never contracted)
+__device__ inline void kahan_step(float& s, float& c, float w, float d) {
+  const float y = __fmaf_rn(w, d, -c);
+  const float sum = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(sum, s), y);
+  s = sum;
+}
+
+// element j of a 16-byte vector of X, j a constant after unrolling
 template <typename X>
-__global__ void qs_score_kernel(const X* __restrict__ x, int64_t n,
-                                int64_t f, const int32_t* __restrict__ fid,
-                                const float* __restrict__ thr,
-                                const unsigned long long* __restrict__ excl,
-                                const float* __restrict__ leafval,
-                                const float* __restrict__ weight, int trees,
-                                int nodes, int leaves, int words,
-                                float* __restrict__ out) {
-  const int64_t doc = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (doc >= n) return;
-  const X* row = x + doc * f;
+__device__ __forceinline__ X vec_elem(const int4& raw, int j) {
+  constexpr int kPerWord = 4 / static_cast<int>(sizeof(X));
+  const int k = j / kPerWord;
+  const int word = k == 0 ? raw.x : k == 1 ? raw.y : k == 2 ? raw.z : raw.w;
+  if (sizeof(X) == 4) return static_cast<X>(__int_as_float(word));
+  return static_cast<X>((static_cast<unsigned int>(word) >> (8 * (j % kPerWord))) & 0xffu);
+}
+
+// packed: per tree `stride4` 16-byte words: nodes * words records
+// {fid, thr bits, excl low, excl high} (word-major: record w * nodes + i),
+// then `leaves` float32 leaf values and the float32 weight.
+template <typename X, bool kStaged>
+__global__ void __launch_bounds__(kThreads, kThreads <= 512 ? 2 : 1)
+qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
+                const int4* __restrict__ packed, int trees, int nodes,
+                int leaves, int words, int stride4, int tile_trees, int pitch,
+                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* s_model = reinterpret_cast<int4*>(smem);
+  float* s_d = reinterpret_cast<float*>(s_model + tile_trees * stride4);
+  X* s_x = reinterpret_cast<X*>(s_d + (kLanes > 1 ? tile_trees * kDocs : 0));
+
+  const int tid = threadIdx.x;
+  const int dloc = tid % kDocs;   // a warp holds 32 neighbouring docs
+  const int lane = tid / kDocs;   // and one tree lane
+  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * kDocs;
+  const int64_t doc = doc0 + dloc;
+  const bool live = doc < n;  // every thread stays for the barriers
+  const X* row = x + (live ? doc : 0) * f;
+
+  if (kStaged) {
+    // the block's rows are one contiguous range: read it in order, write
+    // it transposed; the second barrier of the first tile publishes it
+    constexpr int kVec = 16 / static_cast<int>(sizeof(X));
+    const int docs = n - doc0 < kDocs ? static_cast<int>(n - doc0) : kDocs;
+    const int total = docs * f;
+    const X* src = x + doc0 * f;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int4* src4 = reinterpret_cast<const int4*>(src);
+      const int nvec = total / kVec;
+      for (int v = tid; v < nvec; v += kThreads) {
+        const int4 raw = __ldg(src4 + v);
+        int d = (v * kVec) / f;
+        int c = v * kVec - d * f;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          s_x[c * pitch + d] = vec_elem<X>(raw, j);
+          if (++c == f) { c = 0; ++d; }
+        }
+      }
+      done = nvec * kVec;
+    }
+    for (int e = done + tid; e < total; e += kThreads) {
+      const int d = e / f;
+      s_x[(e - d * f) * pitch + d] = src[e];
+    }
+  }
+
   float s = 0.f;
   float c = 0.f;
-  for (int t = 0; t < trees; ++t) {
-    const int32_t* tf = fid + static_cast<int64_t>(t) * nodes;
-    const float* tt = thr + static_cast<int64_t>(t) * nodes;
-    const unsigned long long* te = excl + static_cast<int64_t>(t) * nodes * words;
-    int exit_leaf = 0;
-    for (int w = 0; w < words; ++w) {
-      unsigned long long mask = ~0ull;
-      for (int i = 0; i < nodes; ++i) {
-        if (static_cast<float>(__ldg(row + tf[i])) > tt[i]) mask &= ~te[static_cast<int64_t>(i) * words + w];
-      }
-      if (mask != 0ull) {
-        exit_leaf = w * 64 + __ffsll(static_cast<long long>(mask)) - 1;
-        break;
+  for (int t0 = 0; t0 < trees; t0 += tile_trees) {
+    const int tile = min(tile_trees, trees - t0);
+    __syncthreads();  // the previous tile has been read and folded
+    const int4* src = packed + static_cast<int64_t>(t0) * stride4;
+    for (int i = tid; i < tile * stride4; i += kThreads) s_model[i] = __ldg(src + i);
+    __syncthreads();
+    if (live) {
+      for (int t = lane; t < tile; t += kLanes) {
+        const int4* rec = s_model + t * stride4;
+        int exit_leaf = 0;
+        for (int w = 0; w < words; ++w) {
+          unsigned int lo = ~0u, hi = ~0u;
+#pragma unroll 5
+          for (int i = 0; i < nodes; ++i) {
+            const int4 r = rec[i];
+            const float v = static_cast<float>(
+                kStaged ? s_x[r.x * pitch + dloc] : __ldg(row + r.x));
+            if (v > __int_as_float(r.y)) {
+              lo &= ~static_cast<unsigned int>(r.z);
+              hi &= ~static_cast<unsigned int>(r.w);
+            }
+          }
+          rec += nodes;
+          if (lo != 0u) {
+            exit_leaf = w * 64 + __ffs(static_cast<int>(lo)) - 1;
+            break;
+          }
+          if (hi != 0u) {
+            exit_leaf = w * 64 + 32 + __ffs(static_cast<int>(hi)) - 1;
+            break;
+          }
+        }
+        const float* tail =
+            reinterpret_cast<const float*>(s_model + t * stride4 + nodes * words);
+        const float d = tail[exit_leaf];
+        if (kLanes == 1) {
+          kahan_step(s, c, tail[leaves], d);
+        } else {
+          s_d[t * kDocs + dloc] = d;
+        }
       }
     }
-    const float d = leafval[static_cast<int64_t>(t) * leaves + exit_leaf];
-    const float y = __fmaf_rn(weight[t], d, -c);
-    const float sum = __fadd_rn(s, y);
-    c = __fsub_rn(__fsub_rn(sum, s), y);
-    s = sum;
+    if (kLanes > 1) {
+      __syncthreads();
+      if (live && lane == 0) {
+        for (int t = 0; t < tile; ++t) {
+          const float* tail =
+              reinterpret_cast<const float*>(s_model + t * stride4 + nodes * words);
+          kahan_step(s, c, tail[leaves], s_d[t * kDocs + dloc]);
+        }
+      }
+    }
   }
-  out[doc] = s;
+  if (live && lane == 0) out[doc] = s;
+}
+
+template <typename X, bool kStaged>
+int launch_kernel(const X* x, int64_t n, int f, const int4* packed, int trees,
+                  int nodes, int leaves, int words, int stride4, int tile_trees,
+                  int pitch, size_t smem, float* out, cudaStream_t stream) {
+  auto kernel = qs_score_kernel<X, kStaged>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int64_t blocks = (n + kDocs - 1) / kDocs;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
+      x, n, f, packed, trees, nodes, leaves, words, stride4, tile_trees, pitch, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename X>
-int launch(const X* x, int64_t n, int64_t f, const int32_t* fid,
-           const float* thr, const unsigned long long* excl,
-           const float* leafval, const float* weight, int trees, int nodes,
-           int leaves, int words, float* out, void* stream) {
+int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
+           int nodes, int leaves, int words, int stride_words, float* out,
+           void* stream) {
+  if (trees < 0 || nodes < 1 || leaves < 1 || words < 1 || f < 1 || f > INT32_MAX ||
+      stride_words % 4 != 0 || stride_words < nodes * words * 4 + leaves + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  qs_score_kernel<X><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves, words,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  const int stride4 = stride_words / 4;
+  // a tile holds whole trees: their records, and with several threads a
+  // doc one exit-leaf value a tree and doc
+  const size_t per_tree =
+      static_cast<size_t>(stride4) * 16 + (kLanes > 1 ? kDocs * sizeof(float) : 0);
+  if (per_tree > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_trees = static_cast<int>(std::max<size_t>(
+      1, std::min<size_t>(std::max(trees, 1), kModelTile / per_tree)));
+  const size_t model = tile_trees * per_tree;
+  // rows padded by one 32-bit word: the transposing writes of neighbouring
+  // features then fall into neighbouring banks
+  const int pitch = kDocs + 4 / static_cast<int>(sizeof(X));
+  const size_t staged = model + static_cast<size_t>(f) * pitch * sizeof(X);
+  const int4* p4 = static_cast<const int4*>(packed);
+  const int fi = static_cast<int>(f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged <= static_cast<size_t>(kSmemMax)) {
+    return launch_kernel<X, true>(x, n, fi, p4, trees, nodes, leaves, words, stride4,
+                                  tile_trees, pitch, staged, out, s);
+  }
+  return launch_kernel<X, false>(x, n, fi, p4, trees, nodes, leaves, words, stride4,
+                                 tile_trees, pitch, model, out, s);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-extern "C" int qs_score(const float* x, int64_t n, int64_t f,
-                        const int32_t* fid, const float* thr,
-                        const unsigned long long* excl, const float* leafval,
-                        const float* weight, int trees, int nodes, int leaves,
-                        int words, float* out, void* stream) {
-  return launch(x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
-                words, out, stream);
+// x [n, f] float32 against the packed tables of trees/qs.py::pack_tables
+// (int32 [trees, stride_words], 16-byte aligned).  Launches on `stream`;
+// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// table whose stride does not hold its records or whose one tree does not
+// fit shared memory.
+extern "C" int qs_score(const float* x, int64_t n, int64_t f, const void* packed,
+                        int trees, int nodes, int leaves, int words,
+                        int stride_words, float* out, void* stream) {
+  return launch(x, n, f, packed, trees, nodes, leaves, words, stride_words, out,
+                stream);
 }
 
-// The same scorer on uint8 bin ids, for bin-space tables (thresholds hold
-// bin ids as float32, exact): rescoring the binned training matrix without a
-// float32 copy of it.
+// The same scorer on uint8 bin ids, for bin-space tables.
 extern "C" int qs_score_u8(const uint8_t* x, int64_t n, int64_t f,
-                           const int32_t* fid, const float* thr,
-                           const unsigned long long* excl, const float* leafval,
-                           const float* weight, int trees, int nodes,
-                           int leaves, int words, float* out, void* stream) {
-  return launch(x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
-                words, out, stream);
+                           const void* packed, int trees, int nodes, int leaves,
+                           int words, int stride_words, float* out, void* stream) {
+  return launch(x, n, f, packed, trees, nodes, leaves, words, stride_words, out,
+                stream);
 }
 
 extern "C" const char* qr_cuda_error_string(int code) {

@@ -29,21 +29,23 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+#: dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_MAX = 232448
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry points: name -> argtypes (each returns the launch's cudaError_t)
 SIGNATURES = {
-    # x, n, f, fid, thr, excl, leafval, weight, trees, nodes, leaves,
-    # words, out, stream
-    "qs_score": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "qs_score_u8": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x, n, f, packed, trees, nodes, leaves, words, stride_words, out, stream
+    "qs_score": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
+    "qs_score_u8": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     # x, n, f, fid, thr, wleaf, trees, depth, out, stream
     "perfect_score": [_P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
     "oblivious_score": [_P, _I, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # binned, bin_bytes, n, width, features, values, channels, stride_c,
-    # stride_n, pos, n0, k, num_bins, maxbits, acc, out, stream
+    # stride_n, pos, n0, k, num_bins, scratch, out, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,
-                         _I, _I, _P, _P, _P, _P],
+                         _I, _I, _P, _P, _P],
     # data, n, width, mode, dsta, dstb, stamp_z, stamp_o, fstar, tstar,
     # pos_col, out, stream
     "partition_rows": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],

@@ -6,7 +6,9 @@ node_histogram_pallas (K4) and ``histogram`` replaces ::histogram_pallas
 (K5).  The kernels sum in 64-bit fixed point, so two launches on the same
 inputs give the same bits; they agree with the plain versions within
 float32 summation tolerance plus the fixed-point bound of
-:func:`rounding_error` (the count channel exactly).
+:func:`rounding_error` (the count channel exactly), and with
+:func:`node_histogram_fixed`, the same fixed-point arithmetic in plain
+PyTorch, bit for bit.
 """
 
 from __future__ import annotations
@@ -25,8 +27,18 @@ LAUNCHES = {"node_histogram": 0, "histogram": 0}
 
 #: most channels a kernel launch takes
 MAX_CHANNELS = 8
-#: shared memory one block may use on an H100, which bounds k * C * B * 8
-SMEM_MAX = 232448
+#: shared memory one block may use; it bounds C * B, the cells of one
+#: feature and node (:func:`min_shared_bytes`)
+SMEM_MAX = _cuda.SMEM_MAX
+
+
+def min_shared_bytes(channels: int, num_bins: int) -> int:
+    """Shared memory the kernel's smallest block takes (``csrc/histogram.cu``
+    ``smem_bytes``: one feature, a list of 32 docs): the cells as two 32-bit
+    halves, ``C * B`` words each rounded up to 1 mod 32, the list of doc
+    indices and fixed-point values, the scales and the warps' counts."""
+    stride = (num_bins * channels + 30) // 32 * 32 + 1
+    return 32 * (8 * channels + 4) + 8 * MAX_CHANNELS + 8 * stride + 256
 
 
 def _check(name, binned, values, num_bins, channels):
@@ -51,22 +63,22 @@ def _check(name, binned, values, num_bins, channels):
 
 def _launch(name, binned, values, stride_c, stride_n, pos, n0, k, num_bins,
             features, channels):
-    if k * channels * num_bins * 8 > SMEM_MAX:
+    if min_shared_bytes(channels, num_bins) > SMEM_MAX:
         raise ValueError(
-            f"{name}: k*C*B = {k}*{channels}*{num_bins} needs "
-            f"{k * channels * num_bins * 8} bytes of shared memory a feature, "
-            f"more than {SMEM_MAX}"
+            f"{name}: C*B = {channels}*{num_bins} needs "
+            f"{min_shared_bytes(channels, num_bins)} bytes of shared memory a "
+            f"feature and node, more than {SMEM_MAX}"
         )
     dev = binned.device
     N, W = binned.shape
     out = torch.empty((features, num_bins, k * channels), dtype=torch.float32, device=dev)
-    acc = torch.empty(out.numel(), dtype=torch.int64, device=dev)
-    maxbits = torch.empty(channels, dtype=torch.int32, device=dev)
+    # the 64-bit accumulator, then four words for the channels' max bits
+    scratch = torch.empty(out.numel() + 4, dtype=torch.int64, device=dev)
     rc = _cuda.library().histogram_launch(
         binned.data_ptr(), binned.element_size(), N, W, features,
         values.data_ptr(), channels, stride_c, stride_n,
         pos.data_ptr() if pos is not None else None, n0, k, num_bins,
-        maxbits.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda.check(rc, name)
@@ -127,10 +139,56 @@ def rounding_error(values_cm: torch.Tensor) -> torch.Tensor:
     is within t times this of its exact sum before the final float32
     rounding; the error is absolute, so a bin whose few values are tiny
     next to the channel's largest one loses relative precision."""
-    m = values_cm.detach().abs().amax(dim=1).double().cpu()
-    e = torch.frexp(m).exponent.double()
+    m = values_cm.detach().abs().amax(dim=1).cpu()
+    shift = _channel_shifts(values_cm).double().cpu()
+    return torch.where(m > 0, torch.exp2(-1 - shift), 0.0)
+
+
+def _channel_shifts(values_cm: torch.Tensor) -> torch.Tensor:
+    """The kernels' fixed-point exponents, int64 ``[C]``: ``62 - e - nb``
+    where max |v_c| < 2^e and N < 2^nb; 0 for a channel that is all zero or
+    holds a non-finite value (``csrc/histogram.cu::channel_shift``)."""
+    m = values_cm.detach().abs().amax(dim=1)
+    e = torch.frexp(m).exponent.long()
     nb = int(values_cm.shape[1]).bit_length()
-    return torch.where(m > 0, torch.exp2(e + nb - 63), 0.0)
+    return torch.where((m > 0) & torch.isfinite(m), 62 - e - nb, 0)
+
+
+def node_histogram_fixed(binned, values_t, pos, num_bins: int, n0: int, k: int,
+                         f_used: int = 0) -> torch.Tensor:
+    """The exact reference of K4 and K5 in plain PyTorch, on any device: the
+    kernels' own arithmetic (each value scaled by its channel's power of two
+    and rounded once, in float64, to int64; integer sums; the sum converted
+    through float64 to float32), so the kernels must equal it bit for bit.
+    Integer sums are order-free: any order of the docs gives the same bits.
+    ``pos = None`` puts every doc in node 0 (K5, with ``values_t`` the
+    transpose of its doc-major values).  A channel with a non-finite value
+    is NaN."""
+    N, W = binned.shape
+    F = f_used or W
+    C = values_t.shape[0]
+    dev = binned.device
+    if N == 0:
+        return torch.zeros((F, num_bins, k * C), dtype=torch.float32, device=dev)
+    m = values_t.detach().abs().amax(dim=1)
+    shift = _channel_shifts(values_t)
+    scale = torch.ldexp(torch.ones(C, dtype=torch.float64, device=dev), shift)
+    finite = torch.nan_to_num(values_t.double(), nan=0.0, posinf=0.0, neginf=0.0)
+    q = torch.round(finite * scale[:, None]).to(torch.int64)  # [C, N]
+    node = (pos.long() - n0) if pos is not None else torch.zeros(N, dtype=torch.long, device=dev)
+    acc = torch.zeros((F * num_bins * k + 1, C), dtype=torch.int64, device=dev)
+    cols = torch.arange(F, device=dev)[None, :]
+    step = max(1, (1 << 22) // max(F, 1))
+    for r0 in range(0, N, step):
+        b = binned[r0:r0 + step, :F].long()
+        nd = node[r0:r0 + step, None]
+        ok = (b >= 0) & (b < num_bins) & (nd >= 0) & (nd < k)
+        flat = torch.where(ok, (cols * num_bins + b) * k + nd, F * num_bins * k)
+        vals = q[:, r0:r0 + step].T[:, None, :].expand(-1, F, -1).reshape(-1, C)
+        acc.index_add_(0, flat.reshape(-1), vals)
+    out = torch.ldexp(acc[:-1].double(), -shift.to(torch.int32)).float()
+    out = torch.where(torch.isfinite(m)[None, :], out, float("nan"))
+    return out.reshape(F, num_bins, k * C)
 
 
 def node_histogram_plain(binned, values_t, pos, num_bins: int, n0: int, k: int,

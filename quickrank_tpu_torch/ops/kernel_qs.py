@@ -4,6 +4,9 @@ version (``trees/qs.py::score_qs``).
 Replaces quickrank_tpu/ops/pallas_qs.py::score_qs_pallas.  Unlike the Pallas
 kernel, which sums trees in plain float32 block order, the CUDA kernel keeps
 the per-tree Kahan chain of the plain scorer and is bitwise equal to it.
+The kernel stages a block's document rows and a tile of the packed tables
+(``QSEnsemble.packed``) in shared memory; the plain scorer reads the
+unpacked tables.
 """
 
 from __future__ import annotations
@@ -17,6 +20,11 @@ from quickrank_tpu_torch.trees.qs import score_qs as plain_score_qs
 #: kernel launches by this wrapper; a run that must show its path went
 #: through the kernel sets it to 0 first and reads it after
 LAUNCHES = 0
+
+#: shared memory one block may use; one tree's packed records and one
+#: exit-leaf value a doc of the block (``csrc/qs_score.cu``: 128) must fit it
+SMEM_MAX = _cuda.SMEM_MAX
+DOCS_PER_BLOCK = 128
 
 
 def check_inputs(features: torch.Tensor, tables, name: str,
@@ -55,15 +63,21 @@ def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
         return plain_score_qs(features, qs)
     N, F = features.shape
     T, I = qs.fid.shape
+    packed = qs.packed()
+    if packed.shape[1] * 4 + DOCS_PER_BLOCK * 4 > SMEM_MAX:
+        raise ValueError(
+            f"score_qs: a tree of {qs.num_leaves} leaves takes "
+            f"{packed.shape[1] * 4} bytes of packed records, more than one "
+            f"block's shared memory ({SMEM_MAX} bytes) holds"
+        )
     out = torch.empty(N, dtype=torch.float32, device=features.device)
     if N == 0:
         return out
     lib = _cuda.library()
     entry = lib.qs_score if features.dtype == torch.float32 else lib.qs_score_u8
     rc = entry(
-        features.data_ptr(), N, F, qs.fid.data_ptr(), qs.thr.data_ptr(),
-        qs.excl.data_ptr(), qs.leafval.data_ptr(), qs.weight.data_ptr(),
-        T, I, qs.num_leaves, int(qs.excl.shape[2]), out.data_ptr(),
+        features.data_ptr(), N, F, packed.data_ptr(), T, I, qs.num_leaves,
+        int(qs.excl.shape[2]), int(packed.shape[1]), out.data_ptr(),
         torch.cuda.current_stream(features.device).cuda_stream,
     )
     _cuda.check(rc, "qs_score")

@@ -16,11 +16,17 @@ keeps dense bf16 ``[T, I, L]`` masks for its matrix unit.  There is no
 padding of the tree axis: the table has exactly the ensemble's capacity
 slots, so the Kahan chain takes one step per slot, as
 ``ops/scoring.py::score_ensemble`` does.
+
+The CUDA kernel reads the tables in one packed tensor (:func:`pack_tables`):
+a 16-byte record a node and word, then the tree's leaf values and weight.
+It is built once per table (``QSEnsemble.packed``); the plain scorer reads
+the unpacked tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,7 +46,8 @@ class QSEnsemble:
     int64 [T, I, W] bit-packed left-subtree leaf sets, leaf ``l`` is bit
     ``l % 64`` of word ``l // 64``; leafval: [T, L] in left-to-right leaf
     order (pad leaves sit rightmost and are never selected); weight: [T],
-    zero on dead slots."""
+    zero on dead slots.  The tensors are not written after the first
+    :meth:`packed` call, which caches their packed form."""
 
     fid: torch.Tensor  # int32
     thr: torch.Tensor  # float32
@@ -50,16 +57,25 @@ class QSEnsemble:
     num_trees: int
     #: smallest feature count the tables can be scored against
     min_features: int
+    _packed: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def num_leaves(self) -> int:
         return int(self.leafval.shape[1])
 
+    def packed(self) -> torch.Tensor:
+        """The tables as the CUDA kernel reads them (:func:`pack_tables`),
+        on the tables' device; built at the first call and kept."""
+        if self._packed is None:
+            self._packed = pack_tables(self)
+        return self._packed
+
     def to(self, device) -> "QSEnsemble":
         return dataclasses.replace(
             self, fid=self.fid.to(device), thr=self.thr.to(device),
             excl=self.excl.to(device), leafval=self.leafval.to(device),
-            weight=self.weight.to(device),
+            weight=self.weight.to(device), _packed=self.packed().to(device),
         )
 
 
@@ -133,6 +149,53 @@ def ensemble_to_qs(ens, space: str = "value") -> QSEnsemble:
         weight=torch.from_numpy(w),
         num_trees=T,
         min_features=int(fid.max()) + 1 if fid.size else 1,
+    )
+
+
+def packed_stride(nodes: int, leaves: int, words: int) -> int:
+    """32-bit words a tree takes in the packed table: its records, leaf
+    values and weight, rounded up to whole 16-byte vectors."""
+    return -(-(nodes * words * 4 + leaves + 1) // 4) * 4
+
+
+def pack_tables(qs: QSEnsemble) -> torch.Tensor:
+    """int32 ``[T, S]``, the one tensor the CUDA kernel streams through
+    shared memory.  Per tree: ``I * W`` records of four 32-bit words
+    ``{fid, thr bits, excl low half, excl high half}``, word-major (record
+    ``w * I + i`` holds node ``i``'s leaf-set word ``w``, with the node's
+    test repeated in every word), then the ``L`` leaf values and the weight
+    as float32 bits, zero-padded to ``S = packed_stride(I, L, W)``.  The
+    halves of a 64-bit leaf-set word are taken from memory, low half first
+    (little-endian hosts and devices)."""
+    T, I = qs.fid.shape
+    L, W = qs.num_leaves, int(qs.excl.shape[2])
+    out = torch.zeros((T, packed_stride(I, L, W)), dtype=torch.int32,
+                      device=qs.fid.device)
+    rec = out[:, : I * W * 4].view(T, W, I, 4)
+    rec[..., 0] = qs.fid[:, None, :]
+    rec[..., 1] = qs.thr.contiguous().view(torch.int32)[:, None, :]
+    rec[..., 2:] = (qs.excl.permute(0, 2, 1).contiguous().view(torch.int32)
+                    .view(T, W, I, 2))
+    out[:, I * W * 4: I * W * 4 + L] = qs.leafval.contiguous().view(torch.int32)
+    out[:, I * W * 4 + L] = qs.weight.contiguous().view(torch.int32)
+    return out
+
+
+def unpack_tables(packed: torch.Tensor, nodes: int, leaves: int, words: int,
+                  num_trees: int, min_features: int) -> QSEnsemble:
+    """The inverse of :func:`pack_tables`: the tables read back from the
+    packed records (the tests hold the packing to it)."""
+    T = packed.shape[0]
+    rec = packed[:, : nodes * words * 4].reshape(T, words, nodes, 4)
+    excl = (rec[..., 2:].contiguous().view(torch.int64).view(T, words, nodes)
+            .permute(0, 2, 1).contiguous())
+    tail = packed[:, nodes * words * 4:].contiguous().view(torch.float32)
+    return QSEnsemble(
+        fid=rec[:, 0, :, 0].contiguous(),
+        thr=rec[:, 0, :, 1].contiguous().view(torch.float32),
+        excl=excl, leafval=tail[:, :leaves].contiguous(),
+        weight=tail[:, leaves].contiguous(),
+        num_trees=num_trees, min_features=min_features,
     )
 
 

@@ -102,6 +102,47 @@ def test_qs_kernel_matches_plain_on_card(cuda_device, leaves):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["N=1", "N=127", "N=129", "F=1", "F=700 (unstaged)",
+                                  "65 leaves", "dead slots only", "u8 rows",
+                                  "unaligned rows"])
+def test_qs_kernel_edges_on_card(cuda_device, case):
+    """K1 bitwise against the plain scorer where its staging changes shape:
+    a block that is not full (1, 127, 129 docs), one feature, rows too wide
+    to stage (read from global memory), leaf sets of two words, an ensemble
+    whose every slot is dead (all Kahan steps add 0), uint8 bin rows against
+    bin-space tables, and rows that do not start on a 16-byte boundary."""
+    N = {"N=1": 1, "N=127": 127, "N=129": 129}.get(case, 1000)
+    F = {"F=1": 1, "F=700 (unstaged)": 700, "unaligned rows": 23}.get(case, 24)
+    leaves = 65 if case == "65 leaves" else 16
+    ens = random_bestfirst_ensemble(30, leaves, F, seed=len(case))
+    if case == "dead slots only":
+        ens.num_trees = 0
+    rng = np.random.default_rng(0)
+    if case == "u8 rows":
+        ens.threshold_bin = torch.from_numpy(
+            rng.integers(0, 255, size=tuple(ens.threshold_bin.shape)).astype(np.int32))
+        tables = ensemble_to_qs(ens, space="bin").to(cuda_device)
+        X = torch.from_numpy(rng.integers(0, 256, size=(N, F)).astype(np.uint8))
+    else:
+        tables = ensemble_to_qs(ens).to(cuda_device)
+        X = torch.from_numpy(rng.standard_normal((N + 1, F), dtype=np.float32))
+    X = X.to(cuda_device)
+    if case == "unaligned rows":
+        X = X[1:]  # contiguous, 92 bytes past the allocation's start
+        assert X.data_ptr() % 16 != 0
+    elif case != "u8 rows":
+        X = X[:N].contiguous()
+    before = kernel_qs.LAUNCHES
+    got = kernel_qs.score_qs(X, tables)
+    torch.cuda.synchronize()
+    assert kernel_qs.LAUNCHES == before + 1
+    assert torch.equal(got, score_qs(X, tables))
+    assert torch.equal(got.cpu(), score_qs(X.cpu(), tables.to("cpu")))
+    if case == "dead slots only":
+        assert not got.any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("depth", [1, 4, 5])
 def test_perfect_kernel_matches_plain_on_card(cuda_device, depth):
     ens = random_balanced_ensemble(30, depth, 24, seed=depth)
@@ -230,6 +271,71 @@ def test_node_histogram_kernel_matches_plain_on_card(cuda_device, num_bins, n0, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("num_bins,n0,k,C", [(256, 0, 1, 3), (64, 0, 1, 3), (256, 3, 10, 3),
+                                             (64, 2, 4, 3), (256, 0, 16, 2), (256, 0, 8, 2),
+                                             (256, 0, 2, 8)])
+def test_node_histogram_kernel_equals_fixed_reference_on_card(cuda_device, num_bins, n0, k, C):
+    """K4 bit for bit against its exact reference (the kernel's fixed-point
+    arithmetic in plain torch) at every shape of the test above, and with 8
+    channels (8 features a block)."""
+    binned, vt, pos = (torch.from_numpy(a) for a in _histogram_inputs(num_bins=num_bins))
+    vt = torch.cat([vt, vt[1:] * 3, vt[1:] * -5, vt[1:2] * 7])[:C].contiguous()
+    dev = [t.to(cuda_device) for t in (binned, vt, pos)]
+    got = kernel_histogram.node_histogram(*dev, num_bins, n0, k)
+    assert torch.equal(got, kernel_histogram.node_histogram_fixed(*dev, num_bins, n0, k))
+    assert torch.equal(got.cpu(), kernel_histogram.node_histogram_fixed(
+        binned, vt, pos, num_bins, n0, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty node", "every doc out of range", "f_used < W",
+                                  "W % 16 != 0", "int32 bins", "no docs",
+                                  "shared-memory limit"])
+def test_node_histogram_kernel_edges_on_card(cuda_device, case):
+    """K4 bit for bit against its exact reference at the edges of the new
+    layout: a node slot no doc is in, a pass with every doc outside
+    [n0, n0 + k), fewer features than columns with payload bytes in the pad
+    columns, a width that is no multiple of 16, int32 bin ids (with ids below
+    0 and above num_bins, dropped), an empty matrix, and C * B at the most one
+    block's shared memory holds (one more bin raises)."""
+    W = 37 if case == "W % 16 != 0" else 40
+    binned, vt, pos = _histogram_inputs(W=W)
+    num_bins, n0, k, f_used = 256, 0, 4, 0
+    if case == "empty node":
+        pos[pos == 2] = 9
+    elif case == "every doc out of range":
+        n0 = 16
+    elif case == "f_used < W":
+        f_used = 33  # columns 33.. hold bytes that are no bins of a feature
+        binned[:, 33:] = np.random.default_rng(1).integers(0, 256, size=(len(pos), W - 33))
+    elif case == "int32 bins":
+        binned = binned.astype(np.int32) - 2
+    elif case == "no docs":
+        binned, vt, pos = binned[:0], np.ascontiguousarray(vt[:, :0]), pos[:0]
+    elif case == "shared-memory limit":
+        # one channel; the largest B whose one-feature block fits
+        num_bins = next(b for b in range(1 << 15, 0, -1)
+                        if kernel_histogram.min_shared_bytes(1, b) <= kernel_histogram.SMEM_MAX)
+        binned = np.random.default_rng(2).integers(-1, num_bins + 1, size=(len(pos), 2)).astype(
+            np.int32)
+        vt = np.ascontiguousarray(vt[1:2])
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (binned, vt, pos)]
+    got = kernel_histogram.node_histogram(*dev, num_bins, n0, k, f_used=f_used)
+    torch.cuda.synchronize()
+    want = kernel_histogram.node_histogram_fixed(*dev, num_bins, n0, k, f_used=f_used)
+    assert got.shape == want.shape and torch.equal(got, want)
+    if case in ("every doc out of range", "no docs"):
+        assert not got.any()
+    if case == "empty node":
+        assert not got[..., 6:9].any() and got[..., 0].any()
+    if case == "shared-memory limit":
+        before = kernel_histogram.LAUNCHES["node_histogram"]
+        with pytest.raises(ValueError, match="shared memory"):
+            kernel_histogram.node_histogram(*dev, num_bins + 32, n0, k)
+        assert kernel_histogram.LAUNCHES["node_histogram"] == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("num_slots", [32, 9])
 def test_histogram_kernel_matches_plain_on_card(cuda_device, num_slots):
     """K5 as segment sums: one column of int32 slot ids, doc-major values."""
@@ -244,6 +350,9 @@ def test_histogram_kernel_matches_plain_on_card(cuda_device, num_slots):
                           for v in (vals, vals.abs(), torch.ones_like(vals)))
     _assert_within_sum_tolerance(got, plain, mass, terms,
                                  kernel_histogram.rounding_error(vals.T), slice(0, 0))
+    # and bit for bit against the exact reference
+    assert torch.equal(got.cpu(), kernel_histogram.node_histogram_fixed(
+        index, vals.T.contiguous(), None, num_slots, 0, 1))
 
 
 @pytest.mark.gpu

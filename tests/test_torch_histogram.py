@@ -170,3 +170,95 @@ def test_wrappers_reject_bad_input(bad):
         binned, vt, pos = binned.to("meta"), vt.to("meta"), pos.to("meta")
     with pytest.raises(ValueError):
         kernel_histogram.node_histogram(binned, vt, pos, 8, 0, 1)
+
+
+def _fixed_problem(C, seed=0, N=3000, F=6, B=64):
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, B + 3, size=(N, F)).astype(np.uint8)  # some ids dropped
+    g = (rng.normal(size=N) * 10.0 ** rng.integers(-3, 3, size=N)).astype(np.float32)
+    chan = np.stack([np.ones(N, np.float32), g, g * g, np.abs(g)])[:C]
+    pos = rng.integers(0, 8, size=N).astype(np.int32)
+    return (torch.from_numpy(binned), torch.from_numpy(np.ascontiguousarray(chan)),
+            torch.from_numpy(pos), B)
+
+
+@pytest.mark.parametrize("n0,k", [(0, 1), (2, 4), (5, 6)])
+@pytest.mark.parametrize("C", [2, 3, 4])
+def test_node_histogram_fixed_within_rounding_error(C, n0, k):
+    """The exact reference of the kernels (their own fixed-point arithmetic
+    in plain torch) is within ``rounding_error`` a term of the float64 sum,
+    plus the final float32 rounding; the count channel is exact."""
+    binned, vt, pos, B = _fixed_problem(C, seed=C + k)
+    got = kernel_histogram.node_histogram_fixed(binned, vt, pos, B, n0, k)
+    assert got.shape == (binned.shape[1], B, k * C) and got.dtype == torch.float32
+    exact, terms = (kernel_histogram.node_histogram_plain(binned, v, pos, B, n0, k)
+                    for v in (vt.double(), torch.ones_like(vt).double()))
+    bound = (terms * kernel_histogram.rounding_error(vt).repeat(k)
+             + 2.0 ** -24 * exact.abs())
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert torch.equal(got[..., ::C].double(), exact[..., ::C])
+    # f_used limits the features and changes nothing else
+    part = kernel_histogram.node_histogram_fixed(binned, vt, pos, B, n0, k, f_used=4)
+    assert torch.equal(part, got[:4])
+
+
+@pytest.mark.parametrize("C", [2, 3])
+def test_node_histogram_fixed_is_order_free(C):
+    """Integer sums: any order of the docs gives the same bits (the float32
+    scatter-add does not), and so do two halves summed apart when they
+    share their scale."""
+    binned, vt, pos, B = _fixed_problem(C, seed=7)
+    want = kernel_histogram.node_histogram_fixed(binned, vt, pos, B, 1, 5)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(binned.shape[0]))
+    got = kernel_histogram.node_histogram_fixed(
+        binned[perm].contiguous(), vt[:, perm].contiguous(), pos[perm].contiguous(), B, 1, 5)
+    assert torch.equal(got, want)
+    back = kernel_histogram.node_histogram_fixed(
+        binned.flip(0).contiguous(), vt.flip(1).contiguous(), pos.flip(0).contiguous(), B, 1, 5)
+    assert torch.equal(back, want)
+
+
+def test_histogram_fixed_form_of_k5():
+    """K5's exact reference is the same function with every doc in node 0
+    and the doc-major values transposed."""
+    rng = np.random.default_rng(11)
+    index = torch.from_numpy(rng.integers(0, 34, size=(4000, 1)).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(4000, 2)).astype(np.float32))
+    got = kernel_histogram.node_histogram_fixed(index, vals.T.contiguous(), None, 32, 0, 1)
+    exact, terms = (kernel_histogram.histogram_plain(index, v, 32)
+                    for v in (vals.double(), torch.ones_like(vals).double()))
+    bound = terms * kernel_histogram.rounding_error(vals.T) + 2.0 ** -24 * exact.abs()
+    assert got.shape == (1, 32, 2)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("what", ["nan", "inf", "zeros", "empty"])
+def test_node_histogram_fixed_special_values(what):
+    """A channel with a non-finite value is NaN and the others are kept; an
+    all-zero channel and an empty matrix give zeros."""
+    binned, vt, pos, B = _fixed_problem(3, seed=1)
+    if what == "empty":
+        out = kernel_histogram.node_histogram_fixed(binned[:0], vt[:, :0].contiguous(),
+                                                    pos[:0], B, 0, 2)
+        assert out.shape == (binned.shape[1], B, 6) and not out.any()
+        return
+    clean = kernel_histogram.node_histogram_fixed(binned, vt, pos, B, 0, 2)
+    vt = vt.clone()
+    vt[1, 5] = {"nan": float("nan"), "inf": float("inf"), "zeros": 0.0}[what]
+    if what == "zeros":
+        vt[1] = 0.0
+    out = kernel_histogram.node_histogram_fixed(binned, vt, pos, B, 0, 2)
+    assert torch.equal(out[..., 0::3], clean[..., 0::3])
+    assert torch.equal(out[..., 2::3], clean[..., 2::3])
+    if what == "zeros":
+        assert not out[..., 1::3].any()
+    else:
+        assert bool(out[..., 1::3].isnan().all())
+
+
+def test_wrapper_shared_memory_limit():
+    """The kernel's smallest block must hold one feature's C * B cells; the
+    wrapper refuses more before any launch (on the card)."""
+    assert kernel_histogram.min_shared_bytes(3, 256) < kernel_histogram.SMEM_MAX
+    assert kernel_histogram.min_shared_bytes(8, 256) < kernel_histogram.SMEM_MAX
+    assert kernel_histogram.min_shared_bytes(1, 1 << 15) > kernel_histogram.SMEM_MAX

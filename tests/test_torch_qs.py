@@ -172,3 +172,85 @@ def test_wrapper_rejects_bad_features(bad):
     }[bad]
     with pytest.raises(ValueError):
         kernel_qs.score_qs(X, tables)
+
+
+PACKED = [(16, 1), (64, 1), (65, 2), (128, 2)]  # leaves, 64-bit words a leaf set
+
+
+def _tables_with_dead_slots(leaves, space, F=20):
+    """Tables of capacity 6 with 4 live trees; for ``space="bin"`` the bin
+    thresholds are drawn here (the random ensembles carry none)."""
+    jens = jax_bestfirst(6, leaves, F, seed=leaves)
+    jens = jens.replace(num_trees=jnp.asarray(4, jnp.int32))
+    port = _port(jens)
+    if space == "bin":
+        port.threshold_bin = torch.from_numpy(np.random.default_rng(leaves).integers(
+            0, 255, size=tuple(port.threshold_bin.shape)).astype(np.int32))
+    return jens, qs.ensemble_to_qs(port, space=space)
+
+
+@pytest.mark.parametrize("space", ["value", "bin"])
+@pytest.mark.parametrize("leaves,words", PACKED)
+def test_packed_records_unpack_exactly(leaves, words, space):
+    """The packed table the CUDA kernel streams: 16-byte records
+    {fid, thr, leaf-set word} a node and word, then leaf values and weight;
+    it unpacks to the tables exactly, dead slots included, and moves with
+    the tables."""
+    _, t = _tables_with_dead_slots(leaves, space)
+    T, I = t.fid.shape
+    assert t.excl.shape[2] == words and t.num_trees == 4 and T == 6
+    packed = t.packed()
+    assert packed is t.packed()  # built once
+    assert packed.dtype == torch.int32 and packed.is_contiguous()
+    assert packed.shape == (T, qs.packed_stride(I, leaves, words))
+    assert packed.shape[1] % 4 == 0 and packed.shape[1] >= I * words * 4 + leaves + 1
+    back = qs.unpack_tables(packed, I, leaves, words, t.num_trees, t.min_features)
+    for name in ("fid", "thr", "excl", "leafval", "weight"):
+        assert torch.equal(getattr(back, name), getattr(t, name)), name
+    # the layout itself: record w * I + i is {fid, thr bits, low half, high half}
+    rec = packed[:, : I * words * 4].view(T, words, I, 4).numpy()
+    excl = t.excl.numpy().astype(np.uint64)
+    for w in range(words):
+        np.testing.assert_array_equal(rec[:, w, :, 0], t.fid.numpy())
+        np.testing.assert_array_equal(rec[:, w, :, 1].view(np.float32), t.thr.numpy())
+        np.testing.assert_array_equal(rec[:, w, :, 2].view(np.uint32),
+                                      (excl[:, :, w] & 0xFFFFFFFF).astype(np.uint32))
+        np.testing.assert_array_equal(rec[:, w, :, 3].view(np.uint32),
+                                      (excl[:, :, w] >> np.uint64(32)).astype(np.uint32))
+    # dead slots: no test fires, nothing is excluded, weight 0
+    assert (t.thr[4:] == qs.FLT_MAX).all() and not t.excl[4:].any() and not t.weight[4:].any()
+    moved = t.to("cpu")
+    assert torch.equal(moved.packed(), packed)
+
+
+@pytest.mark.parametrize("leaves,words", PACKED)
+def test_scorer_on_packed_records_bitwise(leaves, words):
+    """A plain scorer that reads the packed records equals the plain scorer
+    on the tables and JAX's score_qs bit for bit; and so on u8 bins against
+    bin-space tables."""
+    jens, t = _tables_with_dead_slots(leaves, "value")
+    I = t.fid.shape[1]
+    back = qs.unpack_tables(t.packed(), I, leaves, words, t.num_trees, t.min_features)
+    X = _features(257, 20, seed=leaves)
+    got = qs.score_qs(torch.from_numpy(X), back)
+    np.testing.assert_array_equal(got.numpy(), qs.score_qs(torch.from_numpy(X), t).numpy())
+    want = np.asarray(jax_qs.score_qs(jnp.asarray(X), jax_qs.ensemble_to_qs(jens)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, tb = _tables_with_dead_slots(leaves, "bin")
+    bins = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, size=(257, 20)).astype(np.uint8))
+    back = qs.unpack_tables(tb.packed(), I, leaves, words, tb.num_trees, tb.min_features)
+    np.testing.assert_array_equal(kernel_qs.score_qs(bins, back).numpy(),
+                                  qs.score_qs(bins, tb).numpy())
+
+
+def test_wrapper_refuses_a_tree_too_large_for_shared_memory():
+    """One tree's packed records must fit a block's shared memory: the CUDA
+    path refuses a tree that does not, before any launch."""
+    t = qs.ensemble_to_qs(_port(jax_bestfirst(1, 1024, 8, seed=2)))
+    assert t.packed().shape[1] * 4 > kernel_qs.SMEM_MAX
+    X = torch.zeros((4, 8), device="meta")
+    before = kernel_qs.LAUNCHES
+    with pytest.raises(ValueError):
+        kernel_qs.score_qs(X, t.to("meta"))
+    assert kernel_qs.LAUNCHES == before
