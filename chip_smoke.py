@@ -3,11 +3,13 @@
 
 Builds the CUDA kernels from ``quickrank_tpu_torch/csrc`` and holds each
 against its plain PyTorch version at full width.  Scoring (phases 1-4): the
-QuickScorer and perfect-tree kernels at 131,072 docs x 136 features (the
-QuickScorer kernel also on rows too wide to stage in shared memory, on a
-doc count that ends mid-block and on uint8 bin rows), and the
-scoring slice end to end through ``quickscore.main`` on an MSLR-shaped SVML
-file and two XML models.  Training (phases 5-7): the histogram kernels on
+QuickScorer and perfect-tree kernels at 131,072 docs x 136 features (both
+also on rows too wide to stage in shared memory and on a doc count that ends
+mid-block, the QuickScorer kernel on uint8 bin rows and on trees of 1,024 to
+4,096 leaves, too wide for one block's shared memory), the perfect-tree
+kernel timed beside the QuickScorer kernel on the same depth-4 ensemble, and
+the scoring slice end to end through ``quickscore.main`` on an MSLR-shaped
+SVML file and three XML models.  Training (phases 5-7): the histogram kernels on
 the 2.56M-doc binned matrix of 19,000 MSLR-shaped queries (against their
 plain versions and, bit for bit, against their fixed-point arithmetic in
 plain PyTorch; a best-first-shaped pass over a scattered tenth of the docs
@@ -52,6 +54,10 @@ N_DOCS = 1 << 17
 N_FEATURES = 136
 N_CHECK = 4096  # docs also scored by the CPU descent reference
 QS_CASES = [(1000, 16, 5), (100, 64, 6), (20, 128, 7)]  # trees, leaves, seed
+#: trees, leaves, seed of trees too wide for one block's shared memory,
+#: scored at N_WIDE_DOCS x N_FEATURES (K1's wide kernel)
+QS_WIDE_CASES = [(4, 1024, 11), (4, 2048, 12), (4, 4096, 13)]
+N_WIDE_DOCS = 8192
 PERFECT_CASES = [(1000, 4, 0), (1000, 5, 0)]  # trees, depth, seed
 #: bench.py's training workload (bench.py:179-192): 19,000 queries of
 #: lengths in [38, 232), ~2.56M docs x 136 features.  The data come from
@@ -299,26 +305,71 @@ def main() -> int:
                 f"qs {label}: differs from the CPU descent")
         print(f"  qs {label}: bitwise equal to the plain version and to the CPU descent")
 
+    # trees whose records do not fit one block's shared memory (the wide
+    # kernel streams each tree's records in tiles), in value space on float32
+    # rows and in bin space on u8 rows, a few trees each
+    qs_wide = {}
+    for T, leaves, seed in QS_WIDE_CASES:
+        ens = random_bestfirst_ensemble(T, leaves, N_FEATURES, seed=seed)
+        ens.threshold_bin = torch.from_numpy(
+            rng_x.integers(0, 255, size=tuple(ens.threshold.shape)).astype(np.int32))
+        spaces = {
+            "value": (X[:N_WIDE_DOCS], ens, X_check),
+            "u8 bins": (torch.from_numpy(bins_host[:N_WIDE_DOCS]).to(dev),
+                        dataclasses.replace(ens, threshold=ens.threshold_bin.float()),
+                        torch.from_numpy(bins_host[:N_CHECK]).float()),
+        }
+        for space, (feats, ref_ens, feats_check) in spaces.items():
+            tables = ensemble_to_qs(ens, space="bin" if space == "u8 bins" else "value").to(dev)
+            got = kernel_qs.score_qs(feats, tables)
+            torch.cuda.synchronize()
+            plain = score_qs(feats, tables)
+            label = f"{T}x{leaves} leaves at {N_WIDE_DOCS} docs, {space}"
+            require(got.shape == (N_WIDE_DOCS,) and bool(torch.isfinite(got).all()),
+                    f"qs_score {label}: bad output")
+            qs_err = max(qs_err, float((got - plain).abs().max()))
+            require(torch.equal(got, plain), f"qs {label}: kernel and plain version differ on "
+                    f"{int((got != plain).sum())} of {N_WIDE_DOCS} docs")
+            ref = score_ensemble(feats_check, ref_ens, max_depth=int(tree_depths(ens).max()) + 1)
+            require(torch.equal(got[:N_CHECK].cpu(), ref),
+                    f"qs {label}: differs from the CPU descent")
+            print(f"  qs {label}: bitwise equal to the plain version and to the CPU descent")
+            qs_wide[(leaves, space)] = (ens, tables, feats)
+
     # -- phase 2: perfect kernel against its plain version ------------------
     print("phase 2: perfect_score against the plain version and the CPU descent")
     pf_err = 0.0
     pf_tables = {}
     for T, depth, seed in PERFECT_CASES:
         ens = random_balanced_ensemble(T, depth, N_FEATURES, seed=seed)
-        pe = ensemble_to_perfect(ens).to(dev)
-        pf_tables[(T, depth)] = (ens, pe)
-        got = kernel_perfect.score_perfect(X, pe).cpu().numpy()
-        plain = score_perfect(X, pe).cpu().numpy()
-        require(got.shape == (N_DOCS,) and np.isfinite(got).all(),
-                "perfect_score: bad output")
-        pf_err = max(pf_err, float(np.abs(got - plain).max()))
-        check_bitwise(f"perfect {T}xd{depth} vs plain on card", got, plain, N_DOCS)
-        ref = descent(ens)
-        err = float(np.abs(got[:N_CHECK] - ref).max())
+        pf_tables[(T, depth)] = (ens, ensemble_to_perfect(ens).to(dev))
+    # rows too wide to stage in shared memory (read from global memory) and a
+    # doc count that ends mid-block
+    ens_pf_wide = random_balanced_ensemble(1000, 4, 700, seed=9)
+    pf_extra = {
+        "1000xd4 at 8192 docs x 700 (unstaged)": (
+            torch.from_numpy(X_wide).to(dev), ensemble_to_perfect(ens_pf_wide).to(dev),
+            ens_pf_wide, torch.from_numpy(X_wide[:N_CHECK])),
+        "1000xd4 at 100003 docs (ends mid-block)": (
+            X[:100003], pf_tables[(1000, 4)][1], pf_tables[(1000, 4)][0], X_check),
+    }
+    pf_checks = {f"{T}xd{depth}": (X, pe, ens, X_check)
+                 for (T, depth), (ens, pe) in pf_tables.items()}
+    for label, (feats, pe, ens, feats_check) in {**pf_checks, **pf_extra}.items():
+        got = kernel_perfect.score_perfect(feats, pe)
+        torch.cuda.synchronize()
+        plain = score_perfect(feats, pe)
+        require(got.shape == (feats.shape[0],) and bool(torch.isfinite(got).all()),
+                f"perfect_score {label}: bad output")
+        pf_err = max(pf_err, float((got - plain).abs().max()))
+        require(torch.equal(got, plain), f"perfect {label}: kernel and plain version differ "
+                f"on {int((got != plain).sum())} of {feats.shape[0]} docs")
+        ref = score_ensemble(feats_check, ens, max_depth=int(tree_depths(ens).max()) + 1).numpy()
+        err = float(np.abs(got[:N_CHECK].cpu().numpy() - ref).max())
         atol = 1e-5 * max(1.0, float(np.abs(ref).max()))
-        print(f"  perfect {T}xd{depth} vs CPU descent: max abs err {err:.3g} "
-              f"(atol {atol:.3g}, float32 sum vs Kahan)")
-        require(err <= atol, f"perfect {T}xd{depth}: {err} > {atol}")
+        print(f"  perfect {label}: bitwise equal to the plain version; vs CPU descent max "
+              f"abs err {err:.3g} (atol {atol:.3g}, float32 sum vs Kahan)")
+        require(err <= atol, f"perfect {label}: {err} > {atol}")
 
     # -- phase 3: the slice end to end through quickscore -------------------
     print("phase 3: quickscore end to end")
@@ -357,13 +408,27 @@ def main() -> int:
             "qs": score_qs(Xd, qs_tables[(1000, 16)][1]),
             "perfect": score_perfect(Xd, pf_tables[(1000, 4)][1]),
         }
+        # a model of trees too wide for one block's shared memory, served
+        # through K1's wide kernel
+        ens_w, tables_w, _ = qs_wide[(2048, "value")]
+        m = LambdaMart()
+        m.ensemble = ens_w
+        m.save(os.path.join(tmp, "wide.xml"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = quickscore.main(["-d", svml, "-m", os.path.join(tmp, "wide.xml"),
+                                  "--device", "cuda", "-r", "1",
+                                  "-s", os.path.join(tmp, "wide.scores")])
+        require(rc == 0, f"quickscore on the 2048-leaf model: exit {rc}")
+        plains["wide"] = score_qs(Xd, tables_w)
         for name, plain in plains.items():
             got = np.loadtxt(os.path.join(tmp, f"{name}.scores")).astype(np.float32)
             plain = plain.cpu().numpy()
             require(got.shape == (ds.num_docs,) and np.isfinite(got).all(),
                     f"quickscore {name}: bad scores file")
-            check_bitwise(f"quickscore {name} scores vs plain", got, plain,
-                          ds.num_docs)
+            require(np.array_equal(got, plain),
+                    f"quickscore {name}: scores file differs from the plain scorer on "
+                    f"{int((got != plain).sum())} of {ds.num_docs} docs")
+            print(f"  quickscore {name}: scores file bitwise the plain scorer's")
 
     # -- phase 4: times ------------------------------------------------------
     print(f"phase 4: ms per call at {N_DOCS} docs x {N_FEATURES} features "
@@ -389,6 +454,33 @@ def main() -> int:
         print(f"  perfect {T}xd{depth}: kernel {k:.4f} ms "
               f"({N_DOCS / k * 1e3:.4g} docs/s), plain {p:.4f} ms "
               f"({N_DOCS / p * 1e3:.4g} docs/s)")
+    for label, (feats, pe, _, _) in pf_extra.items():
+        k = time_ms(lambda: kernel_perfect.score_perfect(feats, pe), reps=20)
+        p = time_ms(lambda: score_perfect(feats, pe), reps=3)
+        print(f"  perfect {label}: kernel {k:.4f} ms ({feats.shape[0] / k * 1e3:.4g} docs/s), "
+              f"plain {p:.4f} ms")
+    del pf_extra
+    # the bar K2 is held to: K1 on the same depth-4 ensemble, in this call
+    e_pf, t_pf = pf_tables[(1000, 4)]
+    t_pf_qs = ensemble_to_qs(e_pf).to(dev)
+    require(torch.equal(kernel_qs.score_qs(X, t_pf_qs), score_qs(X, t_pf_qs)),
+            "qs on the depth-4 ensemble: kernel and plain version differ")
+    k2_ms = time_ms(lambda: kernel_perfect.score_perfect(X, t_pf), reps=20)
+    k1_ms = time_ms(lambda: kernel_qs.score_qs(X, t_pf_qs), reps=20)
+    print(f"  1000 balanced depth-4 trees at {N_DOCS} x {N_FEATURES}: perfect_score "
+          f"{k2_ms:.4f} ms, qs_score {k1_ms:.4f} ms on the same ensemble "
+          f"(perfect / qs {k2_ms / k1_ms:.3f})")
+    require(k2_ms <= k1_ms, f"perfect_score {k2_ms:.4f} ms is slower than qs_score "
+            f"{k1_ms:.4f} ms on the same ensemble")
+    del t_pf_qs
+    for (leaves, space), (e_w, t_w, feats) in qs_wide.items():
+        k = time_ms(lambda: kernel_qs.score_qs(feats, t_w), reps=5)
+        b = bound_ms(nbytes_of(feats, t_w.packed()) + N_WIDE_DOCS * 4,
+                     N_WIDE_DOCS * float((mean_leaf_depths(e_w) + 4).sum()))
+        times[("qs wide", leaves, space)] = (k, b)
+        print(f"  qs {e_w.num_trees}x{leaves} leaves at {N_WIDE_DOCS} docs, {space}: kernel "
+              f"{k:.4f} ms, bound {b[0]:.4f} ms by {b[1]}")
+    del qs_wide
 
     e_qs, t_qs = qs_tables[(1000, 16)]
     qs_bound = bound_ms(
@@ -397,7 +489,6 @@ def main() -> int:
         # tree one compare a level of the path to a leaf (the trees' mean
         # leaf depth), and 4 for Kahan
         N_DOCS * float((mean_leaf_depths(e_qs) + 4).sum()))
-    _, t_pf = pf_tables[(1000, 4)]
     pf_bound = bound_ms(nbytes_of(X, t_pf.fid, t_pf.thr, t_pf.wleaf) + N_DOCS * 4,
                         N_DOCS * t_pf.fid.shape[0] * (t_pf.depth + 1))
     print(f"  bounds: qs 1000x16 {qs_bound[0]:.4f} ms by {qs_bound[1]}, perfect 1000xd4 "

@@ -46,8 +46,12 @@
 //     holds), so 4 was taken;
 //   - rows too wide to stage beside a model tile (more than about 370
 //     float32 features) are read from global memory by the same kernel
-//     (kStaged = false), chosen from the shape.
-// The same kernel scores uint8 bin ids against bin-space tables (thresholds
+//     (kStaged = false), chosen from the shape;
+//   - a tree whose records do not fit a block's shared memory (about 950
+//     leaves and more; the records grow as leaves^2 / 4 bytes) goes to
+//     qs_score_wide_kernel, whose tiles are runs of one tree's records (see
+//     there), so any width is scored, as the JAX package scores it.
+// The same kernels score uint8 bin ids against bin-space tables (thresholds
 // hold bin ids as float32, exact): the warm-start rescore of the binned
 // training matrix, without a float32 copy of it.
 //
@@ -58,12 +62,13 @@
 // mask words, T * I times a doc (15,000 at 1000 trees of 16 leaves: 1.30 ms
 // on an NVIDIA H100 80GB HBM3 at 700 W, 1.5e12 node tests a second, where
 // the first kernel took 31.5 ms).
-// Later work: 32-bit masks for trees of at most 32 leaves, and the same
-// staging for perfect_score.cu.
+// Later work: 32-bit masks for trees of at most 32 leaves.
 
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stage_rows.cuh"
 
 namespace {
 
@@ -71,6 +76,7 @@ constexpr int kDocs = 128;                // docs a block
 constexpr int kLanes = 4;                 // threads a doc
 constexpr int kThreads = kDocs * kLanes;
 constexpr int kModelTile = 40 * 1024;     // model bytes staged at a time
+constexpr int kWideRecords = 2048;        // records a tile of a tree that spans tiles
 constexpr int kSmemMax = 232448;          // one block's dynamic maximum
 
 static_assert(kLanes >= 1 && kThreads <= 1024, "kLanes must be 1..8");
@@ -81,16 +87,6 @@ __device__ inline void kahan_step(float& s, float& c, float w, float d) {
   const float sum = __fadd_rn(s, y);
   c = __fsub_rn(__fsub_rn(sum, s), y);
   s = sum;
-}
-
-// element j of a 16-byte vector of X, j a constant after unrolling
-template <typename X>
-__device__ __forceinline__ X vec_elem(const int4& raw, int j) {
-  constexpr int kPerWord = 4 / static_cast<int>(sizeof(X));
-  const int k = j / kPerWord;
-  const int word = k == 0 ? raw.x : k == 1 ? raw.y : k == 2 ? raw.z : raw.w;
-  if (sizeof(X) == 4) return static_cast<X>(__int_as_float(word));
-  return static_cast<X>((static_cast<unsigned int>(word) >> (8 * (j % kPerWord))) & 0xffu);
 }
 
 // packed: per tree `stride4` 16-byte words: nodes * words records
@@ -115,34 +111,7 @@ qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
   const bool live = doc < n;  // every thread stays for the barriers
   const X* row = x + (live ? doc : 0) * f;
 
-  if (kStaged) {
-    // the block's rows are one contiguous range: read it in order, write
-    // it transposed; the second barrier of the first tile publishes it
-    constexpr int kVec = 16 / static_cast<int>(sizeof(X));
-    const int docs = n - doc0 < kDocs ? static_cast<int>(n - doc0) : kDocs;
-    const int total = docs * f;
-    const X* src = x + doc0 * f;
-    int done = 0;
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const int4* src4 = reinterpret_cast<const int4*>(src);
-      const int nvec = total / kVec;
-      for (int v = tid; v < nvec; v += kThreads) {
-        const int4 raw = __ldg(src4 + v);
-        int d = (v * kVec) / f;
-        int c = v * kVec - d * f;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          s_x[c * pitch + d] = vec_elem<X>(raw, j);
-          if (++c == f) { c = 0; ++d; }
-        }
-      }
-      done = nvec * kVec;
-    }
-    for (int e = done + tid; e < total; e += kThreads) {
-      const int d = e / f;
-      s_x[(e - d * f) * pitch + d] = src[e];
-    }
-  }
+  if (kStaged) qr::stage_rows<X, kDocs, kThreads>(x, n, f, doc0, pitch, s_x);
 
   float s = 0.f;
   float c = 0.f;
@@ -202,19 +171,114 @@ qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
   if (live && lane == 0) out[doc] = s;
 }
 
+// A tree whose packed records do not fit one block's shared memory (from
+// about 950 leaves): the trees one at a time, each tree's records streamed
+// in tiles of kWideRecords.  The records are word-major, so a tile is a run
+// of whole words and at most one word begun and one left unfinished.  The
+// kLanes threads of a doc split every word's nodes (node i to thread
+// i % kLanes) and carry their part of the word's AND across tiles in
+// registers; where the word ends, each ANDs its part into the doc's slot of
+// that word in shared memory.  After the tile's barrier one thread a doc
+// takes the words that ended in the tile in order and keeps the first whose
+// mask is not zero: its first set bit is the exit leaf, as in the narrow
+// kernel.  The tree's remaining tiles are skipped once every doc of the
+// block has its exit leaf.  Then that thread takes the Kahan step with the
+// leaf value and the weight read from global memory, so the trees are folded
+// in slot order with the same steps.
 template <typename X, bool kStaged>
-int launch_kernel(const X* x, int64_t n, int f, const int4* packed, int trees,
-                  int nodes, int leaves, int words, int stride4, int tile_trees,
-                  int pitch, size_t smem, float* out, cudaStream_t stream) {
-  auto kernel = qs_score_kernel<X, kStaged>;
+__global__ void __launch_bounds__(kThreads, kThreads <= 512 ? 2 : 1)
+qs_score_wide_kernel(const X* __restrict__ x, int64_t n, int f,
+                     const int4* __restrict__ packed, int trees, int nodes,
+                     int leaves, int words, int stride4, int ends, int pitch,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* s_model = reinterpret_cast<int4*>(smem);
+  // per word ending in the tile: the doc's AND, low halves then high halves
+  unsigned int* s_and = reinterpret_cast<unsigned int*>(s_model + kWideRecords);
+  int* s_exit = reinterpret_cast<int*>(s_and + ends * 2 * kDocs);  // -1: not found yet
+  X* s_x = reinterpret_cast<X*>(s_exit + kDocs);
+
+  const int tid = threadIdx.x;
+  const int dloc = tid % kDocs;
+  const int lane = tid / kDocs;
+  const int64_t doc0 = static_cast<int64_t>(blockIdx.x) * kDocs;
+  const int64_t doc = doc0 + dloc;
+  const bool live = doc < n;  // every thread stays for the barriers
+  const X* row = x + (live ? doc : 0) * f;
+
+  if (kStaged) qr::stage_rows<X, kDocs, kThreads>(x, n, f, doc0, pitch, s_x);
+
+  const int records = nodes * words;
+  float s = 0.f;
+  float c = 0.f;
+  for (int t = 0; t < trees; ++t) {
+    const int4* tree = packed + static_cast<int64_t>(t) * stride4;
+    unsigned int lo = ~0u, hi = ~0u;  // this thread's part of the current word
+    for (int r0 = 0; r0 < records; r0 += kWideRecords) {
+      const int r1 = min(records, r0 + kWideRecords);
+      const int w0 = r0 / nodes;
+      __syncthreads();  // the previous tile and its slots have been read
+      for (int i = tid; i < r1 - r0; i += kThreads) s_model[i] = __ldg(tree + r0 + i);
+      for (int i = tid; i < ends * 2 * kDocs; i += kThreads) s_and[i] = ~0u;
+      if (r0 == 0 && tid < kDocs) s_exit[tid] = -1;
+      __syncthreads();
+      if (live && s_exit[dloc] < 0) {
+        for (int w = w0; w * nodes < r1; ++w) {
+          const int base = w * nodes;
+          const int end = min(r1, base + nodes);
+          int r = max(r0, base);
+          r += (lane - (r - base) % kLanes + kLanes) % kLanes;  // this thread's first node
+          for (; r < end; r += kLanes) {
+            const int4 q = s_model[r - r0];
+            const float v = static_cast<float>(
+                kStaged ? s_x[q.x * pitch + dloc] : __ldg(row + q.x));
+            if (v > __int_as_float(q.y)) {
+              lo &= ~static_cast<unsigned int>(q.z);
+              hi &= ~static_cast<unsigned int>(q.w);
+            }
+          }
+          if (end == base + nodes) {  // the word ends in this tile
+            unsigned int* slot = s_and + (w - w0) * 2 * kDocs;
+            atomicAnd(slot + dloc, lo);
+            atomicAnd(slot + kDocs + dloc, hi);
+            lo = hi = ~0u;
+          }
+        }
+      }
+      __syncthreads();
+      if (live && lane == 0 && s_exit[dloc] < 0) {
+        for (int w = w0; (w + 1) * nodes <= r1; ++w) {
+          const unsigned int* slot = s_and + (w - w0) * 2 * kDocs;
+          if (slot[dloc] != 0u) {
+            s_exit[dloc] = w * 64 + __ffs(static_cast<int>(slot[dloc])) - 1;
+            break;
+          }
+          if (slot[kDocs + dloc] != 0u) {
+            s_exit[dloc] = w * 64 + 32 + __ffs(static_cast<int>(slot[kDocs + dloc])) - 1;
+            break;
+          }
+        }
+      }
+      if (__syncthreads_and(lane != 0 || !live || s_exit[dloc] >= 0)) break;
+    }
+    if (live && lane == 0) {
+      const float* tail = reinterpret_cast<const float*>(tree + records);
+      kahan_step(s, c, __ldg(tail + leaves), __ldg(tail + s_exit[dloc]));
+    }
+  }
+  if (live && lane == 0) out[doc] = s;
+}
+
+template <typename... P, typename... A>
+int launch_kernel(void (*kernel)(P...), int64_t n, size_t smem, cudaStream_t stream,
+                  A... args) {
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   const int64_t blocks = (n + kDocs - 1) / kDocs;
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-      x, n, f, packed, trees, nodes, leaves, words, stride4, tile_trees, pitch, out);
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,27 +291,38 @@ int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int stride4 = stride_words / 4;
+  // rows padded by one 32-bit word: the transposing writes of neighbouring
+  // features then fall into neighbouring banks
+  const int pitch = qr::stage_pitch<X>(kDocs);
+  const size_t rows = static_cast<size_t>(f) * pitch * sizeof(X);
+  const int4* p4 = static_cast<const int4*>(packed);
+  const int fi = static_cast<int>(f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a tile holds whole trees: their records, and with several threads a
   // doc one exit-leaf value a tree and doc
   const size_t per_tree =
       static_cast<size_t>(stride4) * 16 + (kLanes > 1 ? kDocs * sizeof(float) : 0);
-  if (per_tree > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  if (per_tree > static_cast<size_t>(kSmemMax)) {
+    // a tree spans tiles: the words that end in a tile, at most this many
+    const int ends = kWideRecords / nodes + 1;
+    const size_t model = static_cast<size_t>(kWideRecords) * 16 +
+                         (static_cast<size_t>(ends) * 2 + 1) * kDocs * 4;
+    if (model + rows <= static_cast<size_t>(kSmemMax)) {
+      return launch_kernel(qs_score_wide_kernel<X, true>, n, model + rows, s, x, n, fi,
+                           p4, trees, nodes, leaves, words, stride4, ends, pitch, out);
+    }
+    return launch_kernel(qs_score_wide_kernel<X, false>, n, model, s, x, n, fi, p4,
+                         trees, nodes, leaves, words, stride4, ends, pitch, out);
+  }
   const int tile_trees = static_cast<int>(std::max<size_t>(
       1, std::min<size_t>(std::max(trees, 1), kModelTile / per_tree)));
   const size_t model = tile_trees * per_tree;
-  // rows padded by one 32-bit word: the transposing writes of neighbouring
-  // features then fall into neighbouring banks
-  const int pitch = kDocs + 4 / static_cast<int>(sizeof(X));
-  const size_t staged = model + static_cast<size_t>(f) * pitch * sizeof(X);
-  const int4* p4 = static_cast<const int4*>(packed);
-  const int fi = static_cast<int>(f);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged <= static_cast<size_t>(kSmemMax)) {
-    return launch_kernel<X, true>(x, n, fi, p4, trees, nodes, leaves, words, stride4,
-                                  tile_trees, pitch, staged, out, s);
+  if (model + rows <= static_cast<size_t>(kSmemMax)) {
+    return launch_kernel(qs_score_kernel<X, true>, n, model + rows, s, x, n, fi, p4,
+                         trees, nodes, leaves, words, stride4, tile_trees, pitch, out);
   }
-  return launch_kernel<X, false>(x, n, fi, p4, trees, nodes, leaves, words, stride4,
-                                 tile_trees, pitch, model, out, s);
+  return launch_kernel(qs_score_kernel<X, false>, n, model, s, x, n, fi, p4, trees,
+                       nodes, leaves, words, stride4, tile_trees, pitch, out);
 }
 
 }  // namespace
@@ -255,8 +330,7 @@ int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
 // x [n, f] float32 against the packed tables of trees/qs.py::pack_tables
 // (int32 [trees, stride_words], 16-byte aligned).  Launches on `stream`;
 // returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
-// table whose stride does not hold its records or whose one tree does not
-// fit shared memory.
+// table whose stride does not hold its records.
 extern "C" int qs_score(const float* x, int64_t n, int64_t f, const void* packed,
                         int trees, int nodes, int leaves, int words,
                         int stride_words, float* out, void* stream) {

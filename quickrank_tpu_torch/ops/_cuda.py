@@ -24,9 +24,11 @@ CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libqrkernels.so")
+#: ``-I CSRC`` finds the shared headers (``*.cuh``) from a copy of a source
+#: built elsewhere too (``scripts/profile_torch_kernels.py``)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
 ]
 
 #: dynamic shared memory one block may use on an H100 (227 KB)
@@ -38,8 +40,8 @@ SIGNATURES = {
     # x, n, f, packed, trees, nodes, leaves, words, stride_words, out, stream
     "qs_score": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     "qs_score_u8": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
-    # x, n, f, fid, thr, wleaf, trees, depth, out, stream
-    "perfect_score": [_P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # x, n, f, packed, trees, depth, stride_words, out, stream
+    "perfect_score": [_P, _I64, _I64, _P, _I, _I, _I, _P, _P],
     # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
     "oblivious_score": [_P, _I, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # binned, bin_bytes, n, width, features, values, channels, stride_c,

@@ -143,17 +143,32 @@ def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out.movedim(-1, dim)
 
 
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis from an accumulator of 0, one rounding
+    per add in order, as XLA's CPU loop over a reduce or a window adds."""
+    acc = x[..., 0] + 0.0
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, associated as XLA on the CPU reduces it:
-    an axis longer than 32 is cut into ceil(n / 32) equal windows, each
-    summed in order, and the window sums are reduced the same way.  This is
-    XLA's order for lengths up to 64 and for multiples of 32 (the bin widths
-    of 63 and 255 thresholds); other lengths differ from it in the last
-    bits only."""
-    while x.shape[-1] > _XLA_BLOCK_SUM:
+    """Sum over the last axis, associated as XLA on the CPU reduces it, at
+    every length.  XLA's tree-reduction rewrite turns a reduce of n >= 32
+    elements into a reduce-window of width and stride 32 over the axis
+    padded with zeros to ``32 * m`` (``m = ceil(n / 32)``), ``p // 2`` zeros
+    in front and the other ``p - p // 2`` behind (``p = 32 * m - n``), and a
+    reduce of the m window sums, rewritten the same way while m >= 32.  Each
+    window and the last reduce add in order from 0.  So the windows are
+    centred: at 101 bins they hold 19, 32, 32 and 18 elements.  This is the
+    order inside the JAX package's jitted ``_node_stats`` and grower, at
+    every length from 1 to 256 (``tests/test_torch_histogram.py``); the
+    padded zeros change no bit."""
+    while x.shape[-1] >= _XLA_BLOCK_SUM:
         n = x.shape[-1]
         m = -(-n // _XLA_BLOCK_SUM)
-        w = -(-n // m)
-        x = _sequential_scan(F.pad(x, (0, m * w - n)).reshape(
-            x.shape[:-1] + (m, w)))[..., -1]
-    return _sequential_scan(x)[..., -1]
+        p = m * _XLA_BLOCK_SUM - n
+        if p:
+            x = F.pad(x, (p // 2, p - p // 2))
+        x = _sequential_sum(x.reshape(x.shape[:-1] + (m, _XLA_BLOCK_SUM)))
+    return _sequential_sum(x)

@@ -2,7 +2,10 @@
 plain version (``trees/perfect.py::score_perfect``).
 
 Replaces quickrank_tpu/ops/pallas_perfect.py::score_perfect_pallas: the same
-plain float32 sum of ``wleaf[t, leaf]``, in tree order.
+plain float32 sum of ``wleaf[t, leaf]``, in tree order.  The kernel stages a
+block's document rows and a tile of the packed tables
+(``PerfectEnsemble.packed``) in shared memory; the plain scorer reads the
+unpacked tables.
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ def score_perfect(features: torch.Tensor, pe: PerfectEnsemble) -> torch.Tensor:
     out = torch.empty(N, dtype=torch.float32, device=features.device)
     if N == 0:
         return out
+    packed = pe.packed()
     lib = _cuda.library()
     rc = lib.perfect_score(
-        features.data_ptr(), N, F, pe.fid.data_ptr(), pe.thr.data_ptr(),
-        pe.wleaf.data_ptr(), int(pe.fid.shape[0]), pe.depth, out.data_ptr(),
+        features.data_ptr(), N, F, packed.data_ptr(), int(packed.shape[0]),
+        pe.depth, int(packed.shape[1]), out.data_ptr(),
         torch.cuda.current_stream(features.device).cuda_stream,
     )
     _cuda.check(rc, "perfect_score")

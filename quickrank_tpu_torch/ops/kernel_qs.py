@@ -5,8 +5,9 @@ Replaces quickrank_tpu/ops/pallas_qs.py::score_qs_pallas.  Unlike the Pallas
 kernel, which sums trees in plain float32 block order, the CUDA kernel keeps
 the per-tree Kahan chain of the plain scorer and is bitwise equal to it.
 The kernel stages a block's document rows and a tile of the packed tables
-(``QSEnsemble.packed``) in shared memory; the plain scorer reads the
-unpacked tables.
+(``QSEnsemble.packed``) in shared memory; a tree too wide for one block's
+shared memory streams through it in tiles of its own records.  The plain
+scorer reads the unpacked tables.
 """
 
 from __future__ import annotations
@@ -20,11 +21,6 @@ from quickrank_tpu_torch.trees.qs import score_qs as plain_score_qs
 #: kernel launches by this wrapper; a run that must show its path went
 #: through the kernel sets it to 0 first and reads it after
 LAUNCHES = 0
-
-#: shared memory one block may use; one tree's packed records and one
-#: exit-leaf value a doc of the block (``csrc/qs_score.cu``: 128) must fit it
-SMEM_MAX = _cuda.SMEM_MAX
-DOCS_PER_BLOCK = 128
 
 
 def check_inputs(features: torch.Tensor, tables, name: str,
@@ -64,12 +60,6 @@ def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
     N, F = features.shape
     T, I = qs.fid.shape
     packed = qs.packed()
-    if packed.shape[1] * 4 + DOCS_PER_BLOCK * 4 > SMEM_MAX:
-        raise ValueError(
-            f"score_qs: a tree of {qs.num_leaves} leaves takes "
-            f"{packed.shape[1] * 4} bytes of packed records, more than one "
-            f"block's shared memory ({SMEM_MAX} bytes) holds"
-        )
     out = torch.empty(N, dtype=torch.float32, device=features.device)
     if N == 0:
         return out

@@ -12,6 +12,12 @@ Heap indexing: internal node h has children 2h+1 (left, ``x <= thr``) and
 2h+2 (right, ``x > thr``); after D steps ``h - (2^D - 1)`` is the leaf.
 The JAX package pads the tree count to a multiple of 25 for its TPU blocks;
 the port does not pad.
+
+The CUDA kernel reads the tables in one packed tensor (:func:`pack_perfect`):
+per tree the ``2^D - 1`` node pairs ``{fid, thr bits}`` in heap order, then
+the ``2^D`` float32 ``wleaf`` values, padded to whole 16-byte vectors.  It
+is built once per table (``PerfectEnsemble.packed``); the plain scorer reads
+the unpacked tensors.
 """
 
 from __future__ import annotations
@@ -41,17 +47,59 @@ class PerfectEnsemble:
     wleaf: torch.Tensor  # float32
     #: smallest feature count the tables can be scored against
     min_features: int
+    _packed: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def depth(self) -> int:
         return int(self.leaf.shape[1]).bit_length() - 1
 
+    def packed(self) -> torch.Tensor:
+        """The tables as the CUDA kernel reads them (:func:`pack_perfect`),
+        on the tables' device; built at the first call and kept.  The
+        tensors are not written after that call."""
+        if self._packed is None:
+            self._packed = pack_perfect(self)
+        return self._packed
+
     def to(self, device) -> "PerfectEnsemble":
         return dataclasses.replace(
             self, fid=self.fid.to(device), thr=self.thr.to(device),
             leaf=self.leaf.to(device), weight=self.weight.to(device),
-            wleaf=self.wleaf.to(device),
+            wleaf=self.wleaf.to(device), _packed=self.packed().to(device),
         )
+
+
+def packed_stride(depth: int) -> int:
+    """32-bit words a tree takes in the packed table: two a node and one a
+    leaf, rounded up to whole 16-byte vectors (48 at depth 4, 96 at 5)."""
+    return -(-(2 * (2**depth - 1) + 2**depth) // 4) * 4
+
+
+def pack_perfect(pe: PerfectEnsemble) -> torch.Tensor:
+    """int32 ``[T, S]``, the one tensor the CUDA kernel streams through
+    shared memory.  Per tree: ``2^D - 1`` pairs ``{fid, thr bits}`` in heap
+    order (node h at words 2h, 2h + 1), then the ``2^D`` float32 ``wleaf``
+    values as bits, zero-padded to ``S = packed_stride(D)``."""
+    T, I = pe.fid.shape
+    out = torch.zeros((T, packed_stride(pe.depth)), dtype=torch.int32,
+                      device=pe.fid.device)
+    nodes = out[:, : 2 * I].view(T, I, 2)
+    nodes[..., 0] = pe.fid
+    nodes[..., 1] = pe.thr.contiguous().view(torch.int32)
+    out[:, 2 * I: 2 * I + I + 1] = pe.wleaf.contiguous().view(torch.int32)
+    return out
+
+
+def unpack_perfect(packed: torch.Tensor, depth: int):
+    """The inverse of :func:`pack_perfect`: ``(fid, thr, wleaf)`` read back
+    from the packed records (the tests hold the packing to it)."""
+    T = packed.shape[0]
+    I = 2**depth - 1
+    nodes = packed[:, : 2 * I].reshape(T, I, 2)
+    return (nodes[..., 0].contiguous(),
+            nodes[..., 1].contiguous().view(torch.float32),
+            packed[:, 2 * I: 2 * I + I + 1].contiguous().view(torch.float32))
 
 
 def tree_depths(ens, cap: Optional[int] = None) -> np.ndarray:

@@ -17,9 +17,16 @@ times them at the shapes of the main paths.
 3. ``csrc/qs_score.cu`` rebuilt with 1, 2, 4 and 8 threads a doc
    (``kLanes``) at 131,072 docs x 136 features, each held bitwise
    against the plain scorer, with ptxas's registers and spills.
+4. ``csrc/perfect_score.cu`` (K2) rebuilt with 1, 2 and 4 threads a doc
+   (``kLanes``) times 1, 2 and 4 trees walked at once by a thread
+   (``kInFlight``), and with all 2^D - 1 nodes of a tree tested without the
+   dependent chain (``kAllTests``), at 1000 trees of depth 4 and 5 on
+   131,072 x 136 and at 1000 x depth 4 on 8,192 x 700 (rows too wide to
+   stage); each held bitwise against the plain scorer, with K1 on the same
+   depth-4 ensemble timed beside them.
 
-Run from the repository root (about two minutes on an H100):
-    python scripts/profile_torch_kernels.py
+Run from the repository root (about three minutes on an H100):
+    python scripts/profile_torch_kernels.py [--sections 1,2,3,4]
 It prints one JSON object last, and writes it to ``--out`` when given.
 """
 
@@ -294,6 +301,20 @@ SHIPPED_K4_VARIANTS = {
 }
 LANES = (1, 2, 4, 8)
 QS_CASES = [(1000, 16, 5), (100, 64, 6), (20, 128, 7)]  # trees, leaves, seed
+#: K2's variants: label -> edits of csrc/perfect_score.cu (the same threads a
+#: doc and trees in flight for staged rows and for rows read from global memory)
+def _k2_edits(lanes, k, all_tests=False):
+    return [("kLanes = 1;", f"kLanes = {lanes};"), ("kInFlight = 8;", f"kInFlight = {k};"),
+            ("kLanesUnstaged = 4;", f"kLanesUnstaged = {lanes};"),
+            ("kInFlightUnstaged = 4;", f"kInFlightUnstaged = {k};"),
+            ("kAllTests = false;", f"kAllTests = {'true' if all_tests else 'false'};")]
+
+
+K2_VARIANTS = {
+    **{f"{lanes} a doc, {k} in flight": _k2_edits(lanes, k)
+       for lanes in (1, 2, 4) for k in (1, 2, 4, 8)},
+    **{f"{lanes} a doc, all nodes tested": _k2_edits(lanes, 1, True) for lanes in (1, 4)},
+}
 
 
 def ptxas_report(log):
@@ -347,20 +368,16 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--queries", type=int, default=19000)
     p.add_argument("--out", help="also write the JSON report here")
+    p.add_argument("--sections", default="1,2,3,4",
+                   help="comma-separated sections to run (default: all)")
     args = p.parse_args()
+    sections = {int(x) for x in args.sections.split(",")}
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import numpy as np
-
     from quickrank_tpu_torch._build import BUILD_DIR
-    from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
-    from quickrank_tpu_torch.learning.mart import TrainData
-    from quickrank_tpu_torch.ops import _cuda, kernel_histogram, kernel_qs
-    from quickrank_tpu_torch.ops.histogram import doc_channels
-    from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
-    from quickrank_tpu_torch.trees.random_ensemble import random_bestfirst_ensemble
+    from quickrank_tpu_torch.ops import _cuda
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -383,8 +400,6 @@ def main() -> int:
         jobs[key] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE, text=True))
 
-    for name, defines in FIRST_K4_VARIANTS.items():
-        start(("first", name), first_src, defines)
     def start_edited(key, source, edits):
         """Build a copy of ``csrc/<source>`` with ``edits`` made in its text."""
         with open(os.path.join(_cuda.CSRC, source)) as f:
@@ -398,10 +413,18 @@ def main() -> int:
             f.write(text)
         start(key, path, [])
 
-    for name, (edits, _) in SHIPPED_K4_VARIANTS.items():
-        start_edited(("shipped", name), "histogram.cu", edits)
-    for n in LANES:
-        start_edited(("lanes", n), "qs_score.cu", [("kLanes = 4;", f"kLanes = {n};")])
+    if 1 in sections:
+        for name, defines in FIRST_K4_VARIANTS.items():
+            start(("first", name), first_src, defines)
+    if 2 in sections:
+        for name, (edits, _) in SHIPPED_K4_VARIANTS.items():
+            start_edited(("shipped", name), "histogram.cu", edits)
+    if 3 in sections:
+        for n in LANES:
+            start_edited(("lanes", n), "qs_score.cu", [("kLanes = 4;", f"kLanes = {n};")])
+    if 4 in sections:
+        for name, edits in K2_VARIANTS.items():
+            start_edited(("k2", name), "perfect_score.cu", edits)
     libs, ptxas = {}, {}
     for key, (out, proc) in jobs.items():
         _, err = proc.communicate()
@@ -418,9 +441,33 @@ def main() -> int:
         finally:
             _cuda._lib = base
 
-    report = {"card": card, "k4_first_design_ms": {}, "k4_shipped_ms": {}, "k1_lanes": {}}
+    report = {"card": card, "k4_first_design_ms": {}, "k4_shipped_ms": {}, "k1_lanes": {},
+              "k2_variants": {}}
+    if 1 in sections or 2 in sections:
+        section_k4(args, sections, report, dev, with_lib, ptxas)
+    if 3 in sections:
+        section_k1(report, dev, with_lib, ptxas)
+    if 4 in sections:
+        section_k2(report, dev, with_lib, ptxas)
 
-    # -- 1. the first design of K4, one cost taken away at a time -----------
+    text = json.dumps(report)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0
+
+
+def section_k4(args, sections, report, dev, with_lib, ptxas):
+    """Sections 1 and 2: K4's first design taken apart, the shipped K4's
+    variants on the growers' shapes."""
+    import torch
+
+    from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
+    from quickrank_tpu_torch.learning.mart import TrainData
+    from quickrank_tpu_torch.ops.histogram import doc_channels
+
     td = TrainData.build(make_ranking_dataset(num_queries=args.queries, seed=11), 255,
                          device=dev)
     binned, mask = td.step.binned, td.step.doc_mask
@@ -450,8 +497,22 @@ def main() -> int:
         "a tenth of the docs, scattered": (binned, subset(0.1, True)),
         "a tenth of the docs, contiguous": (binned, subset(0.1, False)),
     }
+    if 1 in sections:
+        section_k4_first(report, inputs, vt, with_lib)
+    if 2 in sections:
+        section_k4_shipped(report, dev, gen, binned, g, vt, pos_root,
+                           inputs["a tenth of the docs, scattered"][1], with_lib, ptxas)
+
+
+def section_k4_first(report, inputs, vt, with_lib):
+    """Section 1: the first design of K4, one cost taken away at a time."""
+    import torch
+
+    from quickrank_tpu_torch.ops import kernel_histogram
+
     want = {name: kernel_histogram.node_histogram_fixed(b, vt, pos, 256, 0, 1)
             for name, (b, pos) in inputs.items()}
+    N, W = inputs["root, the data's bins"][0].shape
     print(f"1. K4 at {N} x {W} u8, 256 bins, C = 3, k = 1: ms a launch")
     for variant in [("first", v) for v in FIRST_K4_VARIANTS] + [None]:
         label = variant[1] if variant else "the shipped kernel"
@@ -467,13 +528,20 @@ def main() -> int:
         for name, ms in row.items():
             print(f"    {name}: {ms:.4f}")
 
-    # -- 2. the shipped K4 on the growers' shapes ---------------------------
+
+def section_k4_shipped(report, dev, gen, binned, g, vt, pos_root, tenth, with_lib, ptxas):
+    """Section 2: the shipped K4 (and K5) on the growers' shapes, and its
+    variants."""
+    import torch
+
+    from quickrank_tpu_torch.ops import kernel_histogram
+
+    N = binned.shape[0]
     pos_nodes = torch.randint(0, 16, (N,), generator=gen, dtype=torch.int32).to(dev)
     # level-wise growth's uneven nodes: node i holds about 2^-(i+1) of the docs
     skew = torch.rand(N, generator=gen).to(dev)
     pos_skew = (-torch.log2(skew.clamp_min(2.0 ** -8))).floor().clamp(0, 7).to(torch.int32)
     vt2 = vt[:2].contiguous()
-    tenth = inputs["a tenth of the docs, scattered"][1]
     rows = (tenth == 0).nonzero()[:, 0]
     run = (binned[rows].contiguous(), vt[:, rows].contiguous(),
            torch.zeros(rows.shape[0], dtype=torch.int32, device=dev))
@@ -511,9 +579,17 @@ def main() -> int:
     report["k4_ptxas"] = regs
     for line in regs:
         print(f"      ptxas: {line}")
-    del td, binned, inputs, want, vt, vt2, pos_nodes, pos_skew, skew, run, slots, vals
 
-    # -- 3. threads a doc in K1 ---------------------------------------------
+
+def section_k1(report, dev, with_lib, ptxas):
+    """Section 3: K1 by threads a doc."""
+    import numpy as np
+    import torch
+
+    from quickrank_tpu_torch.ops import kernel_qs
+    from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
+    from quickrank_tpu_torch.trees.random_ensemble import random_bestfirst_ensemble
+
     X = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (1 << 17, 136), dtype=np.float32)).to(dev)
     X8 = torch.from_numpy(np.random.default_rng(8).integers(
@@ -546,13 +622,51 @@ def main() -> int:
         for line in regs:
             print(f"      ptxas: {line}")
 
-    text = json.dumps(report)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    print(text)
-    return 0
+
+def section_k2(report, dev, with_lib, ptxas):
+    """Section 4: K2 by threads a doc, trees in flight and the chain-free
+    form, with K1 on the same depth-4 ensemble beside it."""
+    import numpy as np
+    import torch
+
+    from quickrank_tpu_torch.ops import kernel_perfect, kernel_qs
+    from quickrank_tpu_torch.trees.perfect import ensemble_to_perfect, score_perfect
+    from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
+    from quickrank_tpu_torch.trees.random_ensemble import random_balanced_ensemble
+
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1 << 17, 136), dtype=np.float32)).to(dev)
+    X_wide = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (8192, 700), dtype=np.float32)).to(dev)
+    cases = {}
+    for depth in (4, 5):
+        pe = ensemble_to_perfect(random_balanced_ensemble(1000, depth, 136, seed=0)).to(dev)
+        cases[f"1000 x depth {depth}"] = (X, pe, score_perfect(X, pe))
+    pe = ensemble_to_perfect(random_balanced_ensemble(1000, 4, 700, seed=9)).to(dev)
+    cases["1000 x depth 4, 8192 x 700 (unstaged)"] = (X_wide, pe, score_perfect(X_wide, pe))
+    print(f"4. K2 at {X.shape[0]} docs x {X.shape[1]} features by threads a doc, trees in "
+          f"flight and the chain-free form: ms a launch")
+    for name, edits in K2_VARIANTS.items():
+        key = ("k2", name)
+        row = {}
+        for case, (feats, pe, plain) in cases.items():
+            call = lambda: kernel_perfect.score_perfect(feats, pe)  # noqa: E731
+            if not torch.equal(with_lib(key, call), plain):
+                raise RuntimeError(f"K2 {name}, {case}: differs from the plain scorer")
+            row[case] = with_lib(key, lambda: time_ms(call, reps=20))
+        regs = ptxas_report(ptxas[key])
+        report["k2_variants"][name] = {"ms": row, "ptxas": regs}
+        print(f"  {name}: " + ", ".join(f"{case} {ms:.4f}" for case, ms in row.items()))
+        for line in regs:
+            print(f"      ptxas: {line}")
+    pe = cases["1000 x depth 4"][1]
+    qs = ensemble_to_qs(random_balanced_ensemble(1000, 4, 136, seed=0)).to(dev)
+    if not torch.equal(kernel_qs.score_qs(X, qs), score_qs(X, qs)):
+        raise RuntimeError("K1 on the depth-4 ensemble differs from the plain scorer")
+    shipped = time_ms(lambda: kernel_perfect.score_perfect(X, pe), reps=20)
+    k1 = time_ms(lambda: kernel_qs.score_qs(X, qs), reps=20)
+    report["k2_shipped_vs_k1_ms"] = {"perfect_score": shipped, "qs_score": k1}
+    print(f"  the shipped K2 {shipped:.4f} ms, K1 on the same ensemble {k1:.4f} ms")
 
 
 if __name__ == "__main__":

@@ -143,17 +143,80 @@ def test_qs_kernel_edges_on_card(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [1, 4, 5])
+@pytest.mark.parametrize("space", ["value", "bin"])
+@pytest.mark.parametrize("leaves", [1024, 2048, 4096])
+def test_qs_kernel_wide_trees_on_card(cuda_device, leaves, space):
+    """K1 on trees whose records do not fit one block's shared memory (16,
+    32 and 64 leaf-set words; from 2,560 leaves one word spans tiles), in
+    value space on float32 rows and in bin space on u8 rows, with a dead
+    slot: bitwise the plain scorer on the card and on the CPU."""
+    ens = random_bestfirst_ensemble(3, leaves, 24, seed=leaves)
+    ens.num_trees = 2
+    rng = np.random.default_rng(leaves)
+    if space == "bin":
+        ens.threshold_bin = torch.from_numpy(
+            rng.integers(0, 255, size=tuple(ens.threshold_bin.shape)).astype(np.int32))
+        X = torch.from_numpy(rng.integers(0, 256, size=(1000, 24)).astype(np.uint8))
+    else:
+        X = torch.from_numpy(rng.standard_normal((1000, 24), dtype=np.float32))
+    tables = ensemble_to_qs(ens, space=space)
+    before = kernel_qs.LAUNCHES
+    got = kernel_qs.score_qs(X.to(cuda_device), tables.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernel_qs.LAUNCHES == before + 1
+    assert torch.equal(got, score_qs(X.to(cuda_device), tables.to(cuda_device)))
+    assert torch.equal(got.cpu(), score_qs(X, tables))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
 def test_perfect_kernel_matches_plain_on_card(cuda_device, depth):
-    ens = random_balanced_ensemble(30, depth, 24, seed=depth)
-    pe = ensemble_to_perfect(ens).to(cuda_device)
-    X = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (1000, 24), dtype=np.float32)).to(cuda_device)
+    ens = random_balanced_ensemble(130, depth, 24, seed=depth)
+    pe = ensemble_to_perfect(ens)
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((1000, 24), dtype=np.float32))
     before = kernel_perfect.LAUNCHES
-    got = kernel_perfect.score_perfect(X, pe)
+    got = kernel_perfect.score_perfect(X.to(cuda_device), pe.to(cuda_device))
     torch.cuda.synchronize()
     assert kernel_perfect.LAUNCHES == before + 1
-    assert torch.equal(got, score_perfect(X, pe))
+    assert torch.equal(got, score_perfect(X.to(cuda_device), pe.to(cuda_device)))
+    assert torch.equal(got.cpu(), score_perfect(X, pe))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["N=1", "N=127", "N=129", "F=1", "F=700 (unstaged)",
+                                  "unaligned rows", "a tree of weight 0",
+                                  "NaN and inf features"])
+def test_perfect_kernel_edges_on_card(cuda_device, case):
+    """K2 bitwise against the plain scorer, on the card and on the CPU,
+    where its staging or its routing changes: a block that is not full (1,
+    127, 129 docs), one feature, rows too wide to stage (read from global
+    memory), rows that do not start on a 16-byte boundary, a tree whose
+    wleaf is all 0, and NaN (left), +inf (right, past pass-through nodes
+    too) and -inf features.  130 trees of depth 4 span several model
+    tiles."""
+    N = {"N=1": 1, "N=127": 127, "N=129": 129}.get(case, 1000)
+    F = {"F=1": 1, "F=700 (unstaged)": 700, "unaligned rows": 23}.get(case, 24)
+    ens = random_balanced_ensemble(130, 4, F, seed=len(case))
+    if case == "a tree of weight 0":
+        ens.weight[5] = 0.0
+    pe = ensemble_to_perfect(ens)
+    if case == "NaN and inf features":
+        pe.thr[7, 3:] = float(np.finfo(np.float32).max)  # pass-through nodes
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N + 1, F), dtype=np.float32)
+    if case == "NaN and inf features":
+        X[::5, ::3] = np.nan
+        X[1::5, 1::3] = np.inf
+        X[2::5, 2::3] = -np.inf
+    X = torch.from_numpy(X).to(cuda_device)
+    X = X[1:] if case == "unaligned rows" else X[:N].contiguous()
+    assert (X.data_ptr() % 16 != 0) == (case == "unaligned rows")
+    before = kernel_perfect.LAUNCHES
+    got = kernel_perfect.score_perfect(X, pe.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernel_perfect.LAUNCHES == before + 1
+    assert torch.equal(got, score_perfect(X, pe.to(cuda_device)))
+    assert torch.equal(got.cpu(), score_perfect(X.cpu(), pe))
 
 
 def _oblivious(T, D, F, seed, dead_tree=None):

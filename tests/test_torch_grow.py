@@ -174,6 +174,41 @@ def test_fit_tree_matches_jax(jax_problem, nleaves, minls, max_depth, newton):
         np.asarray(jax_tree_delta(jtr.step.binned, jtree, nleaves)))
 
 
+def test_fit_tree_matches_jax_at_100_thresholds():
+    """A best-first tree at 100 thresholds (101 bins, a width whose XLA
+    reduction windows are uneven: 19, 32, 32, 18): the root's node stats,
+    from which the deviances that order best-first's leaves are taken, are
+    bitwise JAX's, and the tree equals JAX's node for node given JAX's
+    gradients."""
+    jds = jax_make(num_queries=30, num_features=20, seed=12)
+    jtr = JaxTrainData.build(jds, 100)
+    assert jtr.num_bins == 101
+    N = jtr.padded.num_docs_padded
+    scores = jnp.asarray(np.random.default_rng(1).normal(size=N).astype(np.float32))
+    lm = JaxLambdaMart()
+    lm._train_metric = JaxNdcg(10)
+    lam, _ = lm._gradients(jtr.step, scores * jtr.step.doc_mask, jtr.step.doc_mask, None)
+    mask = jtr.step.doc_mask
+    jcfg = jax_grow.GrowConfig(nleaves=24, min_leaf_support=1, num_bins=101)
+    jtree, jnode = jax_grow.fit_tree(jtr.step.binned, lam, mask, jtr.step.thresholds, jcfg)
+    jtree = jax_grow.leaf_outputs(jtree, jnode, lam, mask)
+    t = torch.from_numpy
+    binned, grad = t(np.asarray(jtr.step.binned)), t(np.asarray(lam))
+    pmask = t(np.asarray(mask))
+    g = np.asarray(lam) * np.asarray(mask)
+    chan = np.stack([np.asarray(mask), g, g * g], -1).astype(np.float32)
+    root = np.asarray(jax_hist.masked_histogram_scatter(
+        jtr.step.binned, jnp.asarray(chan), mask, 101))
+    jstats = jax.jit(jax_grow._node_stats)(jnp.asarray(root))
+    stats = grow._node_stats(t(root))
+    assert [np.float32(x) for x in jstats] == [x.numpy() for x in stats]
+    cfg = grow.GrowConfig(nleaves=24, min_leaf_support=1, num_bins=101)
+    tree, node = grow.fit_tree(binned, grad, pmask, t(np.asarray(jtr.step.thresholds)), cfg)
+    tree = grow.leaf_outputs(tree, node, grad, pmask)
+    assert int((~tree.is_leaf).sum()) == 23
+    _assert_same_tree(jtree, tree, jnode, node)
+
+
 @pytest.mark.parametrize("depth,minls,newton", [(4, 1, True), (3, 30, False), (5, 1, True)])
 def test_fit_tree_levelwise_matches_jax(jax_problem, depth, minls, newton):
     jtr, lam, w, smask, p = jax_problem

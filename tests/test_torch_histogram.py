@@ -122,23 +122,31 @@ def test_histogram_plain_matches_jax(num_slots):
     np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n", [3, 16, 17, 40, 64, 255, 256, 257])
-def test_prefix_sum_and_tree_sum_match_xla(n):
-    """Bin-axis sums in XLA's CPU order: cumsum bitwise at every length,
-    the reduction bitwise at the lengths the growers use (<= 64, multiples
-    of 32, 255)."""
+@pytest.mark.parametrize("first", range(1, 257, 32))
+def test_prefix_sum_and_tree_sum_match_xla(first):
+    """Bin-axis sums in XLA's CPU order, bitwise, at every bin count from 1
+    to 256 (and 257), 32 counts a case: the port's ``_node_stats`` against
+    the JAX package's jitted ``_node_stats`` (the grower's reduce), and
+    ``prefix_sum`` against ``jnp.cumsum`` (the gain scan's), on [F, B, 3]
+    histograms whose values span 2^-11..2^11 in magnitude."""
     import jax
 
-    rng = np.random.default_rng(n)
-    x = (rng.normal(size=(5, n, 3)) * rng.uniform(0, 100, size=(5, n, 3))).astype(np.float32)
-    want = np.asarray(jax.jit(lambda h: jnp.cumsum(h, axis=1))(jnp.asarray(x)))
-    np.testing.assert_array_equal(histogram.prefix_sum(torch.from_numpy(x), 1).numpy(), want)
-    want_s = np.asarray(jax.jit(lambda h: jnp.sum(h[0, :, 1]))(jnp.asarray(x)))
-    got_s = histogram.tree_sum(torch.from_numpy(np.ascontiguousarray(x[0, :, 1]))).numpy()
-    if n <= 64 or n % 32 == 0 or n == 255:
-        assert got_s == want_s
-    else:  # float32 rounding of the sum, relative to its absolute mass
-        assert abs(got_s - want_s) <= 1e-6 * np.abs(x[0, :, 1]).sum()
+    from quickrank_tpu_torch.trees.grow import _node_stats
+
+    lengths = list(range(first, first + 32)) + ([257] if first + 32 > 256 else [])
+    rng = np.random.default_rng(first)
+    hs = [(rng.normal(size=(3, n, 3)) * np.exp2(rng.uniform(-11, 11, size=(3, n, 3))))
+          .astype(np.float32) for n in lengths]
+    want = jax.jit(lambda hs: [(jax_grow._node_stats(h), jnp.cumsum(h, axis=1))
+                               for h in hs])([jnp.asarray(h) for h in hs])
+    for n, h, (stats, cum) in zip(lengths, hs, want):
+        got = torch.stack(_node_stats(torch.from_numpy(h))).numpy()
+        np.testing.assert_array_equal(
+            got.view(np.int32), np.stack([np.asarray(v) for v in stats]).view(np.int32),
+            err_msg=f"tree_sum at {n} bins")
+        np.testing.assert_array_equal(
+            histogram.prefix_sum(torch.from_numpy(h), 1).numpy(), np.asarray(cum),
+            err_msg=f"prefix_sum at {n} bins")
 
 
 def test_cpu_wrappers_launch_nothing():

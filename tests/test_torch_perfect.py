@@ -125,3 +125,50 @@ def test_wrapper_runs_plain_version_on_cpu():
         kernel_perfect.score_perfect(X, pe).numpy(),
         perfect.score_perfect(X, pe).numpy())
     assert kernel_perfect.LAUNCHES == before
+
+
+def _score_packed(X: np.ndarray, packed: np.ndarray, depth: int) -> np.ndarray:
+    """The CUDA kernel's reads, in numpy: per tree the heap walk over the
+    record's {fid, thr bits} pairs, then its wleaf value, added in tree
+    order in float32."""
+    I = 2**depth - 1
+    docs = np.arange(X.shape[0])
+    acc = np.zeros(X.shape[0], np.float32)
+    for rec in packed:
+        h = np.zeros(X.shape[0], np.int64)
+        for _ in range(depth):
+            thr = rec[2 * h + 1].view(np.float32)
+            h = 2 * h + 1 + (X[docs, rec[2 * h]] > thr)
+        acc = acc + rec[2 * I + h - I].view(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_packed_records_unpack_exactly_and_score_bitwise(depth):
+    """The packed table the CUDA kernel streams (pairs {fid, thr bits} in
+    heap order, then wleaf, padded to 16 bytes: 192 bytes a tree at depth 4,
+    384 at depth 5) unpacks to the tables exactly, is built once and moves
+    with them; a scorer reading only the records is bitwise score_perfect,
+    with a tree of weight 0, pass-through nodes, NaN and +-inf features."""
+    ens = _port(jax_bestfirst(9, depth + 1, 13, seed=depth) if depth <= 2
+                else jax_balanced(9, depth, 13, seed=depth))
+    ens.weight[3] = 0.0
+    pe = perfect.ensemble_to_perfect(ens)
+    assert pe.depth == depth
+    packed = pe.packed()
+    assert packed is pe.packed() and packed.dtype == torch.int32 and packed.is_contiguous()
+    stride = perfect.packed_stride(depth)
+    assert packed.shape == (9, stride) and stride % 4 == 0
+    assert stride * 4 == {4: 192, 5: 384}.get(depth, stride * 4)
+    fid, thr, wleaf = perfect.unpack_perfect(packed, depth)
+    for got, want in ((fid, pe.fid), (thr, pe.thr), (wleaf, pe.wleaf)):
+        assert torch.equal(got, want)
+    assert not packed[:, 3 * 2**depth - 2:].any()  # the padding
+    assert torch.equal(pe.to("cpu").packed(), packed)
+    X = _features(300, 13, seed=depth)
+    X[::7, :] = np.nan
+    X[1::11, :] = np.inf
+    X[2::13, :] = -np.inf
+    got = _score_packed(X, packed.numpy(), depth)
+    want = perfect.score_perfect(torch.from_numpy(X), pe).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -244,13 +244,18 @@ def test_scorer_on_packed_records_bitwise(leaves, words):
                                   qs.score_qs(bins, tb).numpy())
 
 
-def test_wrapper_refuses_a_tree_too_large_for_shared_memory():
-    """One tree's packed records must fit a block's shared memory: the CUDA
-    path refuses a tree that does not, before any launch."""
-    t = qs.ensemble_to_qs(_port(jax_bestfirst(1, 1024, 8, seed=2)))
-    assert t.packed().shape[1] * 4 > kernel_qs.SMEM_MAX
-    X = torch.zeros((4, 8), device="meta")
-    before = kernel_qs.LAUNCHES
-    with pytest.raises(ValueError):
-        kernel_qs.score_qs(X, t.to("meta"))
-    assert kernel_qs.LAUNCHES == before
+@pytest.mark.parametrize("leaves", [1024, 2048])
+def test_wide_trees_bitwise_match_jax(leaves):
+    """Trees wider than one block's shared memory holds (the CUDA kernel
+    streams their records in tiles of one tree): the plain scorer is bitwise
+    JAX's score_qs and the compensated descent at 1,024 and 2,048 leaves,
+    leaf sets of 16 and 32 words."""
+    jens = jax_bestfirst(3, leaves, 24, seed=leaves)
+    t = qs.ensemble_to_qs(_port(jens))
+    assert t.excl.shape[2] == leaves // 64 and t.packed().shape[1] * 4 > 232448
+    X = _features(193, 24, seed=leaves)
+    got = qs.score_qs(torch.from_numpy(X), t).numpy()
+    want = np.asarray(jax_qs.score_qs(jnp.asarray(X), jax_qs.ensemble_to_qs(jens)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, score_ensemble(torch.from_numpy(X), _port(jens), max_depth=2 * leaves).numpy())
