@@ -27,7 +27,12 @@ under three directive sets, the clustered tree held against the
 dataset-order tree, LambdaMART with ``cluster="on"`` beside ``cluster="off"``,
 and the card against the CPU.  Phase 17 trains, saves and scores through the
 quicklearn command line (``quickrank_tpu_torch.cli.main``) and holds its
-scores against quickscore's.  The wrappers' launch
+scores against quickscore's.  DART (phases 18-22): the QuickScorer kernel's
+partial entry (per-tree columns) at 131,072 x 136, on u8 bins and on trees
+too wide for one block, DART trained for 200 trees on the 19,000 queries, its
+dropped-set delta through the QuickScorer kernel on the u8 bin matrix, DART
+on the card against the CPU, and quicklearn --algo DART with --detailed.  The
+wrappers' launch
 counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
 memory rate and operations over its float32 rate).
@@ -68,7 +73,8 @@ PERFECT_CASES = [(1000, 4, 0), (1000, 5, 0)]  # trees, depth, seed
 TRAIN_QUERIES = 19000
 VALID_QUERIES = 2000
 TRAIN_TREES = 8
-CPU_QUERIES = 200  # phases 7, 10 and 12: the card against the CPU
+DART_TREES = 200  # phase 19: DART's full-width run
+CPU_QUERIES = 200  # phases 7, 10, 12, 16 and 21: the card against the CPU
 CPU_TREES = 5
 #: trees, depth, docs, features of the oblivious scoring shapes; the first
 #: is the JAX package's headline workload (bench.py:74-86), the third ends
@@ -1152,6 +1158,206 @@ def main() -> int:
         print(f"  {got.shape[0]} test scores equal quickscore's on the saved model "
               f"({loaded.scorer_path()} path)")
 
+    # -- phase 18: K1's partial entry against its plain version -------------
+    print(f"phase 18: qs_partial (per-tree columns) against the plain version on {card}")
+    from quickrank_tpu_torch.trees.qs import partial_scores_qs
+
+    def hold_partial(label, feats, tables, ens, chunk):
+        """K1's partial entry over slot chunks against the plain version, bit
+        for bit; (kernel ms, plain ms, bound) over all the slots at once."""
+        T = tables.fid.shape[0]
+        for t0 in range(0, T, chunk):
+            t1 = min(T, t0 + chunk)
+            got = kernel_qs.partial_scores_qs(feats, tables, t0, t1)
+            torch.cuda.synchronize()
+            plain = partial_scores_qs(feats, tables, t0, t1)
+            require(got.shape == (feats.shape[0], t1 - t0) and bool(torch.isfinite(got).all()),
+                    f"qs_partial {label}: bad output")
+            require(torch.equal(got, plain), f"qs_partial {label}, slots [{t0}, {t1}): kernel "
+                    f"and plain version differ in {int((got != plain).sum())} cells")
+        del got, plain
+        k = time_ms(lambda: kernel_qs.partial_scores_qs(feats, tables), reps=10)
+        p = time_ms(lambda: partial_scores_qs(feats, tables), reps=2)
+        n = feats.shape[0]
+        # bytes: rows and tables read once, [N, T] float32 written once;
+        # operations: a compare a level of each doc's path (no sum)
+        b = bound_ms(nbytes_of(feats, tables.packed()) + n * T * 4,
+                     n * float(mean_leaf_depths(ens).sum()))
+        print(f"  qs_partial {label} in chunks of {chunk} trees: bitwise the plain version; "
+              f"all slots at once: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b[0]:.4f} ms "
+              f"by {b[1]}")
+        return k, p, b
+
+    e_qs, t_qs = qs_tables[(1000, 16)]
+    partial_times = {"value": hold_partial(f"1000x16 at {N_DOCS} x {N_FEATURES}", X, t_qs,
+                                           e_qs, 128)}
+    partial_err = 0.0  # every case bitwise
+    t_bins = ensemble_to_qs(ens_bins, space="bin").to(dev)
+    bins_dev = torch.from_numpy(bins_host).to(dev)
+    partial_times["u8"] = hold_partial(f"1000x16 on u8 bins {N_DOCS} x {N_FEATURES}",
+                                       bins_dev, t_bins, ens_bins, 128)
+    ens_w2 = random_bestfirst_ensemble(4, 2048, N_FEATURES, seed=12)
+    partial_times["wide"] = hold_partial(f"4x2048 leaves at {N_WIDE_DOCS} x {N_FEATURES} "
+                                         f"(wide kernel)", X[:N_WIDE_DOCS],
+                                         ensemble_to_qs(ens_w2).to(dev), ens_w2, 4)
+    del t_bins, bins_dev, ens_w2
+
+    # -- phase 19: DART at full width -----------------------------------------
+    from quickrank_tpu_torch.learning import Dart
+
+    print(f"phase 19: DART (UNIFORM / TREE, rate_drop 0.1), {DART_TREES} trees, "
+          f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    kernel_qs.LAUNCHES = kernel_qs.PARTIAL_LAUNCHES = 0
+    grow.HOST_SYNCS = 0
+    dart = Dart(ntrees=DART_TREES, nleaves=16, nthresholds=255, rate_drop=0.1, seed=1, esr=0)
+    t0 = time.perf_counter()
+    dh = dart.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+    dart_wall = time.perf_counter() - t0
+    dart_launches = {"qs_score": kernel_qs.LAUNCHES, **kernel_histogram.LAUNCHES}
+    it = dh["iter_seconds"]
+    dart_s_iter = float(np.median(it[2:]))
+    drops = np.asarray(dh["dropped_per_iter"])
+    dart_delta_ms = float(np.mean(dh["delta_ms"]))
+    best = dh["best_iteration"]
+    print(f"  {len(it)} iterations in {dart_wall:.2f} s (init {dh['init_seconds']:.2f} s): "
+          f"{dart_s_iter:.4f} s/iteration (median of iterations 2+; min {min(it[2:]):.4f}, "
+          f"max {max(it[2:]):.4f}); {drops.mean():.3f} trees dropped an iteration (max "
+          f"{drops.max()}); delta {dart_delta_ms:.4f} ms a dropped iteration, train and valid "
+          f"(CUDA events, mean of {len(dh['delta_ms'])}; max {max(dh['delta_ms']):.4f})")
+    print(f"  NDCG@10 last iteration train {dh['train'][-1]:.6f} valid {dh['valid'][-1]:.6f}; "
+          f"best iteration {best}: train {dh['train'][best - 1]:.6f} valid "
+          f"{dh['valid'][best - 1]:.6f}; {dart.ensemble.num_trees} trees kept")
+    print(f"  kernel launches during the run: {dart_launches}")
+    require(len(it) == DART_TREES, f"DART ran {len(it)} iterations, not {DART_TREES}")
+    require(all(v > 0 for v in dart_launches.values()),
+            f"a kernel of the DART path was not launched: {dart_launches}")
+    require(drops.sum() > 0 and np.isfinite(dh["train"]).all() and np.isfinite(dh["valid"]).all(),
+            "DART: no tree was dropped, or a metric is not finite")
+    require(dh["train"][-1] > dh["train"][0], "DART: train NDCG@10 did not rise")
+
+    # -- phase 20: the dropped-set delta at full width ------------------------
+    from quickrank_tpu_torch.learning.dart import DropTable
+
+    td = TrainData.build(train_ds, 255)
+    model = rebin_ensemble(dart.ensemble, td.thresholds, force=True).to(dev)
+    n_live = model.num_trees
+    dropped = np.random.default_rng(20).choice(n_live, size=min(20, n_live), replace=False)
+    print(f"phase 20: dropped-set delta, {len(dropped)} of the {n_live} trees of the DART model "
+          f"on the u8 bin matrix {tuple(td.step.binned.shape)}")
+    table = DropTable(model, dev)
+    w_drop = model.weight[torch.from_numpy(dropped).to(dev)].cpu().numpy()
+    kernel_qs.LAUNCHES = 0
+    got = table.delta(dropped, w_drop, td.step.binned)
+    torch.cuda.synchronize()
+    require(kernel_qs.LAUNCHES == 1, "the delta did not launch K1 once")
+    gathered = table.gathered(dropped, w_drop)
+    plain = score_qs(td.step.binned, gathered)
+    require(got.shape == (td.step.binned.shape[0],) and bool(torch.isfinite(got).all()),
+            "delta: bad output")
+    require(torch.equal(got, plain), f"delta: K1 and the plain scorer differ on "
+            f"{int((got != plain).sum())} docs")
+    # the weight words are written at every gather: another weight, another delta
+    w_other = w_drop.copy()
+    w_other[0] *= np.float32(0.5)
+    other = table.delta(dropped, w_other, td.step.binned)
+    require(not torch.equal(other, got), "delta: a changed weight did not change the delta")
+    print("  bitwise the plain scorer on the same gathered tables; a changed weight changes it")
+    # the delta's time taken apart: the whole delta (gather, weight words,
+    # the unpacked view, K1) and K1 alone on the gathered rows, at the 1-4
+    # trees of a DART run's first iterations and at 20
+    depths = mean_leaf_depths(model)
+    for n in (4, len(dropped)):
+        few = table.gathered(dropped[:n], w_drop[:n])
+        whole = time_ms(lambda: table.delta(dropped[:n], w_drop[:n], td.step.binned), reps=20)
+        alone = time_ms(lambda: kernel_qs.score_qs(td.step.binned, few), reps=20)
+        bnd = bound_ms(nbytes_of(td.step.binned, few.packed()) + td.step.binned.shape[0] * 4,
+                       td.step.binned.shape[0] * float((depths[dropped[:n]] + 4).sum()))
+        print(f"  {n} trees: delta {whole:.4f} ms, K1 alone {alone:.4f} ms (bound {bnd[0]:.4f} "
+              f"ms by {bnd[1]}), so the gather and its host work {whole - alone:.4f} ms")
+    del td, model, table, got, plain, other, gathered, few
+
+    # -- phase 21: DART, the card against the CPU ------------------------------
+    print(f"phase 21: DART, 8 trees on {CPU_QUERIES} queries, card against CPU")
+    for label, kw in (("WEIGHTED / FOREST, rate_drop 0.5",
+                       dict(sample_type="WEIGHTED", normalize_type="FOREST")),
+                      ("UNIFORM / TREE, rate_drop 0.5, keep_drop", dict(keep_drop=True))):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            d = Dart(ntrees=8, nleaves=16, nthresholds=255, rate_drop=0.5, seed=1, **kw)
+            runs[device] = d.learn(small, None, Ndcg(10), verbose=False, device=device)
+        gpu_h, cpu_h = runs["cuda"], runs["cpu"]
+        n = min(len(gpu_h["train"]), len(cpu_h["train"]))
+        diffs = np.abs(np.array(gpu_h["train"][:n]) - np.array(cpu_h["train"][:n]))
+        first = next(i for i, d in enumerate(cpu_h["dropped"]) if d)
+        print(f"  {label}: dropped sets card {gpu_h['dropped'][:4]}, cpu {cpu_h['dropped'][:4]}; "
+              f"train NDCG@10 differences {[float(f'{d:.3g}') for d in diffs]} over {n} "
+              f"iterations, first drop at iteration {first + 1}")
+        require(gpu_h["dropped"][:3] == cpu_h["dropped"][:3],
+                f"DART {label}: the first dropped sets differ between card and CPU")
+        # before the first drop as LambdaMART is held (phase 7); after it the
+        # histogram kernels' last bits move the trees (docs that tie in the
+        # kept trees sit a last bit apart once a tree is dropped, and their
+        # rank order follows those bits), so the runs are held to 1e-2
+        require(float(diffs[:first].max()) <= 1e-3,
+                f"DART {label}: train NDCG@10 differs by {diffs[:first].max()} before a drop")
+        require(float(diffs.max()) <= 1e-2, f"DART {label}: train NDCG@10 differs by "
+                f"{diffs.max()}")
+
+    # -- phase 22: quicklearn --algo DART on the card, --detailed -------------
+    print("phase 22: quicklearn --algo DART trains, saves and writes --detailed on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        serve_ds = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+                                        num_features=N_FEATURES, seed=0)
+        write_svml(serve_ds, svml)
+        model_path = os.path.join(tmp, "dart.xml")
+        for name in kernel_histogram.LAUNCHES:
+            kernel_histogram.LAUNCHES[name] = 0
+        kernel_qs.LAUNCHES = kernel_qs.PARTIAL_LAUNCHES = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--algo", "DART", "--train", svml, "--num-trees", "12",
+                           "--num-leaves", "16", "--rate-drop", "0.3", "--partial", "4",
+                           "--model-out", model_path])
+        cli_dart_launches = {"qs_score": kernel_qs.LAUNCHES, **kernel_histogram.LAUNCHES}
+        require(rc == 0, f"quicklearn --algo DART: exit {rc}")
+        print(f"  training: kernel launches {cli_dart_launches}")
+        require(all(v > 0 for v in cli_dart_launches.values()),
+                f"quicklearn --algo DART did not run its kernels: {cli_dart_launches}")
+        require(os.path.exists(os.path.join(tmp, "dart.T4.xml")), "no DART partial model")
+        detailed = os.path.join(tmp, "detailed.svml")
+        kernel_qs.PARTIAL_LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--model-in", model_path, "--test", svml, "--detailed", detailed])
+        partial_launches = kernel_qs.PARTIAL_LAUNCHES
+        require(rc == 0, f"quicklearn --detailed: exit {rc}")
+        print(f"  --detailed: qs_partial launches {partial_launches}")
+        require(partial_launches > 0, "--detailed did not launch K1's partial entry")
+        loaded = LTRAlgorithm.load(model_path)
+        require(type(loaded) is Dart and loaded.ensemble.num_trees > 0,
+                "quicklearn's DART model did not load as DART")
+        feats = torch.from_numpy(read_svml(svml).features).to(dev)
+        tables = ensemble_to_qs(loaded.ensemble).to(dev)
+        cols = read_svml(detailed).features
+        want_cols = partial_scores_qs(feats, tables).cpu().numpy()
+        require(cols.shape == want_cols.shape and np.array_equal(cols, want_cols),
+                "--detailed columns differ from partial_scores_qs")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = quickscore.main(["-d", svml, "-m", model_path, "-r", "1",
+                                  "-s", os.path.join(tmp, "dart.scores")])
+        require(rc == 0, f"quickscore on the DART model: exit {rc}")
+        served = np.loadtxt(os.path.join(tmp, "dart.scores")).astype(np.float32)
+        fn = score_perfect if loaded.scorer_path() == "perfect" else score_qs
+        _, host_tables = loaded._host_tables()
+        want = fn(feats, host_tables.to(dev)).cpu().numpy()
+        require(served.shape == want.shape and np.array_equal(served, want),
+                "quickscore's DART scores differ from the plain scorer")
+        print(f"  {loaded.ensemble.num_trees} trees; --detailed {cols.shape} bitwise "
+              f"partial_scores_qs; quickscore ({loaded.scorer_path()} path) bitwise the plain "
+              f"scorer on {served.shape[0]} docs")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -1177,11 +1383,15 @@ def main() -> int:
         # printed by phase 13)
         row("partition_rows", "partition_rows.cu", "pallas_partition.py:236",
             on_counts["partition_rows"], k6_err, k6_times[0], k6_times[1], k6_times[3]),
+        # K1's partial entry (per-tree columns, no sum), launched by --detailed
+        row("qs_partial", "qs_score.cu", "pallas_qs.py:100", partial_launches, partial_err,
+            *partial_times["value"]),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
           f"{bestk_per_tree:.4f}, oblivious@255 {obl_per_tree:.4f}, best@255 cluster=on "
-          f"{on_s:.4f} beside cluster=off {off_s:.4f}")
+          f"{on_s:.4f} beside cluster=off {off_s:.4f}; DART {dart_s_iter:.4f} s/iteration, "
+          f"delta {dart_delta_ms:.4f} ms")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,17 @@
 // mask words, T * I times a doc (15,000 at 1000 trees of 16 leaves: 1.30 ms
 // on an NVIDIA H100 80GB HBM3 at 700 W, 1.5e12 node tests a second, where
 // the first kernel took 31.5 ms).
+//
+// The partial entry (qs_partial, qs_partial_u8) runs the same kernels with
+// kPartial set: in place of the fold it writes out[doc, t] = d_t, the
+// unweighted exit-leaf value of every tree (trees/qs.py::partial_scores_qs;
+// the per-tree columns of Mart.partial_scores_dataset and of a warm-started
+// DART run's contributions).  The parked values of a tile are written after
+// its barrier by all threads of the block, consecutive threads on
+// consecutive trees of one doc, so the [n, trees] rows leave in runs; the
+// parking pitch is then kDocs + 1, which keeps those reads off one bank.
+// A caller scores a range of slots by passing the range's first record and
+// its length, so a large ensemble is taken in chunks of trees.
 // Later work: 32-bit masks for trees of at most 32 leaves.
 
 #include <algorithm>
@@ -92,16 +103,20 @@ __device__ inline void kahan_step(float& s, float& c, float w, float d) {
 // packed: per tree `stride4` 16-byte words: nodes * words records
 // {fid, thr bits, excl low, excl high} (word-major: record w * nodes + i),
 // then `leaves` float32 leaf values and the float32 weight.
-template <typename X, bool kStaged>
+// With kPartial the exit-leaf values are written to out [n, trees] in
+// place of the fold (see the note above).
+template <typename X, bool kStaged, bool kPartial>
 __global__ void __launch_bounds__(kThreads, kThreads <= 512 ? 2 : 1)
 qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
                 const int4* __restrict__ packed, int trees, int nodes,
                 int leaves, int words, int stride4, int tile_trees, int pitch,
                 float* __restrict__ out) {
+  static_assert(!kPartial || kLanes > 1, "the partial entry parks every value");
+  constexpr int kDPitch = kDocs + (kPartial ? 1 : 0);  // parked values a tree
   extern __shared__ __align__(16) unsigned char smem[];
   int4* s_model = reinterpret_cast<int4*>(smem);
   float* s_d = reinterpret_cast<float*>(s_model + tile_trees * stride4);
-  X* s_x = reinterpret_cast<X*>(s_d + (kLanes > 1 ? tile_trees * kDocs : 0));
+  X* s_x = reinterpret_cast<X*>(s_d + (kLanes > 1 ? tile_trees * kDPitch : 0));
 
   const int tid = threadIdx.x;
   const int dloc = tid % kDocs;   // a warp holds 32 neighbouring docs
@@ -153,11 +168,19 @@ qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
         if (kLanes == 1) {
           kahan_step(s, c, tail[leaves], d);
         } else {
-          s_d[t * kDocs + dloc] = d;
+          s_d[t * kDPitch + dloc] = d;
         }
       }
     }
-    if (kLanes > 1) {
+    if (kPartial) {
+      __syncthreads();
+      const int docs = n - doc0 < kDocs ? static_cast<int>(n - doc0) : kDocs;
+      for (int i = tid; i < docs * tile; i += kThreads) {
+        const int dd = i / tile;
+        const int t = i - dd * tile;
+        out[(doc0 + dd) * trees + t0 + t] = s_d[t * kDPitch + dd];
+      }
+    } else if (kLanes > 1) {
       __syncthreads();
       if (live && lane == 0) {
         for (int t = 0; t < tile; ++t) {
@@ -168,7 +191,7 @@ qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
       }
     }
   }
-  if (live && lane == 0) out[doc] = s;
+  if (!kPartial && live && lane == 0) out[doc] = s;
 }
 
 // A tree whose packed records do not fit one block's shared memory (from
@@ -184,8 +207,9 @@ qs_score_kernel(const X* __restrict__ x, int64_t n, int f,
 // kernel.  The tree's remaining tiles are skipped once every doc of the
 // block has its exit leaf.  Then that thread takes the Kahan step with the
 // leaf value and the weight read from global memory, so the trees are folded
-// in slot order with the same steps.
-template <typename X, bool kStaged>
+// in slot order with the same steps; with kPartial it writes the leaf value
+// to out [n, trees] instead.
+template <typename X, bool kStaged, bool kPartial>
 __global__ void __launch_bounds__(kThreads, kThreads <= 512 ? 2 : 1)
 qs_score_wide_kernel(const X* __restrict__ x, int64_t n, int f,
                      const int4* __restrict__ packed, int trees, int nodes,
@@ -263,10 +287,14 @@ qs_score_wide_kernel(const X* __restrict__ x, int64_t n, int f,
     }
     if (live && lane == 0) {
       const float* tail = reinterpret_cast<const float*>(tree + records);
-      kahan_step(s, c, __ldg(tail + leaves), __ldg(tail + s_exit[dloc]));
+      if (kPartial) {
+        out[doc * trees + t] = __ldg(tail + s_exit[dloc]);
+      } else {
+        kahan_step(s, c, __ldg(tail + leaves), __ldg(tail + s_exit[dloc]));
+      }
     }
   }
-  if (live && lane == 0) out[doc] = s;
+  if (!kPartial && live && lane == 0) out[doc] = s;
 }
 
 template <typename... P, typename... A>
@@ -282,7 +310,7 @@ int launch_kernel(void (*kernel)(P...), int64_t n, size_t smem, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename X>
+template <typename X, bool kPartial>
 int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
            int nodes, int leaves, int words, int stride_words, float* out,
            void* stream) {
@@ -299,29 +327,29 @@ int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
   const int fi = static_cast<int>(f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a tile holds whole trees: their records, and with several threads a
-  // doc one exit-leaf value a tree and doc
-  const size_t per_tree =
-      static_cast<size_t>(stride4) * 16 + (kLanes > 1 ? kDocs * sizeof(float) : 0);
+  // doc one exit-leaf value a tree and doc (kDocs + 1 of them, partial)
+  const size_t parked = kLanes > 1 ? (kDocs + (kPartial ? 1 : 0)) * sizeof(float) : 0;
+  const size_t per_tree = static_cast<size_t>(stride4) * 16 + parked;
   if (per_tree > static_cast<size_t>(kSmemMax)) {
     // a tree spans tiles: the words that end in a tile, at most this many
     const int ends = kWideRecords / nodes + 1;
     const size_t model = static_cast<size_t>(kWideRecords) * 16 +
                          (static_cast<size_t>(ends) * 2 + 1) * kDocs * 4;
     if (model + rows <= static_cast<size_t>(kSmemMax)) {
-      return launch_kernel(qs_score_wide_kernel<X, true>, n, model + rows, s, x, n, fi,
+      return launch_kernel(qs_score_wide_kernel<X, true, kPartial>, n, model + rows, s, x, n, fi,
                            p4, trees, nodes, leaves, words, stride4, ends, pitch, out);
     }
-    return launch_kernel(qs_score_wide_kernel<X, false>, n, model, s, x, n, fi, p4,
+    return launch_kernel(qs_score_wide_kernel<X, false, kPartial>, n, model, s, x, n, fi, p4,
                          trees, nodes, leaves, words, stride4, ends, pitch, out);
   }
   const int tile_trees = static_cast<int>(std::max<size_t>(
       1, std::min<size_t>(std::max(trees, 1), kModelTile / per_tree)));
   const size_t model = tile_trees * per_tree;
   if (model + rows <= static_cast<size_t>(kSmemMax)) {
-    return launch_kernel(qs_score_kernel<X, true>, n, model + rows, s, x, n, fi, p4,
+    return launch_kernel(qs_score_kernel<X, true, kPartial>, n, model + rows, s, x, n, fi, p4,
                          trees, nodes, leaves, words, stride4, tile_trees, pitch, out);
   }
-  return launch_kernel(qs_score_kernel<X, false>, n, model, s, x, n, fi, p4, trees,
+  return launch_kernel(qs_score_kernel<X, false, kPartial>, n, model, s, x, n, fi, p4, trees,
                        nodes, leaves, words, stride4, tile_trees, pitch, out);
 }
 
@@ -334,16 +362,33 @@ int launch(const X* x, int64_t n, int64_t f, const void* packed, int trees,
 extern "C" int qs_score(const float* x, int64_t n, int64_t f, const void* packed,
                         int trees, int nodes, int leaves, int words,
                         int stride_words, float* out, void* stream) {
-  return launch(x, n, f, packed, trees, nodes, leaves, words, stride_words, out,
-                stream);
+  return launch<float, false>(x, n, f, packed, trees, nodes, leaves, words,
+                              stride_words, out, stream);
 }
 
 // The same scorer on uint8 bin ids, for bin-space tables.
 extern "C" int qs_score_u8(const uint8_t* x, int64_t n, int64_t f,
                            const void* packed, int trees, int nodes, int leaves,
                            int words, int stride_words, float* out, void* stream) {
-  return launch(x, n, f, packed, trees, nodes, leaves, words, stride_words, out,
-                stream);
+  return launch<uint8_t, false>(x, n, f, packed, trees, nodes, leaves, words,
+                                stride_words, out, stream);
+}
+
+// The partial entry: out [n, trees] float32, row-major, out[doc, t] the
+// unweighted exit-leaf value of tree t (no weights, no sum).  `packed`
+// points at the first record of the slots to score, `trees` is their count.
+extern "C" int qs_partial(const float* x, int64_t n, int64_t f, const void* packed,
+                          int trees, int nodes, int leaves, int words,
+                          int stride_words, float* out, void* stream) {
+  return launch<float, true>(x, n, f, packed, trees, nodes, leaves, words,
+                             stride_words, out, stream);
+}
+
+extern "C" int qs_partial_u8(const uint8_t* x, int64_t n, int64_t f,
+                             const void* packed, int trees, int nodes, int leaves,
+                             int words, int stride_words, float* out, void* stream) {
+  return launch<uint8_t, true>(x, n, f, packed, trees, nodes, leaves, words,
+                               stride_words, out, stream);
 }
 
 extern "C" const char* qr_cuda_error_string(int code) {

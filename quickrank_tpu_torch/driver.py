@@ -5,10 +5,11 @@ src/driver/driver.cc:45-226).
 Phases: build the algorithm (factory, with model-in / restart-train
 handling), load the datasets, restrict them to ``--features``, train, save
 the model, test (with an optional scores file).  Everything runs on
-``params["device"]`` (the CUDA card unless it says "cpu").  The phases whose
+``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
+writes the test set's per-tree scores as an SVML file.  The phases whose
 modules are not ported (the optimizer, meta algorithms, sharded training, the
-per-tree detailed output, the device trace and code generation) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+device trace and code generation) raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from quickrank_tpu_torch.data.dataset import (
     select_columns,
     shard_and_pad,
 )
-from quickrank_tpu_torch.data.svml import read_svml
+from quickrank_tpu_torch.data.svml import read_svml, write_svml
 from quickrank_tpu_torch.learning.base import resolve_device
 from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory
 from quickrank_tpu_torch.metrics.metrics import metric_factory
@@ -40,7 +41,6 @@ UNPORTED = {
     "train_partial": _OPT_ITEM, "valid_partial": _OPT_ITEM,
     "meta_algo": "§A item 7 (other learners: MetaCleaver)",
     "num_shards": _PARALLEL_ITEM, "num_feat_shards": _PARALLEL_ITEM,
-    "detailed": "§A item 7 (other learners: partial_scores_dataset)",
     "trace": _CLI_ITEM, "code_file": _CLI_ITEM, "model_file": _CLI_ITEM,
 }
 
@@ -184,6 +184,13 @@ def run(params: dict) -> dict:
             np.savetxt(p["scores"], scores, fmt="%.15g")
             if verbose:
                 print(f"# scores saved to {p['scores']}")
+        if p.get("detailed"):
+            # per-tree partial scores as an SVML dataset (driver.cc:336-360)
+            P = algo.partial_scores_dataset(test, device=device)
+            qids = np.repeat(test.qids, test.docs_per_query())
+            write_svml(Dataset.from_arrays(P, test.labels, qids), p["detailed"])
+            if verbose:
+                print(f"# detailed per-tree scores saved to {p['detailed']}")
 
     if verbose and timings:
         parts = " ".join(f"{k}={v:.2f}s" for k, v in timings.items())

@@ -176,7 +176,6 @@ def parse_ensemble(ranker: ET.Element) -> tuple[EnsembleTensors, int]:
 #: ranker types the JAX package loads that the port does not yet, with the
 #: ROADMAP.md §A item that ports each
 _NOT_PORTED = {
-    "DART": "§A item 6 (DART)",
     "RANDOMFOREST": "§A item 7 (other learners)",
     "LAMBDAMART-SELECTIVE": "§A item 7 (other learners)",
     "STOCHASTIC-NEGATIVE": "§A item 7 (other learners)",
@@ -189,6 +188,7 @@ _NOT_PORTED = {
 
 
 def _registry():
+    from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
     from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.learning.obliviousmart import (
@@ -197,7 +197,7 @@ def _registry():
     )
 
     return {"MART": Mart, "LAMBDAMART": LambdaMart, "OBVMART": ObliviousMart,
-            "OBVLAMBDAMART": ObliviousLambdaMart}
+            "OBVLAMBDAMART": ObliviousLambdaMart, "DART": Dart}
 
 
 def load_model(path: str):

@@ -3,8 +3,9 @@ after src/learning/ltr_algorithm_factory.cc:41-262): construction by name
 from a flat parameter dict, model-in loading and the restart-train state
 import.
 
-MART, LAMBDAMART, OBVMART and OBVLAMBDAMART are ported; the other names the
-JAX package knows raise ``NotImplementedError`` naming their ROADMAP.md item.
+MART, LAMBDAMART, OBVMART, OBVLAMBDAMART and DART are ported; the other
+names the JAX package knows raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -13,11 +14,9 @@ from typing import Optional
 
 from quickrank_tpu_torch.learning.base import LTRAlgorithm
 
-_DART_ITEM = "§A item 6 (DART and X-DART)"
 _LEARNERS_ITEM = "§A item 7 (other learners)"
 #: algorithms of the JAX package that the port does not have yet
 UNPORTED = {
-    "DART": _DART_ITEM,
     "RANDOMFOREST": _LEARNERS_ITEM,
     "RANKBOOST": _LEARNERS_ITEM,
     "LAMBDAMART-SELECTIVE": _LEARNERS_ITEM,
@@ -56,6 +55,7 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
     if model_in is not None and not restart_train:
         return LTRAlgorithm.load(model_in)
 
+    from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
     from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.learning.obliviousmart import (
@@ -73,6 +73,20 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
         tk.pop("nleaves")
         cls = ObliviousMart if name == "OBVMART" else ObliviousLambdaMart
         out = cls(treedepth=params.get("tree_depth", 3), **tk)
+    elif name == "DART":
+        p = params
+        out = Dart(
+            sample_type=p.get("sample_type", "UNIFORM"),
+            normalize_type=p.get("normalize_type", "TREE"),
+            adaptive_type=p.get("adaptive_type", "FIXED"),
+            rate_drop=p.get("rate_drop", 0.1),
+            skip_drop=p.get("skip_drop", 0.0),
+            keep_drop=p.get("keep_drop", False),
+            best_on_train=p.get("best_on_train", False),
+            random_keep=p.get("random_keep", 0.0),
+            drop_on_best=p.get("drop_on_best", False),
+            **tk,
+        )
     elif name in UNPORTED:
         raise NotImplementedError(
             f"{name} is not ported to quickrank_tpu_torch yet: ROADMAP.md "

@@ -26,7 +26,9 @@ reproduce ``jax.random``'s bits.
 Inference.  Scorer dispatch depends on the model's shape only: the
 perfect-tree scorer when every tree has depth <= 5, QuickScorer otherwise
 (any depth).  The device then picks kernel or plain version inside the
-wrapper.
+wrapper.  Per-tree columns (:meth:`Mart.partial_scores_dataset`) come from
+the QuickScorer kernel's partial entry on the card and from the descent on
+the CPU, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.binning import FLT_MAX, apply_bins, build_thresholds
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
-from quickrank_tpu_torch.ops.kernel_qs import score_qs
-from quickrank_tpu_torch.ops.scoring import kahan_add, tree_delta_binned
+from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
+from quickrank_tpu_torch.ops.scoring import kahan_add, partial_scores, tree_delta_binned
 from quickrank_tpu_torch.trees.grow import GrowConfig, fit_tree, leaf_outputs
 from quickrank_tpu_torch.trees.grow_bestk import fit_tree_bestk
 from quickrank_tpu_torch.trees.grow_cluster import (
@@ -259,6 +261,19 @@ class Mart(LTRAlgorithm):
     def _tree_weight(self) -> float:
         return self.shrinkage
 
+    def _post_init(self, tr: "TrainData") -> None:
+        """Subclass hook run once after data preparation (JAX mart.py:1056)."""
+
+    def _update_presence(self, m: int, tr: "TrainData", scores_tr, generator):
+        """Subclass hook: iteration ``m``'s doc pool, bool [N], or None to
+        keep the last one (the negative-sampling learners; JAX
+        mart.py:1059)."""
+        return None
+
+    def _post_iteration(self, m: int, improved: bool) -> None:
+        """Subclass hook after each boosting iteration (adaptive samplers;
+        JAX mart.py:1064)."""
+
     def _descend_depth(self) -> int:
         """Bound on tree depth for the bin-space descent: the grower's, and
         at least that of the trees a model loaded from XML carries (a warm
@@ -335,13 +350,15 @@ class Mart(LTRAlgorithm):
 
     def _step(self, ens: EnsembleTensors, scores_tr, scores_va, m: int,
               tr: TrainData, va: Optional[TrainData], metric: Metric,
-              cfg: GrowConfig):
+              cfg: GrowConfig, presence: Optional[torch.Tensor] = None):
         """One boosting iteration: pushes a tree into ``ens`` and returns
-        (train Kahan pair, valid Kahan pair, train metric, valid metric)."""
+        (train Kahan pair, valid Kahan pair, train metric, valid metric).
+        ``presence`` is the doc pool of a presence hook (None: every doc)."""
         sd = tr.step
-        smask = self._sample_mask(sd, self._generator(m, 0), sd.doc_mask)
+        pool = sd.doc_mask if presence is None else presence & sd.doc_mask
+        smask = self._sample_mask(sd, self._generator(m, 0), pool)
         grad, w = self._gradients(sd, scores_tr[0], smask,
-                                  full_mask=self.subsample == 1.0)
+                                  full_mask=self.subsample == 1.0 and presence is None)
         w = w if self._newton else None
         tree, node, leaves_done = self._fit_and_assign(
             tr, grad, smask, cfg, self._generator(m, 1), weights=w)
@@ -412,6 +429,9 @@ class Mart(LTRAlgorithm):
             if va is not None:
                 scores_va = (rescore_binned(src, va.step, md), scores_va[1])
         self._train_metric = metric
+        self._post_init(tr)
+        uses_presence = type(self)._update_presence is not Mart._update_presence
+        presence = None
         init_time = time.time() - t_init
 
         hist_tr, hist_va, iter_seconds = [], [], []
@@ -422,8 +442,12 @@ class Mart(LTRAlgorithm):
         t_train = time.time()
         for m in range(start_iter, self.ntrees):
             t_iter = time.time()
+            if uses_presence:
+                # stream 2: the hook's own draws
+                new = self._update_presence(m, tr, scores_tr[0], self._generator(m, 2))
+                presence = presence if new is None else new
             scores_tr, scores_va, d_tr, d_va = self._step(
-                ens, scores_tr, scores_va, m, tr, va, metric, cfg)
+                ens, scores_tr, scores_va, m, tr, va, metric, cfg, presence)
             m_tr = float(d_tr)
             m_va = float(d_va) if va is not None else float("nan")
             iter_seconds.append(time.time() - t_iter)
@@ -435,6 +459,7 @@ class Mart(LTRAlgorithm):
                 best_scores = scores_tr[0].clone()
             elif va is None and m_tr > max(hist_tr[:-1], default=-np.inf):
                 improved = True
+            self._post_iteration(m, improved)
             if partial_save and output_basename and (m + 1) % partial_save == 0:
                 snapshot = self.ensemble
                 self.ensemble = ens.live().to("cpu")
@@ -545,6 +570,55 @@ class Mart(LTRAlgorithm):
     def get_weights(self) -> np.ndarray:
         ens = self._require_model()
         return ens.weight[: ens.num_trees].cpu().numpy()
+
+    def update_weights(self, weights: np.ndarray) -> None:
+        """Set per-tree weights, dropping zero-weighted trees
+        (ensemble.cc:149-192)."""
+        ens = self._require_model()
+        T = ens.num_trees
+        w = np.zeros((ens.capacity,), np.float32)
+        w[:T] = np.asarray(weights, np.float32)[:T]
+        keep = torch.from_numpy(np.flatnonzero(w != 0.0))
+        self.ensemble = dataclasses.replace(
+            ens, **{k: getattr(ens, k)[keep.to(ens.feature.device)]
+                    for k in ("feature", "threshold", "threshold_bin", "left", "right",
+                              "is_leaf", "leaf_value")},
+            weight=torch.from_numpy(w)[keep].to(ens.weight.device),
+            num_trees=int(keep.numel()))
+        self._tables_cache = None
+
+    def feature_importances(self, num_features: Optional[int] = None,
+                            normalize: bool = True) -> np.ndarray:
+        """Split-count feature importances over the live trees: how many
+        internal nodes split on each feature id, float64 ``[num_features]``
+        (default: the largest used id + 1), normalized to sum 1 unless
+        ``normalize=False`` (JAX mart.py:1161)."""
+        h = self._require_model().live().numpy()
+        used = h["feature"][~h["is_leaf"]]
+        used = used[used >= 0]
+        width = int(num_features) if num_features else (
+            int(used.max()) + 1 if used.size else 0)
+        imp = np.bincount(used, minlength=width).astype(np.float64)[:width]
+        if normalize and imp.sum() > 0:
+            imp /= imp.sum()
+        return imp
+
+    def partial_scores_dataset(self, ds: Dataset, device=None) -> np.ndarray:
+        """Per-tree unweighted scores float32 ``[docs, capacity]`` of ``ds``
+        in dataset order (the --detailed file; Cleaver's input): on the card
+        the QuickScorer kernel's partial entry, blocks of trees at a time;
+        on the CPU the descent (``ops/scoring.py::partial_scores``), as the
+        JAX package computes them off the TPU.  Bitwise equal either way."""
+        device = resolve_device(device)
+        ens = self._require_model()
+        X = torch.from_numpy(np.ascontiguousarray(ds.features, np.float32))
+        if device.type != "cuda":
+            return partial_scores(X.to(device), ens.to(device),
+                                  max_depth=self._descend_depth()).cpu().numpy()
+        out = np.zeros((X.shape[0], ens.capacity), np.float32)
+        for t0, t1, cols in partial_score_blocks(X.to(device), ensemble_to_qs(ens).to(device)):
+            out[:, t0:t1] = cols.cpu().numpy()
+        return out
 
     # -- XML interop -----------------------------------------------------------
 

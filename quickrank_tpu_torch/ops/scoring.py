@@ -1,7 +1,7 @@
 """Plain ensemble scoring by batched descent, Kahan-compensated over trees
 (counterpart of quickrank_tpu/ops/scoring.py's ``kahan_add``,
-``descend_tree``, ``descend_tree_binned``, ``tree_delta_binned`` and
-``score_ensemble(compensated=True)``).  The bin-space descent uses gathers
+``descend_tree``, ``descend_tree_binned``, ``tree_delta_binned``,
+``score_ensemble(compensated=True)`` and ``partial_scores``).  The bin-space descent uses gathers
 where the JAX package uses one-hot matmuls on the TPU (the two are bitwise
 equal there).
 
@@ -117,3 +117,17 @@ def score_ensemble(features: torch.Tensor, ens: EnsembleTensors,
         w = ens.weight[t] if t < ens.num_trees else zero
         s, c = kahan_add(s, c, w, d)
     return s
+
+
+def partial_scores(features: torch.Tensor, ens: EnsembleTensors,
+                   max_depth: Optional[int] = None) -> torch.Tensor:
+    """Per-tree *unweighted* scores f32 ``[N, capacity]`` by descent: column
+    ``t`` is ``leaf_value[node]`` of slot ``t``, dead slots are zero columns
+    (Ensemble::partial_scores_instance, ensemble.cc:120-131; the per-tree
+    SVML of Driver::extract_partial_scores, driver.cc:411-446)."""
+    md = max_depth or ens.max_nodes
+    out = torch.zeros((features.shape[0], ens.capacity), dtype=torch.float32,
+                      device=features.device)
+    for t in range(ens.num_trees):
+        out[:, t] = ens.leaf_value[t][descend_tree(features, ens, t, md)]
+    return out

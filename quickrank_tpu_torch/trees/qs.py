@@ -1,6 +1,6 @@
 """QuickScorer bitvector tables and the plain QuickScorer scorer
 (counterpart of quickrank_tpu/trees/qs.py: ``ensemble_to_qs`` in value and
-bin space, and ``score_qs``).
+bin space, ``score_qs`` and ``partial_scores_qs``).
 
 QuickScorer (Lucchese et al., SIGIR 2015) evaluates a tree without walking
 it.  Every internal node carries the set of leaves that become unreachable
@@ -20,7 +20,10 @@ slots, so the Kahan chain takes one step per slot, as
 The CUDA kernel reads the tables in one packed tensor (:func:`pack_tables`):
 a 16-byte record a node and word, then the tree's leaf values and weight.
 It is built once per table (``QSEnsemble.packed``); the plain scorer reads
-the unpacked tensors.
+the unpacked tensors.  A packed row depends on its tree alone, so a table can
+also grow a tree at a time (:func:`tree_to_qs_row`, DART's device-resident
+table) and be scored from any selection of its rows
+(:func:`table_from_packed`).
 """
 
 from __future__ import annotations
@@ -79,6 +82,81 @@ class QSEnsemble:
         )
 
 
+def qs_shape(max_nodes: int):
+    """(I, L, W) of the tables of trees of ``max_nodes`` nodes: internal
+    nodes, leaves and 64-bit leaf-set words a tree."""
+    I = max(1, max_nodes // 2)  # 2k-1 nodes -> k-1 internal
+    L = max(1, max_nodes - I)  # k leaves
+    return I, L, -(-L // 64)
+
+
+def _tree_tables(feat, thrv, left, right, isleaf, lv, fid, thr, excl, leafval):
+    """Fill one tree's rows of the tables (``fid`` [I], ``thr`` [I], ``excl``
+    bool [I, W * 64], ``leafval`` [L]) from its node arrays.
+
+    Post-order walk, iterative so that a chain-shaped imported tree does not
+    ride Python's recursion limit: leaves are numbered left to right,
+    internal nodes take compact slots in visit order with their left leaf
+    span."""
+    nleaf = 0
+    nint = 0
+    span = {}
+    stack = [(0, 0)]
+    while stack:
+        n, phase = stack.pop()
+        if isleaf[n]:
+            span[n] = (nleaf, nleaf + 1)
+            leafval[nleaf] = lv[n]
+            nleaf += 1
+        elif phase == 0:
+            stack.append((n, 1))
+            stack.append((int(left[n]), 0))
+        elif phase == 1:
+            stack.append((n, 2))
+            stack.append((int(right[n]), 0))
+        else:
+            ls, le = span[int(left[n])]
+            span[n] = (ls, span[int(right[n])][1])
+            fid[nint] = feat[n]
+            thr[nint] = thrv[n]
+            excl[nint, ls:le] = True
+            nint += 1
+
+
+def _tables(trees, weights, cap: int, max_nodes: int, space: str) -> QSEnsemble:
+    """QSEnsemble of ``cap`` slots, the first ``len(trees)`` from the host
+    node arrays in ``trees`` (dicts of the seven node fields), the rest
+    dead."""
+    if space not in ("value", "bin"):
+        raise ValueError(f"space must be 'value' or 'bin', got {space!r}")
+    I, L, W = qs_shape(max_nodes)
+    fid = np.zeros((cap, I), np.int32)
+    thr = np.full((cap, I), FLT_MAX, np.float32)
+    excl = np.zeros((cap, I, W * 64), bool)
+    leafval = np.zeros((cap, L), np.float32)
+    for t, h in enumerate(trees):
+        thrv = h["threshold"] if space == "value" else h["threshold_bin"].astype(np.float32)
+        _tree_tables(h["feature"], thrv, h["left"], h["right"], h["is_leaf"],
+                     h["leaf_value"], fid[t], thr[t], excl[t], leafval[t])
+    words = np.packbits(excl, axis=-1, bitorder="little")
+    words = np.ascontiguousarray(words).view("<u8").view(np.int64)
+    w = np.zeros((cap,), np.float32)
+    w[: len(trees)] = weights
+    return QSEnsemble(
+        fid=torch.from_numpy(fid),
+        thr=torch.from_numpy(thr),
+        excl=torch.from_numpy(words.reshape(cap, I, W)),
+        leafval=torch.from_numpy(leafval),
+        weight=torch.from_numpy(w),
+        num_trees=len(trees),
+        min_features=int(fid.max()) + 1 if fid.size else 1,
+    )
+
+
+_NODE_FIELDS = ("feature", "threshold", "threshold_bin", "left", "right",
+                "is_leaf", "leaf_value")
+
+
 def ensemble_to_qs(ens, space: str = "value") -> QSEnsemble:
     """Host-side table build from an EnsembleTensors.
 
@@ -86,70 +164,34 @@ def ensemble_to_qs(ens, space: str = "value") -> QSEnsemble:
     binned matrix through the same scorer is then the training-time routing
     (``bin <= threshold_bin`` is ``v <= threshold`` by the binning's
     construction, and bin ids are exact in the float32 compare).  Warm
-    starts rescore that way, because raw features never reach the device.
-
-    Iterative walks, so a chain-shaped imported tree does not ride Python's
-    recursion limit."""
-    if space not in ("value", "bin"):
-        raise ValueError(f"space must be 'value' or 'bin', got {space!r}")
+    starts rescore that way, because raw features never reach the device."""
     h = ens.numpy()
     T = int(ens.num_trees)
-    cap = ens.capacity
-    max_nodes = ens.max_nodes
-    feat = h["feature"]
-    thrv = h["threshold"] if space == "value" else h["threshold_bin"].astype(np.float32)
-    left, right = h["left"], h["right"]
-    isleaf, lv = h["is_leaf"], h["leaf_value"]
+    trees = [{k: h[k][t] for k in _NODE_FIELDS} for t in range(T)]
+    return _tables(trees, h["weight"][:T], ens.capacity, ens.max_nodes, space)
 
-    I = max(1, max_nodes // 2)  # 2k-1 nodes -> k-1 internal
-    L = max(1, max_nodes - I)  # k leaves
-    W = -(-L // 64)
 
-    fid = np.zeros((cap, I), np.int32)
-    thr = np.full((cap, I), FLT_MAX, np.float32)
-    excl = np.zeros((cap, I, W * 64), bool)
-    leafval = np.zeros((cap, L), np.float32)
+def tree_to_qs_row(tree, weight: float, space: str = "bin") -> torch.Tensor:
+    """One tree's row of the packed table, int32 ``[S]`` on the host: the
+    row :func:`pack_tables` of :func:`ensemble_to_qs` writes for a slot that
+    holds ``tree`` with ``weight`` (the shape follows the tree's node budget,
+    as the ensemble's does).  A table grown a tree at a time from these rows
+    is the whole-ensemble build byte for byte, so a learner that appends
+    trees keeps its packed table on the device and never rebuilds it."""
+    h = {k: getattr(tree, k).cpu().numpy() for k in _NODE_FIELDS}
+    qs = _tables([h], np.float32(weight), 1, int(tree.feature.shape[-1]), space)
+    return pack_tables(qs)[0]
 
-    for t in range(T):
-        # post-order walk: leaves numbered left to right, internal nodes
-        # take compact slots in visit order with their left leaf span
-        nleaf = 0
-        nint = 0
-        span = {}
-        stack = [(0, 0)]
-        while stack:
-            n, phase = stack.pop()
-            if isleaf[t, n]:
-                span[n] = (nleaf, nleaf + 1)
-                leafval[t, nleaf] = lv[t, n]
-                nleaf += 1
-            elif phase == 0:
-                stack.append((n, 1))
-                stack.append((int(left[t, n]), 0))
-            elif phase == 1:
-                stack.append((n, 2))
-                stack.append((int(right[t, n]), 0))
-            else:
-                ls, le = span[int(left[t, n])]
-                span[n] = (ls, span[int(right[t, n])][1])
-                fid[t, nint] = feat[t, n]
-                thr[t, nint] = thrv[t, n]
-                excl[t, nint, ls:le] = True
-                nint += 1
 
-    words = np.packbits(excl, axis=-1, bitorder="little")
-    words = np.ascontiguousarray(words).view("<u8").view(np.int64)
-    w = np.zeros((cap,), np.float32)
-    w[:T] = h["weight"][:T]
-    return QSEnsemble(
-        fid=torch.from_numpy(fid),
-        thr=torch.from_numpy(thr),
-        excl=torch.from_numpy(words.reshape(cap, I, W)),
-        leafval=torch.from_numpy(leafval),
-        weight=torch.from_numpy(w),
-        num_trees=T,
-        min_features=int(fid.max()) + 1 if fid.size else 1,
-    )
+def table_from_packed(packed: torch.Tensor, max_nodes: int,
+                      min_features: int = 1) -> QSEnsemble:
+    """A QSEnsemble over packed rows (``[T, S]``, any device, every row a
+    live tree), for the scoring wrappers: the kernel streams ``packed`` as
+    it is, the plain versions read the tables unpacked from it."""
+    I, L, W = qs_shape(max_nodes)
+    qs = unpack_tables(packed, I, L, W, packed.shape[0], min_features)
+    qs._packed = packed
+    return qs
 
 
 def packed_stride(nodes: int, leaves: int, words: int) -> int:
@@ -206,30 +248,54 @@ def unpack_leaf_masks(qs: QSEnsemble) -> torch.Tensor:
     return ((words >> (leaves % 64)) & 1).bool()
 
 
+def _exit_values(features: torch.Tensor, qs: QSEnsemble, t0: int, t1: int):
+    """Yields ``(a, b, d)``: per chunk ``[a, b)`` of the slots ``[t0, t1)``
+    the leaf value f32 ``[N, b - a]`` each doc exits at in each tree.
+
+    The false bits by a gather (exact), the exclusion counts by a product of
+    {0, 1} matrices (exact integers in float32), the leftmost leaf with count
+    0, and the leaf value: bitwise the descent's ``leaf_value[node]``."""
+    N = features.shape[0]
+    I = qs.fid.shape[1]
+    L = qs.num_leaves
+    chunk = max(1, _CHUNK_ELEMS // max(1, N * max(I, L)))
+    for a in range(t0, t1, chunk):
+        b = min(t1, a + chunk)
+        excl = unpack_leaf_masks(dataclasses.replace(qs, excl=qs.excl[a:b])).float()
+        fid = qs.fid[a:b].long()
+        false_bits = features[:, fid.reshape(-1)].view(N, b - a, I) > qs.thr[a:b]
+        counts = torch.einsum("nti,til->ntl", false_bits.float(), excl)
+        exit_leaf = (counts == 0).to(torch.uint8).argmax(dim=2)  # first max
+        yield a, b, qs.leafval[a:b].gather(1, exit_leaf.T).T
+
+
 def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
     """Weighted ensemble scores f32 [N], the plain version of the
     QuickScorer kernel (``ops/kernel_qs.py``), on any device.
 
-    Per chunk of trees: the false bits by a gather (exact), the exclusion
-    counts by a product of {0, 1} matrices (exact integers in float32), the
-    leftmost leaf with count 0, and the leaf value.  The trees are then
-    summed in slot order with the Kahan chain of
-    ``ops/scoring.py::score_ensemble``, so the scores are bitwise those of
-    the compensated descent."""
-    N = features.shape[0]
-    T, I = qs.fid.shape
-    L = qs.num_leaves
-    excl = unpack_leaf_masks(qs).float()
-    s = torch.zeros(N, dtype=torch.float32, device=features.device)
+    The exit leaves' values (:func:`_exit_values`) are summed in slot order
+    with the Kahan chain of ``ops/scoring.py::score_ensemble``, so the
+    scores are bitwise those of the compensated descent."""
+    s = torch.zeros(features.shape[0], dtype=torch.float32, device=features.device)
     c = torch.zeros_like(s)
-    chunk = max(1, _CHUNK_ELEMS // max(1, N * max(I, L)))
-    for t0 in range(0, T, chunk):
-        t1 = min(T, t0 + chunk)
-        fid = qs.fid[t0:t1].long()
-        false_bits = features[:, fid.reshape(-1)].view(N, t1 - t0, I) > qs.thr[t0:t1]
-        counts = torch.einsum("nti,til->ntl", false_bits.float(), excl[t0:t1])
-        exit_leaf = (counts == 0).to(torch.uint8).argmax(dim=2)  # first max
-        d = qs.leafval[t0:t1].gather(1, exit_leaf.T).T  # [N, chunk]
-        for k in range(t1 - t0):
-            s, c = kahan_add(s, c, qs.weight[t0 + k], d[:, k])
+    for a, b, d in _exit_values(features, qs, 0, qs.fid.shape[0]):
+        for k in range(b - a):
+            s, c = kahan_add(s, c, qs.weight[a + k], d[:, k])
     return s
+
+
+def partial_scores_qs(features: torch.Tensor, qs: QSEnsemble, t0: int = 0,
+                      t1: Optional[int] = None) -> torch.Tensor:
+    """Per-tree *unweighted* scores f32 ``[N, t1 - t0]`` of the slots
+    ``[t0, t1)`` (default all), the plain version of the QuickScorer
+    kernel's partial entry (counterpart of JAX ``trees/qs.py::
+    partial_scores_qs``, Ensemble::partial_scores_instance,
+    ensemble.cc:120-131): column ``t`` is bitwise the descent's
+    ``leaf_value[node]`` of slot ``t0 + t``; dead slots are zero columns
+    (their tables are zero by construction)."""
+    t1 = qs.fid.shape[0] if t1 is None else t1
+    out = torch.zeros((features.shape[0], max(0, t1 - t0)), dtype=torch.float32,
+                      device=features.device)
+    for a, b, d in _exit_values(features, qs, t0, t1):
+        out[:, a - t0: b - t0] = d
+    return out

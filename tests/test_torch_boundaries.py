@@ -21,6 +21,7 @@ from quickrank_tpu_torch.ops import oblivious as plain_oblivious
 from quickrank_tpu_torch.trees.oblivious import ObliviousEnsemble
 from quickrank_tpu_torch.trees.perfect import ensemble_to_perfect, score_perfect
 from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
+from quickrank_tpu_torch.trees.qs import partial_scores_qs as qs_partial_plain
 from quickrank_tpu_torch.trees.random_ensemble import (
     random_balanced_ensemble,
     random_bestfirst_ensemble,
@@ -472,3 +473,104 @@ def test_warm_start_rescore_on_card_goes_through_qs_kernel(cuda_device):
     assert torch.equal(got, score_qs(td.step.binned, tables))
     lm.ntrees = 6
     assert len(lm.learn(train, None, Ndcg(10), verbose=False, warm_start=True)["train"]) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["16 leaves", "N=129", "F=700 (unstaged)", "u8 rows",
+                                  "dead slots", "slots [7, 23)", "2048 leaves",
+                                  "2048 leaves, u8 rows"])
+def test_qs_partial_kernel_matches_plain_on_card(cuda_device, case):
+    """K1's partial entry, [N, trees] unweighted exit-leaf values, bitwise
+    its plain version (trees/qs.py::partial_scores_qs) in the narrow kernel
+    (staged and unstaged rows, float32 and u8) and the wide one, over all
+    slots and over a range of them."""
+    N = 129 if case == "N=129" else 1000
+    F = 700 if case.startswith("F=700") else 24
+    leaves = 2048 if case.startswith("2048") else 16
+    T = 3 if leaves == 2048 else 30
+    ens = random_bestfirst_ensemble(T, leaves, F, seed=len(case))
+    if case == "dead slots":
+        ens.num_trees = 20
+    rng = np.random.default_rng(3)
+    if "u8" in case:
+        ens.threshold_bin = torch.from_numpy(
+            rng.integers(0, 255, size=tuple(ens.threshold_bin.shape)).astype(np.int32))
+        tables = ensemble_to_qs(ens, space="bin")
+        X = torch.from_numpy(rng.integers(0, 256, size=(N, F)).astype(np.uint8))
+    else:
+        tables = ensemble_to_qs(ens)
+        X = torch.from_numpy(rng.standard_normal((N, F), dtype=np.float32))
+    t0, t1 = (7, 23) if case == "slots [7, 23)" else (0, T)
+    before = kernel_qs.PARTIAL_LAUNCHES
+    got = kernel_qs.partial_scores_qs(X.to(cuda_device), tables.to(cuda_device), t0, t1)
+    torch.cuda.synchronize()
+    assert kernel_qs.PARTIAL_LAUNCHES == before + 1
+    assert got.shape == (N, t1 - t0)
+    assert torch.equal(got.cpu(), qs_partial_plain(X, tables, t0, t1))
+    if case == "dead slots":
+        assert not got[:, 20:].any()
+
+
+@pytest.mark.gpu
+def test_dart_delta_on_card(cuda_device):
+    """DART's dropped-set delta on the card: K1 on the gathered rows of the
+    packed table, bitwise the plain scorer on the same gathered tables, and
+    a weight changed between two deltas changes the second one."""
+    from quickrank_tpu_torch.learning.dart import DropTable
+
+    ens = random_bestfirst_ensemble(40, 16, 24, seed=4)
+    rng = np.random.default_rng(4)
+    ens.threshold_bin = torch.from_numpy(
+        rng.integers(0, 255, size=tuple(ens.threshold_bin.shape)).astype(np.int32))
+    X = torch.from_numpy(rng.integers(0, 256, size=(3000, 24)).astype(np.uint8))
+    table = DropTable(ens.to(cuda_device), cuda_device)
+    slots = [31, 2, 17, 9]
+    w = np.array([0.1, 0.05, 0.2, 0.125], np.float32)
+    before = kernel_qs.LAUNCHES
+    got = table.delta(slots, w, X.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernel_qs.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), score_qs(X, table.gathered(slots, w).to("cpu")))
+    w2 = w.copy()
+    w2[1] = 0.5
+    again = table.delta(slots, w2, X.to(cuda_device))
+    assert not torch.equal(again, got)
+    assert torch.equal(again.cpu(), score_qs(X, table.gathered(slots, w2).to("cpu")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sample_type,normalize_type", [("UNIFORM", "TREE"),
+                                                        ("WEIGHTED", "LINESEARCH"),
+                                                        ("CONTR", "CONTR")])
+def test_dart_on_card_goes_through_kernels(cuda_device, sample_type, normalize_type):
+    """A short DART run on the card (the default device), under three
+    sampler / normalization pairs, launches K1 (the dropped-set deltas), K4
+    and K5, drops the same trees as the same run on the CPU for its first
+    iterations, gives its train NDCG@10 within 1e-3 before the first drop,
+    as LambdaMART, and learns as well: the last iteration's within 0.05.
+    After a drop the two runs drift apart: the histogram kernels' last bits
+    move leaf values, and subtracting a dropped tree leaves docs that tie in
+    the kept trees a last bit apart, so their rank order, and the lambdas
+    with it, follows those bits (UNIFORM / TREE: 1.8e-3 apart here at most);
+    LINESEARCH's argmax over NDCG plateaus turns such bits into another tree
+    weight (0.023 apart)."""
+    from quickrank_tpu_torch.data.synthetic import make_train_valid_test
+    from quickrank_tpu_torch.learning import Dart
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, valid, _ = make_train_valid_test(num_queries=(40, 10, 10))
+    make = lambda: Dart(ntrees=6, nleaves=16, rate_drop=0.5, seed=2,  # noqa: E731
+                        sample_type=sample_type, normalize_type=normalize_type)
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    kernel_qs.LAUNCHES = 0
+    card = make().learn(train, valid, Ndcg(10), verbose=False)
+    assert kernel_qs.LAUNCHES > 0
+    assert kernel_histogram.LAUNCHES["node_histogram"] > 0
+    assert kernel_histogram.LAUNCHES["histogram"] > 0
+    cpu = make().learn(train, valid, Ndcg(10), verbose=False, device="cpu")
+    assert card["dropped"][:3] == cpu["dropped"][:3]
+    first = next(i for i, d in enumerate(cpu["dropped"]) if d)
+    np.testing.assert_allclose(card["train"][:first], cpu["train"][:first], atol=1e-3)
+    assert card["train"][-1] > card["train"][0]
+    assert abs(card["train"][-1] - cpu["train"][-1]) <= 0.05

@@ -165,10 +165,10 @@ def test_restart_train_and_partial_saves(svml_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--algo", "DART"], "item 6"), (["--algo", "COORDASC"], "item 7"),
+    (["--algo", "RANKBOOST"], "item 7"), (["--algo", "COORDASC"], "item 7"),
     (["--opt-algo", "EPRUNING"], "item 8"), (["--meta-algo", "METACLEAVER"], "item 7"),
     (["--num-shards", "2"], "item 10"), (["--trace", "dir"], "item 9"),
-    (["--detailed", "d.svml"], "item 7"),
+    (["--train-partial", "p.svml"], "item 8"),
     (["--model-file", "m.xml", "--code-file", "m.c"], "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(svml_dir, tmp_path, extra, item):

@@ -86,9 +86,9 @@ def test_quickscore_matches_jax(files, name, capsys):
 
 def test_quickscore_refuses_unported_type(files, capsys):
     svml, models, d = files
-    bad = d / "dart.xml"
+    bad = d / "rankboost.xml"
     with open(models["balanced"]) as f:
-        bad.write_text(f.read().replace("<type>LAMBDAMART</type>", "<type>DART</type>"))
+        bad.write_text(f.read().replace("<type>LAMBDAMART</type>", "<type>RANKBOOST</type>"))
     with pytest.raises(NotImplementedError):
         quickscore.main(["-d", svml, "-m", str(bad), "--device", "cpu"])
 
