@@ -31,7 +31,14 @@ scores against quickscore's.  DART (phases 18-22): the QuickScorer kernel's
 partial entry (per-tree columns) at 131,072 x 136, on u8 bins and on trees
 too wide for one block, DART trained for 200 trees on the 19,000 queries, its
 dropped-set delta through the QuickScorer kernel on the u8 bin matrix, DART
-on the card against the CPU, and quicklearn --algo DART with --detailed.  The
+on the card against the CPU, and quicklearn --algo DART with --detailed.
+Post-learning optimisation (phases 23-26): CoordinateAscent and LineSearch
+at full width (the candidate batch timed), both against the same runs on the
+CPU, Cleaver pruning half of phase 19's DART model with a line search before
+and after (its per-tree scores from K1's partial entry, the pruned model's
+kernel scores held against ``partial @ weights``) and all eight strategies,
+and quicklearn's optimization phase, COORDASC, --meta-algo METACLEAVER and
+quickscore on the saved models.  The
 wrappers' launch
 counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
@@ -74,7 +81,9 @@ TRAIN_QUERIES = 19000
 VALID_QUERIES = 2000
 TRAIN_TREES = 8
 DART_TREES = 200  # phase 19: DART's full-width run
-CPU_QUERIES = 200  # phases 7, 10, 12, 16 and 21: the card against the CPU
+CPU_QUERIES = 200  # phases 7, 10, 12, 16, 21 and 24: the card against the CPU
+LINEAR_EPOCHS = 3  # phase 23: CoordinateAscent epochs, LineSearch iterations
+CLEAVER_RATE = 0.5  # phase 25: the share of the DART model's trees pruned
 CPU_TREES = 5
 #: trees, depth, docs, features of the oblivious scoring shapes; the first
 #: is the JAX package's headline workload (bench.py:74-86), the third ends
@@ -1166,6 +1175,7 @@ def main() -> int:
         """K1's partial entry over slot chunks against the plain version, bit
         for bit; (kernel ms, plain ms, bound) over all the slots at once."""
         T = tables.fid.shape[0]
+        err = 0.0
         for t0 in range(0, T, chunk):
             t1 = min(T, t0 + chunk)
             got = kernel_qs.partial_scores_qs(feats, tables, t0, t1)
@@ -1173,6 +1183,7 @@ def main() -> int:
             plain = partial_scores_qs(feats, tables, t0, t1)
             require(got.shape == (feats.shape[0], t1 - t0) and bool(torch.isfinite(got).all()),
                     f"qs_partial {label}: bad output")
+            err = max(err, float((got - plain).abs().max()))
             require(torch.equal(got, plain), f"qs_partial {label}, slots [{t0}, {t1}): kernel "
                     f"and plain version differ in {int((got != plain).sum())} cells")
         del got, plain
@@ -1183,23 +1194,19 @@ def main() -> int:
         # operations: a compare a level of each doc's path (no sum)
         b = bound_ms(nbytes_of(feats, tables.packed()) + n * T * 4,
                      n * float(mean_leaf_depths(ens).sum()))
-        print(f"  qs_partial {label} in chunks of {chunk} trees: bitwise the plain version; "
-              f"all slots at once: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b[0]:.4f} ms "
-              f"by {b[1]}")
+        print(f"  qs_partial {label} in chunks of {chunk} trees: bitwise the plain version "
+              f"(max abs err {err}); all slots at once: kernel {k:.4f} ms, plain {p:.4f} ms, "
+              f"bound {b[0]:.4f} ms by {b[1]}")
         return k, p, b
 
     e_qs, t_qs = qs_tables[(1000, 16)]
-    partial_times = {"value": hold_partial(f"1000x16 at {N_DOCS} x {N_FEATURES}", X, t_qs,
-                                           e_qs, 128)}
-    partial_err = 0.0  # every case bitwise
+    hold_partial(f"1000x16 at {N_DOCS} x {N_FEATURES}", X, t_qs, e_qs, 128)
     t_bins = ensemble_to_qs(ens_bins, space="bin").to(dev)
     bins_dev = torch.from_numpy(bins_host).to(dev)
-    partial_times["u8"] = hold_partial(f"1000x16 on u8 bins {N_DOCS} x {N_FEATURES}",
-                                       bins_dev, t_bins, ens_bins, 128)
+    hold_partial(f"1000x16 on u8 bins {N_DOCS} x {N_FEATURES}", bins_dev, t_bins, ens_bins, 128)
     ens_w2 = random_bestfirst_ensemble(4, 2048, N_FEATURES, seed=12)
-    partial_times["wide"] = hold_partial(f"4x2048 leaves at {N_WIDE_DOCS} x {N_FEATURES} "
-                                         f"(wide kernel)", X[:N_WIDE_DOCS],
-                                         ensemble_to_qs(ens_w2).to(dev), ens_w2, 4)
+    hold_partial(f"4x2048 leaves at {N_WIDE_DOCS} x {N_FEATURES} (wide kernel)",
+                 X[:N_WIDE_DOCS], ensemble_to_qs(ens_w2).to(dev), ens_w2, 4)
     del t_bins, bins_dev, ens_w2
 
     # -- phase 19: DART at full width -----------------------------------------
@@ -1358,6 +1365,235 @@ def main() -> int:
               f"partial_scores_qs; quickscore ({loaded.scorer_path()} path) bitwise the plain "
               f"scorer on {served.shape[0]} docs")
 
+    # -- phase 23: CoordinateAscent and LineSearch at full width -------------
+    import copy
+
+    from quickrank_tpu_torch.learning import CoordinateAscent, LineSearch, MetaCleaver, linear
+
+    print(f"phase 23: CoordinateAscent and LineSearch, 21 points, {LINEAR_EPOCHS} epochs, "
+          f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
+    fold = linear.Fold(train_ds, dev)
+    F = train_ds.num_features
+    w0 = np.full(F, np.float32(1.0 / F), np.float32)
+    full = fold.dot(w0)
+    pts = linear.grid_points(w0[0], np.float32(10.0 / F), 21)
+    cands = linear.feature_candidates(full, fold.column(0), w0[0], pts)
+    batch_ms = time_ms(lambda: fold.metrics(Ndcg(10), cands), reps=3)
+    dot_ms = time_ms(lambda: fold.dot(w0), reps=3)
+    print(f"  one {list(cands.shape)} candidate batch {batch_ms:.4f} ms (CUDA events; "
+          f"{fold.batch_size()} candidates a chunk over the padded view "
+          f"{list(fold.slot_mask.shape)}); X @ w in XLA's order {dot_ms:.4f} ms")
+    del fold, full, cands
+    linear_runs = {}
+    for cls in (CoordinateAscent, LineSearch):
+        torch.cuda.reset_peak_memory_stats()
+        ranker = cls(num_points=21, max_iterations=LINEAR_EPOCHS)
+        t0 = time.perf_counter()
+        h = ranker.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        secs = h.get("epoch_seconds") or h["iteration_seconds"]
+        unit = "epoch" if cls is CoordinateAscent else "iteration"
+        linear_runs[ranker.NAME] = float(np.median(secs))
+        print(f"  {ranker.NAME}: {np.median(secs):.4f} s/{unit} (median; all "
+              f"{[round(x, 4) for x in secs]}), {wall:.2f} s with set-up; train NDCG@10 "
+              f"{[round(x, 6) for x in h['train']]}, valid {[round(x, 6) for x in h['valid']]}; "
+              f"peak device memory {peak:.2f} GiB")
+        require(len(h["train"]) == LINEAR_EPOCHS and np.isfinite(h["train"]).all()
+                and np.isfinite(h["valid"]).all(), f"{ranker.NAME}: bad history")
+        require(h["train"][-1] >= h["train"][0] - 1e-6 and h["train"][-1] > 0.5,
+                f"{ranker.NAME}: train NDCG@10 {h['train']}")
+        got = ranker.score_dataset(valid_ds)
+        want = valid_ds.features.astype(np.float64) @ ranker.best_weights
+        err = float(np.abs(got - want).max())
+        require(got.dtype == np.float64 and err <= 1e-12 * max(1.0, float(np.abs(want).max())),
+                f"{ranker.NAME}: scores on the card differ from numpy's X @ w by {err}")
+    print("  linear scores on the card within 1e-12 relative of numpy's float64 X @ w")
+
+    # -- phase 24: the linear rankers, the card against the CPU ---------------
+    print(f"phase 24: CoordinateAscent and LineSearch on {CPU_QUERIES} queries, card against CPU")
+    for cls in (CoordinateAscent, LineSearch):
+        first, final = {}, {}
+        for device in ("cuda", "cpu"):
+            fold = linear.Fold(small, device)
+            ranker = cls(num_points=21, max_iterations=2)
+            if cls is CoordinateAscent:
+                w = np.full(F, np.float32(1.0 / F), np.float32)
+                _, pts, ms, _ = ranker.feature_step(fold, Ndcg(10), w, 0, np.float32(10.0 / F))
+            else:
+                w, trace = np.ones(F, np.float32), []
+                best = np.float32(fold.metric(Ndcg(10), fold.dot(w)))
+                ranker.iteration(fold, Ndcg(10), w, w, best, np.float32(10.0), trace=trace)
+                pts, ms = trace[0]
+            first[device] = (pts, ms)
+            final[device] = ranker.learn(small, None, Ndcg(10), verbose=False,
+                                         device=device)["train"][-1]
+        (gp, gm), (cp, cm) = first["cuda"], first["cpu"]
+        fin = np.isfinite(cm)
+        step_err = float(np.abs(gm[fin] - cm[fin]).max())
+        gap = abs(final["cuda"] - final["cpu"])
+        print(f"  {cls.NAME}: first feature step's {fin.sum()} candidate metrics within "
+              f"{step_err:.3g} of the CPU's; train NDCG@10 after 2 epochs card "
+              f"{final['cuda']:.6f}, cpu {final['cpu']:.6f} (gap {gap:.3g})")
+        require(np.array_equal(gp, cp) and np.array_equal(np.isfinite(gm), fin),
+                f"{cls.NAME}: the card's candidate grid differs from the CPU's")
+        require(step_err <= 1e-5, f"{cls.NAME}: first step's metrics differ by {step_err}")
+        require(gap <= 1e-2, f"{cls.NAME}: final train NDCG@10 differs by {gap}")
+
+    # -- phase 25: Cleaver at full width on phase 19's DART model -------------
+    from quickrank_tpu_torch.optimization import PRUNING_METHODS, Cleaver
+
+    model = copy.deepcopy(dart)
+    T = model.ensemble.num_trees
+    print(f"phase 25: Cleaver QUALITY_LOSS, pruning rate {CLEAVER_RATE}, LineSearch (2 "
+          f"iterations) before and after pruning, on phase 19's {T}-tree DART model, "
+          f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    kernel_qs.PARTIAL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ptrain = Cleaver.partial_dataset(model, train_ds, dev)
+    pvalid = Cleaver.partial_dataset(model, valid_ds, dev)
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    cleaver_partial_launches = kernel_qs.PARTIAL_LAUNCHES
+    cl = Cleaver("QUALITY_LOSS", CLEAVER_RATE, line_search=LineSearch(max_iterations=2), seed=0)
+    t0 = time.perf_counter()
+    info = cl.optimize(model, train_ds, valid_ds, Ndcg(10), verbose=False, ptrain=ptrain,
+                       pvalid=pvalid)
+    cleaver_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    post_it = info["post_ls_iteration_seconds"]
+    print(f"  extraction (K1's partial entry, {cleaver_partial_launches} launches, and the host "
+          f"copies) {extract_ms:.1f} ms for {ptrain.num_docs} + {pvalid.num_docs} docs x {T} trees; "
+          f"optimize {cleaver_s:.2f} s: line search before pruning {info['pre_ls_seconds']:.2f} s, "
+          f"drop-one selection {info['prune_seconds']:.3f} s, line search after "
+          f"{info['post_ls_seconds']:.2f} s ({np.median(post_it):.3f} s/iteration over "
+          f"{T - len(info['pruned'])} columns); peak device memory {peak:.2f} GiB")
+    print(f"  trees {info['num_trees_before']} -> {info['num_trees_after']}; NDCG@10 train "
+          f"{info['metric_before']:.6f} -> {info['metric_after']:.6f}, valid "
+          f"{info['metric_before_valid']:.6f} -> {info['metric_after_valid']:.6f}")
+    require(cleaver_partial_launches > 0, "Cleaver's extraction did not launch K1's partial entry")
+    k = int(round(CLEAVER_RATE * T))
+    # the line search after pruning may set more weights to zero, and the
+    # write-back drops those trees too
+    require(len(info["pruned"]) == k and model.ensemble.num_trees == info["num_trees_after"]
+            <= T - k, f"Cleaver pruned {len(info['pruned'])} trees, not {k}")
+    require(np.isfinite([info["metric_after"], info["metric_after_valid"]]).all(),
+            "Cleaver: a metric is not finite")
+    kernel_qs.LAUNCHES = kernel_perfect.LAUNCHES = 0
+    scored = model.score_dataset(train_ds)
+    want = (torch.from_numpy(ptrain.features).to(dev).double()
+            @ torch.from_numpy(cl.weights_).to(dev)).cpu().numpy()
+    err = float(np.abs(scored - want).max())
+    atol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    print(f"  the pruned model's {model.scorer_path()} kernel scores against partial @ weights: "
+          f"max abs err {err:.3g} (atol {atol:.3g})")
+    require(kernel_qs.LAUNCHES + kernel_perfect.LAUNCHES > 0,
+            "the pruned model was not scored by a kernel")
+    require(err <= atol, f"pruned model's scores differ from partial @ weights by {err}")
+    # K1's partial entry at the shape the extraction gave it: one train block
+    # (the second where there are two), the kernel against the plain version
+    # bit for bit and against the columns the extraction wrote
+    X_tr = torch.from_numpy(np.ascontiguousarray(train_ds.features, np.float32)).to(dev)
+    qs_tr = ensemble_to_qs(dart.ensemble).to(dev)
+    n_tr, n_slots = X_tr.shape[0], qs_tr.fid.shape[0]
+    step = max(1, kernel_qs.PARTIAL_BLOCK_ELEMS // n_tr)
+    b0 = step if step < n_slots else 0
+    b1 = min(n_slots, b0 + step)
+    got = kernel_qs.partial_scores_qs(X_tr, qs_tr, b0, b1)
+    plain = partial_scores_qs(X_tr, qs_tr, b0, b1)
+    partial_err = float((got - plain).abs().max())
+    require(torch.equal(got, plain), f"qs_partial on Cleaver's block [{b0}, {b1}): kernel and "
+            f"plain version differ in {int((got != plain).sum())} cells")
+    require(np.array_equal(got.cpu().numpy(), ptrain.features[:, b0:b1]),
+            f"Cleaver's extraction of slots [{b0}, {b1}) differs from K1's partial entry")
+    del got, plain
+    partial_ms = time_ms(lambda: kernel_qs.partial_scores_qs(X_tr, qs_tr, b0, b1), reps=10)
+    partial_plain_ms = time_ms(lambda: partial_scores_qs(X_tr, qs_tr, b0, b1), reps=2)
+    # bytes: the rows and the block's tables read once, [N, b1 - b0] float32
+    # written once; operations: a compare a level of each doc's path
+    partial_bound = bound_ms(nbytes_of(X_tr, qs_tr.packed()[b0:b1]) + n_tr * (b1 - b0) * 4,
+                             n_tr * float(mean_leaf_depths(dart.ensemble)[b0:b1].sum()))
+    print(f"  qs_partial on Cleaver's train block, slots [{b0}, {b1}) of {n_slots} at {n_tr} "
+          f"docs: bitwise the plain version and the extraction (max abs err {partial_err}); "
+          f"kernel {partial_ms:.4f} ms, plain {partial_plain_ms:.4f} ms, bound "
+          f"{partial_bound[0]:.4f} ms by {partial_bound[1]}")
+    del ptrain, pvalid, X_tr, qs_tr
+    strategy_s = {}
+    for method in PRUNING_METHODS:
+        m = copy.deepcopy(dart)
+        t0 = time.perf_counter()
+        inf = Cleaver(method, 0.25, seed=3).optimize(m, valid_ds, None, Ndcg(10), verbose=False)
+        strategy_s[method] = round(time.perf_counter() - t0, 3)
+        require(len(inf["pruned"]) == int(round(0.25 * T)) and m.ensemble.num_trees == T - len(
+            inf["pruned"]), f"{method}: pruned {len(inf['pruned'])} of {T}")
+    print(f"  all eight strategies at {valid_ds.num_queries} queries prune "
+          f"{int(round(0.25 * T))} of {T} trees; seconds each {strategy_s}")
+
+    # -- phase 26: quicklearn's optimization phase on the card -----------------
+    print("phase 26: quicklearn --opt-algo, --opt-model, COORDASC, --meta-algo and quickscore "
+          "on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        write_svml(make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+                                        num_features=N_FEATURES, seed=0), svml)
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        def quicklearn(args):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(args)
+            require(rc == 0, f"quicklearn {' '.join(args)}: exit {rc}")
+            return out.getvalue()
+
+        kernel_qs.PARTIAL_LAUNCHES = 0
+        for name in kernel_histogram.LAUNCHES:
+            kernel_histogram.LAUNCHES[name] = 0
+        quicklearn(["--algo", "LAMBDAMART", "--train", svml, "--test", svml, "--num-trees", "20",
+                    "--num-leaves", "16", "--model-out", path("m.xml"), "--opt-algo", "EPRUNING",
+                    "--opt-method", "QUALITY_LOSS", "--pruning-rate", "0.5",
+                    "--with-line-search", "--max-iterations", "2", "--opt-model", path("o.xml"),
+                    "--opt-algo-model", path("p.xml"), "--train-partial", path("tp.svml"),
+                    "--scores", path("p.scores")])
+        launches26 = {"qs_partial": kernel_qs.PARTIAL_LAUNCHES, **kernel_histogram.LAUNCHES}
+        require(all(v > 0 for v in launches26.values()),
+                f"quicklearn --opt-algo did not run its kernels: {launches26}")
+        for name in ("o.xml", "p.xml", "tp.svml"):
+            require(os.path.exists(path(name)), f"quicklearn wrote no {name}")
+        pruned = LTRAlgorithm.load(path("p.xml"))
+        require(pruned.ensemble.num_trees == 10, f"p.xml has {pruned.ensemble.num_trees} trees")
+        quicklearn(["--algo", "LAMBDAMART", "--model-in", path("m.xml"), "--skip-train",
+                    "--train", svml, "--train-partial", path("tp.svml"), "--opt-model",
+                    path("o.xml"), "--opt-algo-model", path("p2.xml")])
+        require(LTRAlgorithm.load(path("p2.xml")).ensemble.num_trees <= 20,
+                "--opt-model as input: bad model")
+        note = quicklearn(["--algo", "COORDASC", "--train", svml, "--test", svml,
+                           "--max-iterations", "1", "--model-out", path("c.xml"),
+                           "--scores", path("c.scores")])
+        require("has no partial_save/output_basename support" in note,
+                "COORDASC with the default --partial: no note")
+        require(type(LTRAlgorithm.load(path("c.xml"))) is CoordinateAscent,
+                "c.xml did not load as COORDASC")
+        quicklearn(["--algo", "LAMBDAMART", "--meta-algo", "METACLEAVER", "--train", svml,
+                    "--num-trees", "4", "--final-num-trees", "8", "--num-leaves", "16",
+                    "--opt-method", "QUALITY_LOSS", "--opt-last-only",
+                    "--model-out", path("meta.xml")])
+        meta = LTRAlgorithm.load(path("meta.xml"))
+        require(type(meta) is MetaCleaver and 0 < meta.ltr_algo.ensemble.num_trees <= 8,
+                "meta.xml did not load as a METACLEAVER model of at most 8 trees")
+        for model_file, scores in (("c.xml", "c.scores"), ("p.xml", "p.scores")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = quickscore.main(["-d", svml, "-m", path(model_file), "-r", "1",
+                                      "-s", path("qs." + scores)])
+            require(rc == 0, f"quickscore on {model_file}: exit {rc}")
+            got, want = np.loadtxt(path(scores)), np.loadtxt(path("qs." + scores))
+            require(got.shape == want.shape and np.isfinite(got).all()
+                    and np.array_equal(got, want),
+                    f"quicklearn's --scores differ from quickscore's on {model_file}")
+        print(f"  --opt-algo: kernel launches {launches26}, 20 -> {pruned.ensemble.num_trees} "
+              f"trees; --opt-model as input; COORDASC with the default --partial (the note); "
+              f"METACLEAVER ({meta.ltr_algo.ensemble.num_trees} trees); quickscore's scores equal "
+              f"quicklearn's on c.xml (linear) and p.xml ({pruned.scorer_path()})")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -1383,15 +1619,19 @@ def main() -> int:
         # printed by phase 13)
         row("partition_rows", "partition_rows.cu", "pallas_partition.py:236",
             on_counts["partition_rows"], k6_err, k6_times[0], k6_times[1], k6_times[3]),
-        # K1's partial entry (per-tree columns, no sum), launched by --detailed
-        row("qs_partial", "qs_score.cu", "pallas_qs.py:100", partial_launches, partial_err,
-            *partial_times["value"]),
+        # K1's partial entry (per-tree columns, no sum): its launches on
+        # Cleaver's extraction and its hold and times on one of that
+        # extraction's blocks (phase 25)
+        row("qs_partial", "qs_score.cu", "pallas_qs.py:100", cleaver_partial_launches,
+            partial_err, partial_ms, partial_plain_ms, partial_bound),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
           f"{bestk_per_tree:.4f}, oblivious@255 {obl_per_tree:.4f}, best@255 cluster=on "
           f"{on_s:.4f} beside cluster=off {off_s:.4f}; DART {dart_s_iter:.4f} s/iteration, "
-          f"delta {dart_delta_ms:.4f} ms")
+          f"delta {dart_delta_ms:.4f} ms; COORDASC {linear_runs['COORDASC']:.4f} s/epoch, "
+          f"LINESEARCH {linear_runs['LINESEARCH']:.4f} s/iteration, candidate batch "
+          f"{batch_ms:.4f} ms; Cleaver {cleaver_s:.2f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

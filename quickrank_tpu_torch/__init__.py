@@ -8,11 +8,13 @@ kernel's plain PyTorch version; given a CUDA tensor it launches the kernel
 or raises.
 
 Ported so far: scoring (``quickscore``: SVML and XML model I/O, the
-QuickScorer, perfect-tree and oblivious bit-OR kernels) and training of
+QuickScorer, perfect-tree and oblivious bit-OR kernels), training of
 ``Mart``/``LambdaMart`` (best-first, best-k and level-wise growth, warm
-start) and ``ObliviousMart``/``ObliviousLambdaMart`` on the histogram
-kernels.  Entry points run on the CUDA card unless given ``device="cpu"``.
-ROADMAP.md lists what follows.
+start), ``ObliviousMart``/``ObliviousLambdaMart`` and ``Dart`` on the
+histogram kernels, the linear rankers ``CoordinateAscent``/``LineSearch``,
+and post-learning pruning (``optimization.Cleaver``, ``MetaCleaver``) on
+the QuickScorer kernel's per-tree scores.  Entry points run on the CUDA card
+unless given ``device="cpu"``.  ROADMAP.md lists what follows.
 """
 
 from quickrank_tpu_torch.learning import (  # noqa: F401

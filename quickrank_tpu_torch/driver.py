@@ -1,20 +1,25 @@
-"""Driver: training, model save and testing from one flat parameter dict
-(counterpart of quickrank_tpu/driver.py, after ``Driver::run``,
-src/driver/driver.cc:45-226).
+"""Driver: training, post-learning optimization, model save and testing
+from one flat parameter dict (counterpart of quickrank_tpu/driver.py, after
+``Driver::run``, src/driver/driver.cc:45-226).
 
 Phases: build the algorithm (factory, with model-in / restart-train
-handling), load the datasets, restrict them to ``--features``, train, save
-the model, test (with an optional scores file).  Everything runs on
-``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
+handling and the --meta-algo wrapping), build the optimizer (or load it
+from --opt-model), load the datasets, restrict them to ``--features``,
+train, save the model, optimize (Cleaver on the per-tree scores, which
+--train-partial / --valid-partial load or write), save the optimizer and
+the optimized model, test (with an optional scores file).  Everything runs
+on ``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
 writes the test set's per-tree scores as an SVML file.  The phases whose
-modules are not ported (the optimizer, meta algorithms, sharded training, the
-device trace and code generation) raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+modules are not ported (sharded training, the device trace and code
+generation) raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import inspect
+import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,20 +31,16 @@ from quickrank_tpu_torch.data.dataset import (
     shard_and_pad,
 )
 from quickrank_tpu_torch.data.svml import read_svml, write_svml
-from quickrank_tpu_torch.learning.base import resolve_device
-from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory
+from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
+from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_factory
 from quickrank_tpu_torch.metrics.metrics import metric_factory
+from quickrank_tpu_torch.optimization.cleaver import Cleaver
+from quickrank_tpu_torch.optimization.factory import optimization_factory
 
-_OPT_ITEM = "§A item 8 (Cleaver)"
 _CLI_ITEM = "§A item 9 (CLIs and export)"
 _PARALLEL_ITEM = "§A item 10 (parallel training)"
 #: parameters whose phases are not ported: name -> ROADMAP.md item
 UNPORTED = {
-    "opt_algo": _OPT_ITEM, "opt_method": _OPT_ITEM, "opt_model": _OPT_ITEM,
-    "opt_algo_model": _OPT_ITEM, "opt_model_out": _OPT_ITEM,
-    "with_line_search": _OPT_ITEM, "line_search_model": _OPT_ITEM,
-    "train_partial": _OPT_ITEM, "valid_partial": _OPT_ITEM,
-    "meta_algo": "§A item 7 (other learners: MetaCleaver)",
     "num_shards": _PARALLEL_ITEM, "num_feat_shards": _PARALLEL_ITEM,
     "trace": _CLI_ITEM, "code_file": _CLI_ITEM, "model_file": _CLI_ITEM,
 }
@@ -82,12 +83,32 @@ def _model_max_feature(algo):
     """Highest feature id a loaded model reads, or None when unknown: the
     --features compatibility check (ids are selection-local for models
     trained under --features)."""
+    w = getattr(algo, "best_weights", None)
+    if w is not None and len(w):
+        return len(w) - 1  # a linear model reads one column per weight
     ens = getattr(algo, "ensemble", None)
     if ens is None or not ens.num_trees:
         return None
     h = ens.live().numpy()
     vals = h["feature"][~h["is_leaf"] & (h["feature"] >= 0)]
     return int(vals.max()) if vals.size else None
+
+
+def _partial_fold(algo, ds: Optional[Dataset], path: Optional[str], device,
+                  verbose: bool) -> Optional[Dataset]:
+    """The per-tree score dataset of one fold: read from ``path`` when it
+    exists, else extracted from ``algo`` on ``ds`` and written to ``path``
+    when one is given."""
+    if path and os.path.exists(path):
+        return load_dataset(path, verbose)
+    if ds is None:
+        return None
+    pds = Cleaver.partial_dataset(algo, ds, device)
+    if path:
+        write_svml(pds, path)
+        if verbose:
+            print(f"# partial scores saved to {path}")
+    return pds
 
 
 def _refuse_unported(p: dict) -> None:
@@ -122,6 +143,42 @@ def run(params: dict) -> dict:
         algo=p.get("algo", "LAMBDAMART"), model_in=p.get("model_in"),
         restart_train=p.get("restart_train", False), **rest)
 
+    meta_algo = p.get("meta_algo")
+    optimizer = None
+    if p.get("opt_model") and not p.get("opt_algo") and not meta_algo:
+        # --opt-model is the optimizer model's input when no --opt-algo asks
+        # for a search (optimization_factory.cc:85-92)
+        if os.path.exists(p["opt_model"]):
+            optimizer = Cleaver.load(p["opt_model"])
+            if verbose:
+                print(f"# optimizer model loaded from {p['opt_model']}")
+    if optimizer is None and (p.get("opt_algo") or meta_algo):
+        optimizer = optimization_factory(
+            opt_algo=p.get("opt_algo", "EPRUNING"),
+            opt_method=p.get("opt_method", "QUALITY_LOSS"),
+            # 0.5, the reference's default: half the ensemble (a rate of 1.0
+            # would mean one tree, rates >= 1 being counts)
+            pruning_rate=p.get("pruning_rate", 0.5),
+            with_line_search=p.get("with_line_search", False)
+            or bool(p.get("line_search_model")),
+            line_search_kwargs=dict(
+                num_points=p.get("num_samples", 21),
+                window_size=p.get("window_size", 10.0),
+                reduction_factor=p.get("reduction_factor", 0.95),
+                max_iterations=p.get("max_iterations", 100),
+                max_failed_vali=p.get("max_failed_valid", 20),
+                adaptive=p.get("adaptive", False),
+            ),
+            seed=p.get("seed", 0),
+        )
+        if p.get("line_search_model") and optimizer.line_search is not None:
+            optimizer.line_search = LTRAlgorithm.load(p["line_search_model"])
+
+    if meta_algo:
+        meta_params = {k: v for k, v in p.items() if k != "meta_algo"}
+        algo = meta_factory(meta_algo, algo, optimizer, **meta_params)
+        optimizer = None  # the meta algorithm runs it
+
     # -- datasets ------------------------------------------------------------
     t0 = time.time()
     train, valid, test = (load_dataset(p[k], verbose) if p.get(k) else None
@@ -151,13 +208,23 @@ def run(params: dict) -> dict:
     # in the reference driver; otherwise it is only scored
     if (train is not None and not p.get("skip_train", False)
             and (not p.get("model_in") or p.get("restart_train"))):
-        # every ported learner trains through Mart.learn, which takes these
+        # optional kwargs are gated on each learner's signature: quicklearn
+        # drives every algorithm through the same flags (driver.cc:45-226),
+        # and a learner without partial saves or a warm start (the linear
+        # rankers, MetaCleaver) ignores them, with a note
+        supported = inspect.signature(algo.learn).parameters
         kwargs = {}
         if p.get("partial", 0) and p.get("model_out"):
             kwargs.update(partial_save=int(p["partial"]),
                           output_basename=str(p["model_out"]).removesuffix(".xml"))
         if p.get("restart_train"):
             kwargs["warm_start"] = True
+        dropped = [k for k in kwargs if k not in supported]
+        for k in dropped:
+            kwargs.pop(k)
+        if dropped and verbose:
+            print(f"# note: {type(algo).__name__}.learn has no "
+                  f"{'/'.join(dropped)} support; ignoring those flags")
         t0 = time.time()
         results["training"] = algo.learn(train, valid, train_metric, verbose=verbose,
                                          device=device, **kwargs)
@@ -169,13 +236,40 @@ def run(params: dict) -> dict:
             if verbose:
                 print(f"# model saved to {p['model_out']}")
 
+    # -- optimization phase (driver.cc:248-324) ------------------------------
+    if optimizer is not None and (train is not None or p.get("train_partial")):
+        # per-tree score datasets: loaded from --train-partial /
+        # --valid-partial when the file exists, else extracted (and written
+        # when a path is given), driver.cc:270-298
+        ptrain = _partial_fold(algo, train, p.get("train_partial"), device, verbose)
+        pvalid = _partial_fold(algo, valid, p.get("valid_partial"), device, verbose)
+        t0 = time.time()
+        results["optimization"] = optimizer.optimize(
+            algo, train, valid, train_metric, verbose=verbose, ptrain=ptrain,
+            pvalid=pvalid, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timed("optimize", t0)
+        if p.get("opt_model"):
+            optimizer.save(p["opt_model"])
+            if verbose:
+                print(f"# optimizer model saved to {p['opt_model']}")
+        # --opt-algo-model: the optimized ranker (--opt-model-out is its old
+        # name; --model-out otherwise)
+        out = p.get("opt_algo_model") or p.get("opt_model_out") or p.get("model_out")
+        if out:
+            algo.save(out)
+            if verbose:
+                print(f"# optimized model saved to {out}")
+
     # -- testing phase (driver.cc:326-385) -----------------------------------
     if test is not None:
         t0 = time.time()
         scores = algo.score_dataset(test, device=device)
         padded = shard_and_pad(test)
+        # float32 as the JAX package evaluates them (linear scores are float64)
         m = test_metric.evaluate_dataset(
-            padded, pack_doc_values(padded, torch.from_numpy(scores)))
+            padded, pack_doc_values(padded, torch.from_numpy(scores).float()))
         timed("test", t0)
         results["test_metric"] = m
         if verbose:

@@ -179,30 +179,31 @@ _NOT_PORTED = {
     "RANDOMFOREST": "§A item 7 (other learners)",
     "LAMBDAMART-SELECTIVE": "§A item 7 (other learners)",
     "STOCHASTIC-NEGATIVE": "§A item 7 (other learners)",
-    "COORDASC": "§A item 7 (other learners)",
-    "LINESEARCH": "§A item 7 (other learners)",
     "RANKBOOST": "§A item 7 (other learners)",
     "CUSTOM": "§A item 7 (other learners)",
-    "METACLEAVER": "§A item 7 (other learners)",
 }
 
 
 def _registry():
     from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
+    from quickrank_tpu_torch.learning.linear import CoordinateAscent, LineSearch
     from quickrank_tpu_torch.learning.mart import Mart
+    from quickrank_tpu_torch.learning.meta import MetaCleaver
     from quickrank_tpu_torch.learning.obliviousmart import (
         ObliviousLambdaMart,
         ObliviousMart,
     )
 
     return {"MART": Mart, "LAMBDAMART": LambdaMart, "OBVMART": ObliviousMart,
-            "OBVLAMBDAMART": ObliviousLambdaMart, "DART": Dart}
+            "OBVLAMBDAMART": ObliviousLambdaMart, "DART": Dart,
+            "COORDASC": CoordinateAscent, "LINESEARCH": LineSearch,
+            "METACLEAVER": MetaCleaver}
 
 
-def load_model(path: str):
-    """Type-dispatched load (ltr_algorithm.cc:85-128)."""
-    root = ET.parse(path).getroot()
+def load_element(root: ET.Element):
+    """The model of a ``<ranker>`` element, dispatched on its type
+    (ltr_algorithm.cc:85-128)."""
     type_name = root.find("info/type").text.strip()
     reg = _registry()
     if type_name in _NOT_PORTED:
@@ -213,3 +214,8 @@ def load_model(path: str):
     if type_name not in reg:
         raise ValueError(f"unknown ranker type {type_name!r}; known: {sorted(reg)}")
     return reg[type_name]._from_xml(root)
+
+
+def load_model(path: str):
+    """Type-dispatched load of a model file."""
+    return load_element(ET.parse(path).getroot())

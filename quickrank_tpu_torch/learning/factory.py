@@ -1,11 +1,11 @@
 """LtR algorithm factory (counterpart of quickrank_tpu/learning/factory.py,
 after src/learning/ltr_algorithm_factory.cc:41-262): construction by name
-from a flat parameter dict, model-in loading and the restart-train state
-import.
+from a flat parameter dict, model-in loading, the restart-train state
+import and the meta wrapping (``meta_factory``).
 
-MART, LAMBDAMART, OBVMART, OBVLAMBDAMART and DART are ported; the other
-names the JAX package knows raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+MART, LAMBDAMART, OBVMART, OBVLAMBDAMART, DART, COORDASC and LINESEARCH are
+ported, and METACLEAVER as a meta algorithm; the other names the JAX package
+knows raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ UNPORTED = {
     "RANKBOOST": _LEARNERS_ITEM,
     "LAMBDAMART-SELECTIVE": _LEARNERS_ITEM,
     "STOCHASTIC-NEGATIVE": _LEARNERS_ITEM,
-    "COORDASC": _LEARNERS_ITEM,
-    "LINESEARCH": _LEARNERS_ITEM,
     "CUSTOM": _LEARNERS_ITEM,
 }
 
@@ -45,6 +43,16 @@ def _tree_kwargs(p: dict) -> dict:
     )
 
 
+def _linear_kwargs(p: dict) -> dict:
+    return dict(
+        num_points=p.get("num_samples", 21),
+        window_size=p.get("window_size", 10.0),
+        reduction_factor=p.get("reduction_factor", 0.95),
+        max_iterations=p.get("max_iterations", 100),
+        max_failed_vali=p.get("max_failed_valid", 20),
+    )
+
+
 def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = None,
                           restart_train: bool = False, **params) -> LTRAlgorithm:
     """Build (or load) an algorithm by its CLI name.
@@ -57,6 +65,7 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
 
     from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
+    from quickrank_tpu_torch.learning.linear import CoordinateAscent, LineSearch
     from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.learning.obliviousmart import (
         ObliviousLambdaMart,
@@ -87,6 +96,12 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
             drop_on_best=p.get("drop_on_best", False),
             **tk,
         )
+    elif name == "COORDASC":
+        out = CoordinateAscent(**_linear_kwargs(params))
+    elif name == "LINESEARCH":
+        out = LineSearch(adaptive=params.get("adaptive", False),
+                         train_only_last=params.get("train_only_last", 0),
+                         **_linear_kwargs(params))
     elif name in UNPORTED:
         raise NotImplementedError(
             f"{name} is not ported to quickrank_tpu_torch yet: ROADMAP.md "
@@ -100,3 +115,21 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
         # host, before any device work
         out.import_model_state(LTRAlgorithm.load(model_in))
     return out
+
+
+def meta_factory(meta_algo: str, ltr_algo, cleaver, **params):
+    """Meta-algorithm wrapping (ltr_algorithm_factory.cc, meta section)."""
+    from quickrank_tpu_torch.learning.meta import MetaCleaver
+
+    if meta_algo.upper() != "METACLEAVER":
+        raise ValueError(f"unknown meta algorithm {meta_algo!r}")
+    return MetaCleaver(
+        ltr_algo,
+        cleaver,
+        final_ntrees=params.get("final_num_trees", 1000),
+        ntrees_per_iter=params.get("num_trees", 100),
+        pruning_rate_per_iter=params.get("pruning_rate", 0.5),
+        opt_last_only=params.get("opt_last_only", True),
+        meta_esr=params.get("meta_end_after_rounds", 0),
+        meta_verbose=params.get("meta_verbose", False),
+    )

@@ -44,6 +44,34 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+#: float32 lanes of XLA's CPU matrix-vector product (256-bit vectors)
+_XLA_GEMV_LANES = 8
+
+
+def matvec_f32(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 ``X @ w`` for ``X [N, T]`` and ``w [T]``, associated as XLA
+    on the CPU evaluates a row-major matrix-vector product, on any device:
+    per row, 8 lanes each accumulate every 8th of the first ``8 * (T // 8)``
+    columns with a fused multiply-add, the lanes are summed in adjacent
+    pairs ((0+1)+(2+3))+((4+5)+(6+7)), and the last ``T % 8`` columns,
+    accumulated from zero by a chain of fused multiply-adds, are added to
+    that sum.  Bitwise the JAX package's jitted ``X @ w`` (tests); a
+    different order breaks exact ties between documents differently, and
+    a ranking metric over few-leaf trees' scores moves with them."""
+    N, T = X.shape
+    L = _XLA_GEMV_LANES
+    body = T // L * L
+    lanes = torch.zeros((N, L), dtype=torch.float32, device=X.device)
+    for j in range(0, body, L):
+        lanes = fma_f32(X[:, j:j + L], w[None, j:j + L], lanes)
+    while lanes.shape[1] > 1:
+        lanes = lanes[:, 0::2] + lanes[:, 1::2]
+    tail = torch.zeros(N, dtype=torch.float32, device=X.device)
+    for j in range(body, T):
+        tail = fma_f32(w[j], X[:, j], tail)
+    return lanes[:, 0] + tail
+
+
 def kahan_add(s: torch.Tensor, c: torch.Tensor, w: torch.Tensor,
               d: torch.Tensor):
     """One Kahan-compensated step adding ``w * d``: returns ``(s', c')``.

@@ -1,8 +1,9 @@
 """quickscore: batch-scoring timer (counterpart of quickrank_tpu/quickscore.py
 and the reference's ``quickscore`` binary, src/quickscore.cc:62-134).
 
-Loads an SVML dataset and an XML model, scores every doc ``rounds`` times on
-the chosen device, and reports total, per-dataset and per-doc time.  On CUDA
+Loads an SVML dataset and an XML model (any ported ranker: tree ensembles
+through their kernels, linear models as a float64 matrix-vector product),
+scores every doc ``rounds`` times on the chosen device, and reports total, per-dataset and per-doc time.  On CUDA
 the features are uploaded once, one warm-up call builds the kernels, and
 the timed loop is bracketed by ``torch.cuda.synchronize()``.
 
@@ -51,6 +52,7 @@ def main(argv=None) -> int:
         "perfect": "perfect-tree kernel (depth <= 5)",
         "qs": "QuickScorer kernel (any depth)",
         "oblivious": "oblivious bit-OR kernel",
+        "linear": "linear model (X @ w in float64)",
     }[model.scorer_path()]
     print(f"#\t Scorer path: {path} on {device.type}")
 

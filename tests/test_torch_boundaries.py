@@ -574,3 +574,102 @@ def test_dart_on_card_goes_through_kernels(cuda_device, sample_type, normalize_t
     np.testing.assert_allclose(card["train"][:first], cpu["train"][:first], atol=1e-3)
     assert card["train"][-1] > card["train"][0]
     assert abs(card["train"][-1] - cpu["train"][-1]) <= 0.05
+
+
+def _small_folds():
+    from quickrank_tpu_torch.data.synthetic import make_train_valid_test
+
+    return make_train_valid_test(num_queries=(40, 12, 12), avg_docs_per_query=30,
+                                 num_features=12)
+
+
+def test_linear_and_cleaver_entry_points_need_a_card():
+    """Without a card the entry points of the linear rankers, Cleaver and
+    MetaCleaver raise unless the caller asks for the CPU: nothing falls back
+    to the plain versions on its own."""
+    from quickrank_tpu_torch.learning import CoordinateAscent, LambdaMart, LineSearch, MetaCleaver
+    from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.optimization import Cleaver
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    train, _, _ = _small_folds()
+    lm = LambdaMart(ntrees=2, nleaves=4, nthresholds=16)
+    lm.learn(train, None, Ndcg(10), verbose=False, device="cpu")
+    ca = CoordinateAscent(max_iterations=1)
+    ca.update_weights(np.ones(train.num_features))
+    calls = [lambda: CoordinateAscent(max_iterations=1).learn(train, verbose=False),
+             lambda: LineSearch(max_iterations=1).learn(train, verbose=False),
+             lambda: ca.score_dataset(train),
+             lambda: Cleaver().optimize(lm, train, verbose=False),
+             lambda: MetaCleaver(lm, Cleaver()).learn(train, verbose=False)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert ca.score_dataset(train, device="cpu").shape == (train.num_docs,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["CoordinateAscent", "LineSearch"])
+def test_linear_rankers_on_card_match_cpu(cuda_device, name):
+    """The first feature step on the card: the candidate grid bitwise the
+    CPU's, the candidate metrics within 1e-5 (the candidate matrices are the
+    same bits; the metric's sort and sums are the card's); a 2-epoch run
+    within 1e-2 of the CPU run's train NDCG@10."""
+    from quickrank_tpu_torch.learning import linear
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, valid, _ = _small_folds()
+    F = train.num_features
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        fold = linear.Fold(train, dev)
+        if name == "CoordinateAscent":
+            w = np.full(F, np.float32(1.0 / F), np.float32)
+            _, pts, ms, _ = linear.CoordinateAscent().feature_step(
+                fold, Ndcg(10), w, 0, np.float32(10.0 / F))
+        else:
+            w = np.ones(F, np.float32)
+            trace = []
+            best = np.float32(fold.metric(Ndcg(10), fold.dot(w)))
+            linear.LineSearch().iteration(fold, Ndcg(10), w, w, best, np.float32(10.0),
+                                          trace=trace)
+            pts, ms = trace[0]
+        steps[dev] = (pts, ms, fold.dot(w).cpu())
+    (gp, gm, gfull), (cp, cm, cfull) = steps["cuda"], steps["cpu"]
+    np.testing.assert_array_equal(gp, cp)
+    assert torch.equal(gfull, cfull)
+    fin = np.isfinite(cm)
+    np.testing.assert_array_equal(np.isfinite(gm), fin)
+    assert np.abs(gm[fin] - cm[fin]).max() <= 1e-5
+    runs = [getattr(linear, name)(max_iterations=2).learn(train, valid, Ndcg(10), verbose=False,
+                                                          device=dev)
+            for dev in ("cuda", "cpu")]
+    assert abs(runs[0]["train"][-1] - runs[1]["train"][-1]) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_cleaver_on_card_goes_through_k1_partial(cuda_device):
+    """Cleaver's per-tree score matrix on the card comes from K1's partial
+    entry, bitwise the CPU descent, and QUALITY_LOSS prunes the CPU's set
+    with the metric after pruning within 1e-5."""
+    import copy
+
+    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.optimization import Cleaver
+
+    train, valid, _ = _small_folds()
+    lm = LambdaMart(ntrees=12, nleaves=16, nthresholds=64, seed=1)
+    lm.learn(train, None, Ndcg(10), verbose=False, device="cpu")
+    before = kernel_qs.PARTIAL_LAUNCHES
+    card = Cleaver.partial_dataset(lm, train, "cuda")
+    assert kernel_qs.PARTIAL_LAUNCHES > before
+    np.testing.assert_array_equal(card.features, Cleaver.partial_dataset(lm, train, "cpu").features)
+    infos = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(lm)
+        infos.append(Cleaver("QUALITY_LOSS", 0.5).optimize(m, train, valid, Ndcg(10),
+                                                          verbose=False, device=dev))
+    assert infos[0]["pruned"] == infos[1]["pruned"]
+    assert abs(infos[0]["metric_after"] - infos[1]["metric_after"]) <= 1e-5

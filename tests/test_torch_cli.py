@@ -165,10 +165,10 @@ def test_restart_train_and_partial_saves(svml_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--algo", "RANKBOOST"], "item 7"), (["--algo", "COORDASC"], "item 7"),
-    (["--opt-algo", "EPRUNING"], "item 8"), (["--meta-algo", "METACLEAVER"], "item 7"),
+    (["--algo", "RANKBOOST"], "item 7"), (["--algo", "CUSTOM"], "item 7"),
+    (["--num-feat-shards", "2"], "item 10"), (["--algo", "STOCHASTIC-NEGATIVE"], "item 7"),
     (["--num-shards", "2"], "item 10"), (["--trace", "dir"], "item 9"),
-    (["--train-partial", "p.svml"], "item 8"),
+    (["--num-shards", "4"], "item 10"),
     (["--model-file", "m.xml", "--code-file", "m.c"], "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(svml_dir, tmp_path, extra, item):
@@ -177,6 +177,51 @@ def test_unported_flags_raise_naming_their_item(svml_dir, tmp_path, extra, item)
     with pytest.raises(NotImplementedError, match=item):
         port_main(_flags(svml_dir, tmp_path / "x.xml", extra + ["--device", "cpu"]))
     assert not (tmp_path / "x.xml").exists()
+
+
+def test_coordasc_with_default_partial_trains_and_saves(svml_dir, tmp_path, capsys):
+    """--algo COORDASC --model-out with the default --partial 100: the
+    driver drops the flags CoordinateAscent.learn does not take, with a
+    note, trains, and saves the JAX CLI's model."""
+    jout, pout = tmp_path / "jax.xml", tmp_path / "port.xml"
+    feats = tmp_path / "feats.txt"
+    feats.write_text("\n".join(str(i) for i in range(1, 13)))
+    flags = ["--algo", "COORDASC", "--train", str(svml_dir / "train.svml"),
+             "--test", str(svml_dir / "test.svml"), "--max-iterations", "1",
+             "--features", str(feats)]
+    assert jax_main(flags + ["--model-out", str(jout), "--scores", str(tmp_path / "j.txt")]) == 0
+    capsys.readouterr()
+    assert port_main(flags + ["--model-out", str(pout), "--scores", str(tmp_path / "p.txt"),
+                              "--device", "cpu"]) == 0
+    assert "CoordinateAscent.learn has no partial_save/output_basename support" in (
+        capsys.readouterr().out)
+    assert sorted(f.name for f in tmp_path.iterdir() if f.suffix == ".xml") == [
+        "jax.xml", "port.xml"]
+    j, p = JaxLTRAlgorithm.load(str(jout)), LTRAlgorithm.load(str(pout))
+    assert p.NAME == j.NAME == "COORDASC"
+    np.testing.assert_allclose(p.best_weights, j.best_weights, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "p.txt"), np.loadtxt(tmp_path / "j.txt"),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_meta_cleaver_cli_tracks_jax(svml_dir, tmp_path):
+    """--meta-algo METACLEAVER wraps the learner and its optimizer: two
+    rounds of 4 trees, half of each pruned, and a METACLEAVER model whose
+    test metric tracks the JAX CLI's (MART: both packages grow the same
+    trees from the same gradients; LambdaMART's lambdas differ in the last
+    bit, and its second round's trees can part ways)."""
+    feats = tmp_path / "feats.txt"
+    feats.write_text("\n".join(str(i) for i in range(1, 13)))
+    extra = ["--algo", "MART", "--meta-algo", "METACLEAVER", "--final-num-trees", "4",
+             "--opt-method", "QUALITY_LOSS", "--pruning-rate", "0.5", "--opt-last-only",
+             "--features", str(feats)]
+    jout, pout = _both(svml_dir, tmp_path, extra, trees=4)
+    j, p = JaxLTRAlgorithm.load(str(jout)), LTRAlgorithm.load(str(pout))
+    assert p.NAME == j.NAME == "METACLEAVER"
+    assert p.ltr_algo.ensemble.num_trees == int(j.ltr_algo.ensemble.num_trees) == 4
+    test = svml_dir / "test.svml"
+    want, got = (_ndcg10(test, tmp_path / f"{w}.scores") for w in ("jax", "port"))
+    assert got == pytest.approx(want, abs=1e-4)
 
 
 def test_unknown_algo_and_missing_card(svml_dir, tmp_path):

@@ -93,7 +93,7 @@ def test_unported_types_raise_not_implemented(tmp_path):
     path = tmp_path / "m.xml"
     m.save(str(path))
     text = path.read_text()
-    for other in ("COORDASC", "RANDOMFOREST", "RANKBOOST"):
+    for other in ("CUSTOM", "RANDOMFOREST", "RANKBOOST"):
         path.write_text(text.replace("<type>MART</type>", f"<type>{other}</type>"))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             xml_model.load_model(str(path))
