@@ -38,7 +38,15 @@ CPU, Cleaver pruning half of phase 19's DART model with a line search before
 and after (its per-tree scores from K1's partial entry, the pruned model's
 kernel scores held against ``partial @ weights``) and all eight strategies,
 and quicklearn's optimization phase, COORDASC, --meta-algo METACLEAVER and
-quickscore on the saved models.  The
+quickscore on the saved models.  The remaining learners (phases 27-30):
+RankBoost for 50 rounds on the 19,000 queries (its potential histogram
+through the node-histogram kernel, one round's held bit for bit against the
+fixed-point reference, quickscore on the saved model), RankBoost and
+LambdaMART-Selective on the card against the CPU, RandomForest, Selective
+(RATIO, MUL, POS) and Stochastic-Negative at full width with their presence
+rules checked on the card, and quicklearn for all five, with quickscore on
+each saved model, the three C code generators (compiled and run) and
+``--trace``.  The
 wrappers' launch
 counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
@@ -85,6 +93,24 @@ CPU_QUERIES = 200  # phases 7, 10, 12, 16, 21 and 24: the card against the CPU
 LINEAR_EPOCHS = 3  # phase 23: CoordinateAscent epochs, LineSearch iterations
 CLEAVER_RATE = 0.5  # phase 25: the share of the DART model's trees pruned
 CPU_TREES = 5
+T_START = 0.0  # perf_counter at the start of main(); phase headers print the time since
+RANKBOOST_ROUNDS = 50  # phase 27: RankBoost's full-width run
+#: a main() around a generated ``double ranker(float* v)``: reads "n f" and
+#: n rows of f features from stdin, prints one score a row (phase 30)
+CODEGEN_MAIN = """
+#include <stdio.h>
+#include <stdlib.h>
+int main(void) {
+    int n, f;
+    if (scanf("%d %d", &n, &f) != 2) return 1;
+    float *v = malloc(sizeof(float) * f);
+    for (int i = 0; i < n; ++i) {
+        for (int j = 0; j < f; ++j) if (scanf("%f", &v[j]) != 1) return 1;
+        printf("%.10g\\n", ranker(v));
+    }
+    return 0;
+}
+"""
 #: trees, depth, docs, features of the oblivious scoring shapes; the first
 #: is the JAX package's headline workload (bench.py:74-86), the third ends
 #: mid-block and has dead levels, and the rows of the last are too wide to
@@ -95,6 +121,11 @@ OBLIVIOUS_CASES = [(1000, 4, N_DOCS, N_FEATURES), (200, 6, N_DOCS, N_FEATURES),
 #: outside the tensor cores (integer compares and mask ANDs count at it too)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+def phase(text: str) -> None:
+    """Print a phase header, after the seconds since main() started."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] phase {text}")
 
 
 def require(ok: bool, msg: str) -> None:
@@ -209,6 +240,9 @@ def check_histogram(name, got, plain, exact, mass, terms, count_channels, roundi
 def main() -> int:
     import torch
 
+    global T_START
+    T_START = time.perf_counter()
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -266,7 +300,7 @@ def main() -> int:
         ).numpy()
 
     # -- phase 1: QuickScorer kernel against its plain version --------------
-    print("phase 1: qs_score against the plain version and the CPU descent")
+    phase("1: qs_score against the plain version and the CPU descent")
     qs_err = 0.0
     qs_tables = {}
     for T, leaves, seed in QS_CASES:
@@ -352,7 +386,7 @@ def main() -> int:
             qs_wide[(leaves, space)] = (ens, tables, feats)
 
     # -- phase 2: perfect kernel against its plain version ------------------
-    print("phase 2: perfect_score against the plain version and the CPU descent")
+    phase("2: perfect_score against the plain version and the CPU descent")
     pf_err = 0.0
     pf_tables = {}
     for T, depth, seed in PERFECT_CASES:
@@ -387,7 +421,7 @@ def main() -> int:
         require(err <= atol, f"perfect {label}: {err} > {atol}")
 
     # -- phase 3: the slice end to end through quickscore -------------------
-    print("phase 3: quickscore end to end")
+    phase("3: quickscore end to end")
     with tempfile.TemporaryDirectory() as tmp:
         ds = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
                                   num_features=N_FEATURES, seed=0)
@@ -446,7 +480,7 @@ def main() -> int:
             print(f"  quickscore {name}: scores file bitwise the plain scorer's")
 
     # -- phase 4: times ------------------------------------------------------
-    print(f"phase 4: ms per call at {N_DOCS} docs x {N_FEATURES} features "
+    phase(f"4: ms per call at {N_DOCS} docs x {N_FEATURES} features "
           f"on {card}")
     times = {}
     for (T, leaves), (_, tables) in qs_tables.items():
@@ -520,7 +554,7 @@ def main() -> int:
     td = TrainData.build(train_ds, 255, device=dev)
     binned = td.step.binned
     N, W = binned.shape
-    print(f"phase 5: histogram kernels against the plain versions on "
+    phase(f"5: histogram kernels against the plain versions on "
           f"{train_ds.num_docs} docs ({train_ds.num_queries} queries, padded to "
           f"{N}) x {W} u8 columns; data + binning "
           f"{time.perf_counter() - t0:.1f} s")
@@ -619,7 +653,7 @@ def main() -> int:
     del k4_cases, tenth, tenth_rows
 
     # -- phase 6: LambdaMART training at full width, both growers ----------
-    print(f"phase 6: LambdaMART, {TRAIN_TREES} trees, {train_ds.num_queries} train "
+    phase(f"6: LambdaMART, {TRAIN_TREES} trees, {train_ds.num_queries} train "
           f"+ {valid_ds.num_queries} valid queries, on {card}")
     from quickrank_tpu_torch.learning.base import LTRAlgorithm
     from quickrank_tpu_torch.metrics import Ndcg
@@ -678,7 +712,7 @@ def main() -> int:
                 require(err <= atol, f"{growth}: {err} > {atol}")
 
     # -- phase 7: the card against the CPU on a small fold -----------------
-    print(f"phase 7: {CPU_TREES}-tree runs on {CPU_QUERIES} queries, card against CPU")
+    phase(f"7: {CPU_TREES}-tree runs on {CPU_QUERIES} queries, card against CPU")
     small = make_ranking_dataset(num_queries=CPU_QUERIES, seed=13)
     for growth in ("best", "level"):
         runs = {}
@@ -697,7 +731,7 @@ def main() -> int:
 
 
     # -- phase 8: the oblivious bit-OR kernel against its plain version ----
-    print("phase 8: oblivious_score against the plain version and the CPU descent")
+    phase("8: oblivious_score against the plain version and the CPU descent")
     from quickrank_tpu_torch.ops import oblivious as plain_oblivious
     from quickrank_tpu_torch.trees.oblivious import FLT_MAX, oblivious_to_tree
     from quickrank_tpu_torch.trees.structs import EnsembleTensors
@@ -757,7 +791,7 @@ def main() -> int:
     del Xo, bins_dev, obl_dev, got, plain
 
     # -- phase 9: the oblivious slice end to end at full width --------------
-    print(f"phase 9: ObliviousLambdaMART depth 4, {TRAIN_TREES} trees, "
+    phase(f"9: ObliviousLambdaMART depth 4, {TRAIN_TREES} trees, "
           f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, saved and "
           f"served through quickscore, on {card}")
     for name in kernel_histogram.LAUNCHES:
@@ -810,7 +844,7 @@ def main() -> int:
         require(np.isfinite(scored).all() and err <= atol, f"oblivious: {err} > {atol}")
 
     # -- phase 10: best-k growth beside best-first --------------------------
-    print(f"phase 10: LambdaMART bestk@255, split_pack 4, {TRAIN_TREES} trees at "
+    phase(f"10: LambdaMART bestk@255, split_pack 4, {TRAIN_TREES} trees at "
           f"{train_ds.num_queries} queries (best-first above: "
           f"{train_runs['best'][1]:.4f} s/tree)")
     grow.HOST_SYNCS = 0
@@ -834,7 +868,7 @@ def main() -> int:
     require(same, "bestk with split_pack 1 differs from best-first on the card")
 
     # -- phase 11: warm start, rescoring through K1 in bin space ------------
-    print(f"phase 11: warm start at {train_ds.num_queries} queries, 4 trees and then 4 more")
+    phase(f"11: warm start at {train_ds.num_queries} queries, 4 trees and then 4 more")
     from quickrank_tpu_torch.learning.mart import rebin_ensemble, rescore_binned
 
     kw = dict(nleaves=16, nthresholds=255, seed=1)
@@ -876,7 +910,7 @@ def main() -> int:
     require(diff <= 1e-4, f"warm start: train NDCG@10 differs by {diff}")
 
     # -- phase 12: the oblivious learner, card against CPU ------------------
-    print(f"phase 12: ObliviousLambdaMART, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
+    phase(f"12: ObliviousLambdaMART, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
           f"against CPU")
     runs = {}
     for device in ("cuda", "cpu"):
@@ -906,7 +940,7 @@ def main() -> int:
     n_work = grow_cluster.work_rows(N, cfg.max_nodes)
     T_w = n_work // kernel_partition.TILE
     pos_col = W + grow_cluster._POS
-    print(f"phase 13: partition_rows against the plain version on the {n_work} x {W} u8 "
+    phase(f"13: partition_rows against the plain version on the {n_work} x {W} u8 "
           f"work buffer ({T_w} tiles) of {N} docs, on {card}")
     gen = torch.Generator(device="cpu").manual_seed(13)
     # integer pseudoresponses: every histogram sum is exact in the kernels'
@@ -1059,7 +1093,7 @@ def main() -> int:
     del chan_root, pos_r, live_r, h_run, h_all, g_f
 
     # -- phase 14: the clustered tree against the dataset-order tree ---------
-    print("phase 14: fit_tree_clustered against fit_tree on the card, integer gradients")
+    phase("14: fit_tree_clustered against fit_tree on the card, integer gradients")
     ptree, pnode = grow.fit_tree(binned, g_int, td.step.doc_mask, thr_dev, cfg)
     fields = ("feature", "threshold", "threshold_bin", "left", "right", "is_leaf")
     bad = [f for f in fields if not torch.equal(getattr(ctree, f), getattr(ptree, f))]
@@ -1070,7 +1104,7 @@ def main() -> int:
     del td, binned, g_int, ctree, cnode, ptree, pnode
 
     # -- phase 15: LambdaMART with the clustered layout beside dataset order -
-    print(f"phase 15: LambdaMART cluster=on beside cluster=off, {TRAIN_TREES} trees at "
+    phase(f"15: LambdaMART cluster=on beside cluster=off, {TRAIN_TREES} trees at "
           f"{train_ds.num_queries} queries, on {card}")
     cluster_runs = {}
     for cluster in ("off", "on"):
@@ -1109,7 +1143,7 @@ def main() -> int:
     require(diff <= 1e-3, f"cluster=on: train NDCG@10 differs by {diff}")
 
     # -- phase 16: the clustered grower, card against CPU --------------------
-    print(f"phase 16: LambdaMART cluster=on, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
+    phase(f"16: LambdaMART cluster=on, {CPU_TREES} trees on {CPU_QUERIES} queries, card "
           f"against CPU")
     runs = {}
     for device in ("cuda", "cpu"):
@@ -1125,7 +1159,7 @@ def main() -> int:
     require(diff <= 1e-3, f"cluster=on: train NDCG@10 differs by {diff} between card and CPU")
 
     # -- phase 17: quicklearn on the card ------------------------------------
-    print("phase 17: quicklearn (cli.main) trains, saves and scores on the card")
+    phase("17: quicklearn (cli.main) trains, saves and scores on the card")
     from quickrank_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1168,7 +1202,7 @@ def main() -> int:
               f"({loaded.scorer_path()} path)")
 
     # -- phase 18: K1's partial entry against its plain version -------------
-    print(f"phase 18: qs_partial (per-tree columns) against the plain version on {card}")
+    phase(f"18: qs_partial (per-tree columns) against the plain version on {card}")
     from quickrank_tpu_torch.trees.qs import partial_scores_qs
 
     def hold_partial(label, feats, tables, ens, chunk):
@@ -1212,7 +1246,7 @@ def main() -> int:
     # -- phase 19: DART at full width -----------------------------------------
     from quickrank_tpu_torch.learning import Dart
 
-    print(f"phase 19: DART (UNIFORM / TREE, rate_drop 0.1), {DART_TREES} trees, "
+    phase(f"19: DART (UNIFORM / TREE, rate_drop 0.1), {DART_TREES} trees, "
           f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
@@ -1251,7 +1285,7 @@ def main() -> int:
     model = rebin_ensemble(dart.ensemble, td.thresholds, force=True).to(dev)
     n_live = model.num_trees
     dropped = np.random.default_rng(20).choice(n_live, size=min(20, n_live), replace=False)
-    print(f"phase 20: dropped-set delta, {len(dropped)} of the {n_live} trees of the DART model "
+    phase(f"20: dropped-set delta, {len(dropped)} of the {n_live} trees of the DART model "
           f"on the u8 bin matrix {tuple(td.step.binned.shape)}")
     table = DropTable(model, dev)
     w_drop = model.weight[torch.from_numpy(dropped).to(dev)].cpu().numpy()
@@ -1286,7 +1320,7 @@ def main() -> int:
     del td, model, table, got, plain, other, gathered, few
 
     # -- phase 21: DART, the card against the CPU ------------------------------
-    print(f"phase 21: DART, 8 trees on {CPU_QUERIES} queries, card against CPU")
+    phase(f"21: DART, 8 trees on {CPU_QUERIES} queries, card against CPU")
     for label, kw in (("WEIGHTED / FOREST, rate_drop 0.5",
                        dict(sample_type="WEIGHTED", normalize_type="FOREST")),
                       ("UNIFORM / TREE, rate_drop 0.5, keep_drop", dict(keep_drop=True))):
@@ -1313,7 +1347,7 @@ def main() -> int:
                 f"{diffs.max()}")
 
     # -- phase 22: quicklearn --algo DART on the card, --detailed -------------
-    print("phase 22: quicklearn --algo DART trains, saves and writes --detailed on the card")
+    phase("22: quicklearn --algo DART trains, saves and writes --detailed on the card")
     with tempfile.TemporaryDirectory() as tmp:
         svml = os.path.join(tmp, "mslr-shaped.svml")
         serve_ds = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
@@ -1370,7 +1404,7 @@ def main() -> int:
 
     from quickrank_tpu_torch.learning import CoordinateAscent, LineSearch, MetaCleaver, linear
 
-    print(f"phase 23: CoordinateAscent and LineSearch, 21 points, {LINEAR_EPOCHS} epochs, "
+    phase(f"23: CoordinateAscent and LineSearch, 21 points, {LINEAR_EPOCHS} epochs, "
           f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
     fold = linear.Fold(train_ds, dev)
     F = train_ds.num_features
@@ -1411,7 +1445,7 @@ def main() -> int:
     print("  linear scores on the card within 1e-12 relative of numpy's float64 X @ w")
 
     # -- phase 24: the linear rankers, the card against the CPU ---------------
-    print(f"phase 24: CoordinateAscent and LineSearch on {CPU_QUERIES} queries, card against CPU")
+    phase(f"24: CoordinateAscent and LineSearch on {CPU_QUERIES} queries, card against CPU")
     for cls in (CoordinateAscent, LineSearch):
         first, final = {}, {}
         for device in ("cuda", "cpu"):
@@ -1445,7 +1479,7 @@ def main() -> int:
 
     model = copy.deepcopy(dart)
     T = model.ensemble.num_trees
-    print(f"phase 25: Cleaver QUALITY_LOSS, pruning rate {CLEAVER_RATE}, LineSearch (2 "
+    phase(f"25: Cleaver QUALITY_LOSS, pruning rate {CLEAVER_RATE}, LineSearch (2 "
           f"iterations) before and after pruning, on phase 19's {T}-tree DART model, "
           f"{train_ds.num_queries} train + {valid_ds.num_queries} valid queries, on {card}")
     torch.cuda.reset_peak_memory_stats()
@@ -1530,7 +1564,7 @@ def main() -> int:
           f"{int(round(0.25 * T))} of {T} trees; seconds each {strategy_s}")
 
     # -- phase 26: quicklearn's optimization phase on the card -----------------
-    print("phase 26: quicklearn --opt-algo, --opt-model, COORDASC, --meta-algo and quickscore "
+    phase(f"26: quicklearn --opt-algo, --opt-model, COORDASC, --meta-algo and quickscore "
           "on the card")
     with tempfile.TemporaryDirectory() as tmp:
         svml = os.path.join(tmp, "mslr-shaped.svml")
@@ -1594,6 +1628,277 @@ def main() -> int:
               f"METACLEAVER ({meta.ltr_algo.ensemble.num_trees} trees); quickscore's scores equal "
               f"quicklearn's on c.xml (linear) and p.xml ({pruned.scorer_path()})")
 
+    # -- phase 27: RankBoost at full width --------------------------------------
+    import glob
+    import shutil
+
+    from quickrank_tpu_torch.io import codegen
+    from quickrank_tpu_torch.learning import (
+        LambdaMartSelective,
+        RandomForest,
+        RankBoost,
+        StochasticNegative,
+        rankboost,
+    )
+    from quickrank_tpu_torch.learning.selective import select_presence
+    from quickrank_tpu_torch.ops.histogram import masked_histogram_scatter
+
+    phase(f"27: RankBoost, {RANKBOOST_ROUNDS} rounds, {train_ds.num_queries} train + "
+          f"{valid_ds.num_queries} valid queries, on {card}")
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    rankboost.HOST_SYNCS = 0
+    rb = RankBoost(ntrees=RANKBOOST_ROUNDS, nthresholds=255)
+    t0 = time.perf_counter()
+    rb_hist = rb.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+    rb_wall = time.perf_counter() - t0
+    rb_launches = dict(kernel_histogram.LAUNCHES)
+    rb_syncs = rankboost.HOST_SYNCS / RANKBOOST_ROUNDS
+    rb_s_round = float(np.median(rb_hist["iter_seconds"][1:]))
+    print(f"  {rb_s_round:.4f} s/round (median of rounds 2+; first "
+          f"{rb_hist['iter_seconds'][0]:.4f}), {rb_wall:.2f} s with set-up; kernel launches "
+          f"{rb_launches}, host syncs a round {rb_syncs:.2f}; train NDCG@10 "
+          f"{rb_hist['train'][0]:.6f} -> {rb_hist['train'][-1]:.6f}, best valid NDCG@10 "
+          f"{max(rb_hist['valid']):.6f} at round {rb_hist['best_T']}")
+    require(rb_launches["node_histogram"] == RANKBOOST_ROUNDS and rb_syncs == 2,
+            f"RankBoost: {rb_launches} launches, {rb_syncs} syncs a round")
+    require(np.isfinite(rb_hist["train"]).all() and np.isfinite(rb_hist["valid"]).all()
+            and rb_hist["train"][-1] > rb_hist["train"][0], "RankBoost: bad history")
+    # one round's potential histogram, from the scores the run ended with
+    td27 = TrainData.build(train_ds, 255, device=dev)
+    levels27 = tuple(float(x) for x in np.unique(train_ds.labels))
+    pi27, _ = rankboost.potentials(rb.train_scores, td27.step, levels27)
+    b27, dm27 = td27.step.binned, td27.step.doc_mask
+    F27, B27 = td27.num_real_features, td27.num_bins
+    got = rankboost.potential_histogram(b27, pi27, dm27, B27, F27)[..., None]
+    vt27 = pi27[None].contiguous()
+    pos27 = torch.where(dm27, 0, 1).to(torch.int32)
+    require(torch.equal(got, kernel_histogram.node_histogram_fixed(b27, vt27, pos27, B27, 0, 1,
+                                                                   F27)),
+            "RankBoost's K4 histogram differs from node_histogram_fixed")
+    cols27 = b27[:, :F27]
+    v64 = pi27.double()
+    plain, exact, mass, terms = (masked_histogram_scatter(cols27, v[:, None], dm27, B27)
+                                 for v in (pi27, v64, v64.abs(), torch.ones_like(v64)))
+    rb_k4_err = check_histogram("K4 RankBoost potentials (C = 1)", got, plain, exact, mass,
+                                terms, slice(0, 0), kernel_histogram.rounding_error(vt27))
+    rb_k4_ms = time_ms(lambda: rankboost.potential_histogram(b27, pi27, dm27, B27, F27), reps=20)
+    rb_plain_ms = time_ms(lambda: masked_histogram_scatter(cols27, pi27[:, None], dm27, B27),
+                          reps=3)
+    n27 = int(dm27.sum())
+    rb_bound = bound_ms(n27 * F27 + nbytes_of(vt27, pos27) + F27 * B27 * 4, n27 * F27)
+    print(f"  K4 on one round's potentials (C = 1, {F27} features, {B27} bins) bit for bit "
+          f"node_histogram_fixed; {rb_k4_ms:.4f} ms (plain {rb_plain_ms:.4f}, bound "
+          f"{rb_bound[0]:.4f} by {rb_bound[1]})")
+    served = make_ranking_dataset(num_queries=400, seed=14)
+    with tempfile.TemporaryDirectory() as tmp:
+        svml, model = os.path.join(tmp, "served.svml"), os.path.join(tmp, "rb.xml")
+        write_svml(served, svml)
+        rb.save(model)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = quickscore.main(["-d", svml, "-m", model, "-r", "3",
+                                  "-s", os.path.join(tmp, "qs.scores")])
+        require(rc == 0, f"quickscore on the RankBoost model: exit {rc}")
+        np.savetxt(os.path.join(tmp, "sd.scores"), rb.score_dataset(served), fmt="%.15g")
+        got, want = (np.loadtxt(os.path.join(tmp, f)) for f in ("qs.scores", "sd.scores"))
+        require(got.shape == (served.num_docs,) and np.isfinite(got).all()
+                and np.array_equal(got, want),
+                "quickscore's scores of the RankBoost model differ from score_dataset")
+    print(f"  quickscore's scores of the saved model ({rb.best_T} weak rankers) equal "
+          f"score_dataset on {served.num_docs} docs of 400 other queries")
+    del td27, b27, dm27, pi27, vt27, pos27, cols27, v64, plain, exact, mass, terms, got
+
+    # -- phase 28: RankBoost and Selective, the card against the CPU ------------
+    phase(f"28: RankBoost and LambdaMART-Selective on {CPU_QUERIES} queries, card "
+          f"against CPU")
+    runs28 = {}
+    for device in ("cuda", "cpu"):
+        m = RankBoost(ntrees=10, nthresholds=255)
+        runs28[device] = (m, m.learn(small, None, Ndcg(10), verbose=False, device=device))
+    (gm, gh), (cm, ch) = runs28["cuda"], runs28["cpu"]
+    gap = abs(gh["train"][-1] - ch["train"][-1])
+    print(f"  RankBoost: weak rankers (feature) card {gm.features_[:5].tolist()}, cpu "
+          f"{cm.features_[:5].tolist()}; final train NDCG@10 gap {gap:.3g}")
+    require(np.array_equal(gm.features_[:5], cm.features_[:5])
+            and np.array_equal(gm.thetas_[:5], cm.thetas_[:5]),
+            "RankBoost: the card's first five weak rankers differ from the CPU's")
+    require(gap <= 1e-3, f"RankBoost: final train NDCG@10 differs by {gap}")
+    runs28 = {}
+    for device in ("cuda", "cpu"):
+        m = LambdaMartSelective(ntrees=3, nleaves=16, nthresholds=255, seed=1,
+                                sampling_iterations=1, rank_sampling_factor=0.5,
+                                random_sampling_factor=0.0)
+        runs28[device] = (m, m.learn(small, None, Ndcg(10), verbose=False, device=device))
+    (gm, gh), (cm, ch) = runs28["cuda"], runs28["cpu"]
+    root = [(int(m.ensemble.feature[0, 0]), int(m.ensemble.threshold_bin[0, 0]))
+            for m in (gm, cm)]
+    diff = float(np.abs(np.array(gh["train"]) - np.array(ch["train"])).max())
+    print(f"  LambdaMART-Selective (RATIO 0.5): root split card {root[0]}, cpu {root[1]}; max "
+          f"train NDCG@10 difference {diff:.3g} over 3 iterations")
+    require(root[0] == root[1], "Selective: root split differs")
+    require(diff <= 1e-3, f"Selective: train NDCG@10 differs by {diff}")
+
+    # -- phase 29: the sampling learners and RandomForest at full width ---------
+    phase(f"29: RandomForest, LambdaMART-Selective (RATIO, MUL, POS; MIX) and "
+          f"Stochastic-Negative, {TRAIN_TREES} trees at {train_ds.num_queries} queries, on {card}")
+
+    def per_query(mask, sd):
+        kept = mask[sd.pad_index] & sd.slot_mask
+        pos = (sd.labels2d > 0) & sd.slot_mask
+        neg = (sd.labels2d <= 0) & sd.slot_mask
+        return (kept & pos).sum(1), pos.sum(1), (kept & neg).sum(1), neg.sum(1)
+
+    def check_presence(model):
+        """Wrap the presence hook: every fresh mask keeps each positive and
+        as many negatives a query as the rule says."""
+        hook, checked = model._update_presence, [0]
+        selective = isinstance(model, LambdaMartSelective)
+
+        def update(m, tr, scores, gen):
+            factors = model._factors() if selective else None
+            out = hook(m, tr, scores, gen)
+            if out is None or (selective and (m == 0 or m % model.sampling_iterations)):
+                return out
+            sd, N = tr.step, tr.padded.num_docs_padded
+            kp, npos, kn, nneg = per_query(out, sd)
+            require(torch.equal(kp, npos), f"{model.NAME}: a positive was dropped")
+            if selective:
+                rk, rd = factors
+                top, rnd = (select_presence(scores, sd, N, model.negative_strategy, a, b,
+                                            torch.Generator())
+                            for a, b in ((rk, 0.0), (0.0, rd)))
+                require(not bool((top & ~out).any()),
+                        f"{model.NAME}: a top-scored negative was dropped")
+                want = torch.minimum(per_query(top, sd)[2] + per_query(rnd, sd)[2], nneg)
+            else:
+                want = torch.floor(nneg.float() * float(np.float32(model.negative_fraction)))
+            require(torch.equal(kn, want.long()),
+                    f"{model.NAME}: the negatives kept differ from the rule's count")
+            checked[0] += 1
+            return out
+
+        model._update_presence = update
+        return checked
+
+    sampled_runs = {}
+    common = dict(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, seed=1)
+    learners29 = [("RANDOMFOREST", RandomForest(subsample=0.6, max_features=0.5, **common))]
+    learners29 += [(f"SELECTIVE-{s}", LambdaMartSelective(
+        sampling_iterations=1, rank_sampling_factor=0.5, random_sampling_factor=0.25,
+        normalization_factor=4, adaptive_strategy="MIX", negative_strategy=s, **common))
+        for s in ("RATIO", "MUL", "POS")]
+    learners29 += [("STOCHASTIC-NEGATIVE", StochasticNegative(subsample=0.3, **common))]
+    for label, m in learners29:
+        checked = check_presence(m) if label != "RANDOMFOREST" else [None]
+        for name in kernel_histogram.LAUNCHES:
+            kernel_histogram.LAUNCHES[name] = 0
+        grow.HOST_SYNCS = 0
+        h = m.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+        sampled_runs[label] = report_run(label, m, h)
+        print(f"    train NDCG@10 {[round(x, 5) for x in h['train']]}, valid best "
+              f"{max(h['valid']):.5f}; kernel launches {dict(kernel_histogram.LAUNCHES)}; "
+              f"presence masks checked {checked[0]}")
+        require(np.isfinite(h["train"]).all() and np.isfinite(h["valid"]).all(),
+                f"{label}: bad history")
+        require(all(v > 0 for v in kernel_histogram.LAUNCHES.values()),
+                f"{label}: a histogram kernel was not launched")
+        require(checked[0] is None or checked[0] >= TRAIN_TREES - 1,
+                f"{label}: {checked[0]} presence masks checked")
+    print(f"  s/tree beside LambdaMART best@255 {train_runs['best'][1]:.4f} (phase 6): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sampled_runs.items()))
+
+    # -- phase 30: quicklearn for the new learners, codegen and --trace ---------
+    phase(f"30: quicklearn --algo RANKBOOST, LAMBDAMART-SELECTIVE, STOCHASTIC-NEGATIVE, "
+          "RANDOMFOREST, CUSTOM, --code-file and --trace on the card")
+    cc = shutil.which("gcc") or shutil.which("cc")
+    require(cc is not None, "no C compiler to build the generated scorers with")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds30 = make_ranking_dataset(num_queries=400, avg_docs_per_query=116,
+                                    num_features=N_FEATURES, seed=0)
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        write_svml(ds30, svml)
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        def quicklearn(args):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(args)
+            require(rc == 0, f"quicklearn {' '.join(args)}: exit {rc}")
+            return out.getvalue()
+
+        algos30 = {"RANKBOOST": ["--num-trees", "20"],
+                   "LAMBDAMART-SELECTIVE": ["--sampling-iterations", "1",
+                                            "--random-sampling-factor", "0.25",
+                                            "--negative-strategy", "POS"],
+                   "STOCHASTIC-NEGATIVE": ["--subsample", "0.3"],
+                   "RANDOMFOREST": ["--subsample", "0.6", "--max-features", "0.5"],
+                   "CUSTOM": []}
+        for algo, extra in algos30.items():
+            for name in kernel_histogram.LAUNCHES:
+                kernel_histogram.LAUNCHES[name] = 0
+            quicklearn(["--algo", algo, "--train", svml, "--test", svml, "--num-trees", "4",
+                        "--num-leaves", "16", "--partial", "0", "--model-out", path(f"{algo}.xml"),
+                        "--scores", path(f"{algo}.scores")] + extra)
+            launched = dict(kernel_histogram.LAUNCHES)
+            require(algo == "CUSTOM" or launched["node_histogram"] > 0,
+                    f"quicklearn --algo {algo} did not launch K4: {launched}")
+            loaded = LTRAlgorithm.load(path(f"{algo}.xml"))
+            require(loaded.NAME == algo, f"{algo}.xml loaded as {loaded.NAME}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = quickscore.main(["-d", svml, "-m", path(f"{algo}.xml"), "-r", "1",
+                                      "-s", path(f"{algo}.qs")])
+            require(rc == 0, f"quickscore on {algo}.xml: exit {rc}")
+            got, want = np.loadtxt(path(f"{algo}.qs")), np.loadtxt(path(f"{algo}.scores"))
+            require(got.shape == want.shape and np.isfinite(got).all()
+                    and np.array_equal(got, want),
+                    f"quicklearn's --scores differ from quickscore's on {algo}.xml")
+            print(f"  {algo}: K4/K5 launches {launched}; quickscore's {got.shape[0]} scores "
+                  f"equal quicklearn's ({loaded.scorer_path()} path)")
+        quicklearn(["--algo", "OBVLAMBDAMART", "--train", svml, "--num-trees", "4",
+                    "--tree-depth", "3", "--partial", "0", "--model-out", path("obv.xml")])
+        X30 = ds30.features[:512]
+        for generator, model in (("condop", "RANDOMFOREST.xml"), ("oblivious", "obv.xml"),
+                                 ("vpred", "RANDOMFOREST.xml")):
+            code = path(f"ranker.{generator}")
+            quicklearn(["--model-file", path(model), "--code-file", code, "--generator",
+                        generator])
+            text = open(code).read()
+            loaded = LTRAlgorithm.load(path(model))
+            require(text == codegen.generate(loaded, generator),
+                    f"--code-file {generator}: not the generator's text")
+            if generator == "vpred":
+                lines = text.split("\n")
+                require(int(lines[0]) == loaded.ensemble.num_trees
+                        and lines.count("end") == loaded.ensemble.num_trees,
+                        "vpred: bad node list")
+                print(f"  vpred: {lines.count('end')} trees in the node list")
+                continue
+            with open(path("main.c"), "w") as f:
+                f.write(text + CODEGEN_MAIN)
+            subprocess.run([cc, "-O1", "-o", path("ranker"), path("main.c"), "-lm"], check=True)
+            rows = [f"{X30.shape[0]} {X30.shape[1]}"] + [
+                " ".join(np.format_float_positional(v, unique=True) for v in row) for row in X30]
+            out = subprocess.run([path("ranker")], input="\n".join(rows), capture_output=True,
+                                 text=True, check=True).stdout
+            got = np.asarray([float(x) for x in out.split()])
+            want = loaded.score_dataset(ds30, device="cuda")[: X30.shape[0]]
+            err = float(np.abs(got - want).max())
+            tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+            print(f"  {generator}: compiled with {os.path.basename(cc)}, {got.shape[0]} docs "
+                  f"within {err:.3g} of the model's scores on the card (tolerance {tol:.3g})")
+            require(got.shape == want.shape and err <= tol,
+                    f"{generator}: the compiled scorer differs by {err}")
+        quicklearn(["--algo", "LAMBDAMART", "--train", svml, "--num-trees", "2",
+                    "--num-leaves", "16", "--partial", "0", "--trace", path("trace")])
+        traces = glob.glob(path("trace/*.trace.json"))
+        require(len(traces) == 1, f"--trace wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"  --trace: {os.path.getsize(traces[0])} bytes, {len(events)} events, "
+              f"{kernels} of them the card's kernels")
+        require(len(events) > 0, "--trace wrote no events")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -1609,8 +1914,8 @@ def main() -> int:
         row("oblivious_score", "oblivious_score.cu", "pallas_oblivious.py:100", k3_launches,
             obl_err, *obl_times[(1000, 4)], obl_bound),
         row("node_histogram", "histogram.cu", "pallas_histogram.py:183",
-            train_launches["node_histogram"], hist_err["node_histogram"],
-            *k4_times["256 bins, k=1 (root)"], k4_bound),
+            train_launches["node_histogram"] + rb_launches["node_histogram"],
+            hist_err["node_histogram"], *k4_times["256 bins, k=1 (root)"], k4_bound),
         row("histogram", "histogram.cu", "pallas_histogram.py:278",
             train_launches["histogram"], hist_err["histogram"], *k5_times, k5_bound,
             library_ms=k5_library),
@@ -1631,7 +1936,9 @@ def main() -> int:
           f"{on_s:.4f} beside cluster=off {off_s:.4f}; DART {dart_s_iter:.4f} s/iteration, "
           f"delta {dart_delta_ms:.4f} ms; COORDASC {linear_runs['COORDASC']:.4f} s/epoch, "
           f"LINESEARCH {linear_runs['LINESEARCH']:.4f} s/iteration, candidate batch "
-          f"{batch_ms:.4f} ms; Cleaver {cleaver_s:.2f} s")
+          f"{batch_ms:.4f} ms; Cleaver {cleaver_s:.2f} s; RankBoost {rb_s_round:.4f} s/round "
+          f"(K4 {rb_k4_ms:.4f} ms a round); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sampled_runs.items()) + " s/tree")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Host-side dataset container and the padded per-query layout (counterpart
 of quickrank_tpu/data/dataset.py: ``Dataset``, ``shard_and_pad`` for one
-shard, ``select_columns``, ``pack_doc_values``, ``gather_padded`` and
-``gather_unpad``).
+shard, ``select_columns``, ``pack_doc_values``, ``gather_padded``,
+``gather_unpad`` and ``scatter_flat``).
 
 Docs live in one flat ``[num_docs_padded]`` axis, queries contiguous, and
 ``pad_index`` turns flat per-doc arrays into ``[num_queries, max_docs]``
@@ -215,3 +215,13 @@ def gather_unpad(padded_vals, inv_q, inv_slot, doc_mask):
     out = padded_vals[inv_q, inv_slot]
     mask = doc_mask.reshape(doc_mask.shape + (1,) * (out.ndim - 1))
     return torch.where(mask, out, 0).to(padded_vals.dtype)
+
+
+def scatter_flat(padded_vals, pad_index, slot_mask, num_docs: int):
+    """Padded ``[Q, D]`` per-query values -> flat ``[num_docs]`` per-doc
+    array.  Every real doc sits in exactly one (query, slot); the padding
+    slots all land on the dummy row, whose value is the sum of zeros."""
+    vals = torch.where(slot_mask, padded_vals, torch.zeros((), dtype=padded_vals.dtype,
+                                                           device=padded_vals.device))
+    flat = torch.zeros(num_docs, dtype=padded_vals.dtype, device=padded_vals.device)
+    return flat.index_add_(0, pad_index.reshape(-1), vals.reshape(-1))

@@ -7,15 +7,19 @@ handling and the --meta-algo wrapping), build the optimizer (or load it
 from --opt-model), load the datasets, restrict them to ``--features``,
 train, save the model, optimize (Cleaver on the per-tree scores, which
 --train-partial / --valid-partial load or write), save the optimizer and
-the optimized model, test (with an optional scores file).  Everything runs
+the optimized model, test (with an optional scores file), and translate a
+model into standalone scoring code (``--code-file`` from ``--model-file``
+with the ``condop``, ``oblivious`` or ``vpred`` generator).  Everything runs
 on ``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
-writes the test set's per-tree scores as an SVML file.  The phases whose
-modules are not ported (sharded training, the device trace and code
-generation) raise ``NotImplementedError`` naming their ROADMAP.md item.
+writes the test set's per-tree scores as an SVML file; ``--trace DIR``
+captures a ``torch.profiler`` trace of the training phase into DIR.  What is
+not ported (sharded training, the ``stablehlo`` generator) raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
 import time
@@ -36,13 +40,15 @@ from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_fac
 from quickrank_tpu_torch.metrics.metrics import metric_factory
 from quickrank_tpu_torch.optimization.cleaver import Cleaver
 from quickrank_tpu_torch.optimization.factory import optimization_factory
+from quickrank_tpu_torch.utils.profiling import phase_timer, trace
 
-_CLI_ITEM = "§A item 9 (CLIs and export)"
+_EXPORT_ITEM = "§A item 9 (CLIs and export)"
 _PARALLEL_ITEM = "§A item 10 (parallel training)"
-#: parameters whose phases are not ported: name -> ROADMAP.md item
+#: what is not ported: (parameter, the value refused or None for any) ->
+#: ROADMAP.md item
 UNPORTED = {
-    "num_shards": _PARALLEL_ITEM, "num_feat_shards": _PARALLEL_ITEM,
-    "trace": _CLI_ITEM, "code_file": _CLI_ITEM, "model_file": _CLI_ITEM,
+    ("num_shards", None): _PARALLEL_ITEM, ("num_feat_shards", None): _PARALLEL_ITEM,
+    ("generator", "stablehlo"): _EXPORT_ITEM,
 }
 
 
@@ -112,11 +118,12 @@ def _partial_fold(algo, ds: Optional[Dataset], path: Optional[str], device,
 
 
 def _refuse_unported(p: dict) -> None:
-    for name, item in UNPORTED.items():
-        if p.get(name):
+    for (name, value), item in UNPORTED.items():
+        got = p.get(name)
+        if got and (value is None or str(got).lower() == value):
+            flag = f"--{name.replace('_', '-')}" + (f" {value}" if value else "")
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported to "
-                f"quickrank_tpu_torch yet: ROADMAP.md {item}"
+                f"{flag} is not ported to quickrank_tpu_torch yet: ROADMAP.md {item}"
             )
 
 
@@ -131,8 +138,12 @@ def run(params: dict) -> dict:
     results: dict = {"timings": timings}
     verbose = not p.get("quiet", False)
 
-    def timed(name, t0):
-        timings[name] = timings.get(name, 0.0) + time.time() - t0
+    def timed(name):
+        return phase_timer(name, sink=timings, verbose=False)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     train_metric = metric_factory(p.get("train_metric", "NDCG"), p.get("train_cutoff", 10))
     test_metric = metric_factory(p.get("test_metric", "NDCG"), p.get("test_cutoff", 10))
@@ -180,10 +191,9 @@ def run(params: dict) -> dict:
         optimizer = None  # the meta algorithm runs it
 
     # -- datasets ------------------------------------------------------------
-    t0 = time.time()
-    train, valid, test = (load_dataset(p[k], verbose) if p.get(k) else None
-                          for k in ("train", "valid", "test"))
-    timed("load-data", t0)
+    with timed("load-data"):
+        train, valid, test = (load_dataset(p[k], verbose) if p.get(k) else None
+                              for k in ("train", "valid", "test"))
     if p.get("features"):
         keep = _read_feature_file(p["features"])
         if p.get("model_in"):
@@ -225,12 +235,14 @@ def run(params: dict) -> dict:
         if dropped and verbose:
             print(f"# note: {type(algo).__name__}.learn has no "
                   f"{'/'.join(dropped)} support; ignoring those flags")
-        t0 = time.time()
-        results["training"] = algo.learn(train, valid, train_metric, verbose=verbose,
-                                         device=device, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timed("train", t0)
+        tracer = (trace(p["trace"], cuda=device.type == "cuda") if p.get("trace")
+                  else contextlib.nullcontext())
+        with tracer as trace_path, timed("train"):
+            results["training"] = algo.learn(train, valid, train_metric, verbose=verbose,
+                                             device=device, **kwargs)
+            sync()
+        if trace_path and verbose:
+            print(f"# trace of the training phase written to {trace_path}")
         if p.get("model_out"):
             algo.save(p["model_out"])
             if verbose:
@@ -243,13 +255,11 @@ def run(params: dict) -> dict:
         # when a path is given), driver.cc:270-298
         ptrain = _partial_fold(algo, train, p.get("train_partial"), device, verbose)
         pvalid = _partial_fold(algo, valid, p.get("valid_partial"), device, verbose)
-        t0 = time.time()
-        results["optimization"] = optimizer.optimize(
-            algo, train, valid, train_metric, verbose=verbose, ptrain=ptrain,
-            pvalid=pvalid, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timed("optimize", t0)
+        with timed("optimize"):
+            results["optimization"] = optimizer.optimize(
+                algo, train, valid, train_metric, verbose=verbose, ptrain=ptrain,
+                pvalid=pvalid, device=device)
+            sync()
         if p.get("opt_model"):
             optimizer.save(p["opt_model"])
             if verbose:
@@ -264,13 +274,13 @@ def run(params: dict) -> dict:
 
     # -- testing phase (driver.cc:326-385) -----------------------------------
     if test is not None:
-        t0 = time.time()
-        scores = algo.score_dataset(test, device=device)
-        padded = shard_and_pad(test)
-        # float32 as the JAX package evaluates them (linear scores are float64)
-        m = test_metric.evaluate_dataset(
-            padded, pack_doc_values(padded, torch.from_numpy(scores).float()))
-        timed("test", t0)
+        with timed("test"):
+            scores = algo.score_dataset(test, device=device)
+            padded = shard_and_pad(test)
+            # float32 as the JAX package evaluates them (linear and RankBoost
+            # scores are float64)
+            m = test_metric.evaluate_dataset(
+                padded, pack_doc_values(padded, torch.from_numpy(scores).float()))
         results["test_metric"] = m
         if verbose:
             print(f"# {test_metric!r} on test data: {m:.4f}")
@@ -285,6 +295,18 @@ def run(params: dict) -> dict:
             write_svml(Dataset.from_arrays(P, test.labels, qids), p["detailed"])
             if verbose:
                 print(f"# detailed per-tree scores saved to {p['detailed']}")
+
+    # -- codegen phase (driver.cc:199-223) -----------------------------------
+    if p.get("code_file") and p.get("model_file"):
+        from quickrank_tpu_torch.io import codegen
+
+        generator = p.get("generator", "condop")
+        with timed("codegen"):
+            code = codegen.generate(LTRAlgorithm.load(p["model_file"]), generator)
+            with open(p["code_file"], "w") as f:
+                f.write(code)
+        if verbose:
+            print(f"# {generator} code saved to {p['code_file']}")
 
     if verbose and timings:
         parts = " ".join(f"{k}={v:.2f}s" for k, v in timings.items())

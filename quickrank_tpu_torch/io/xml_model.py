@@ -173,18 +173,8 @@ def parse_ensemble(ranker: ET.Element) -> tuple[EnsembleTensors, int]:
     return ens, max_depth
 
 
-#: ranker types the JAX package loads that the port does not yet, with the
-#: ROADMAP.md §A item that ports each
-_NOT_PORTED = {
-    "RANDOMFOREST": "§A item 7 (other learners)",
-    "LAMBDAMART-SELECTIVE": "§A item 7 (other learners)",
-    "STOCHASTIC-NEGATIVE": "§A item 7 (other learners)",
-    "RANKBOOST": "§A item 7 (other learners)",
-    "CUSTOM": "§A item 7 (other learners)",
-}
-
-
 def _registry():
+    from quickrank_tpu_torch.learning.custom import CustomLTR
     from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
     from quickrank_tpu_torch.learning.linear import CoordinateAscent, LineSearch
@@ -194,10 +184,16 @@ def _registry():
         ObliviousLambdaMart,
         ObliviousMart,
     )
+    from quickrank_tpu_torch.learning.randomforest import RandomForest
+    from quickrank_tpu_torch.learning.rankboost import RankBoost
+    from quickrank_tpu_torch.learning.selective import LambdaMartSelective
+    from quickrank_tpu_torch.learning.stochasticnegative import StochasticNegative
 
     return {"MART": Mart, "LAMBDAMART": LambdaMart, "OBVMART": ObliviousMart,
             "OBVLAMBDAMART": ObliviousLambdaMart, "DART": Dart,
-            "COORDASC": CoordinateAscent, "LINESEARCH": LineSearch,
+            "RANDOMFOREST": RandomForest, "LAMBDAMART-SELECTIVE": LambdaMartSelective,
+            "STOCHASTIC-NEGATIVE": StochasticNegative, "COORDASC": CoordinateAscent,
+            "LINESEARCH": LineSearch, "RANKBOOST": RankBoost, "CUSTOM": CustomLTR,
             "METACLEAVER": MetaCleaver}
 
 
@@ -206,11 +202,6 @@ def load_element(root: ET.Element):
     (ltr_algorithm.cc:85-128)."""
     type_name = root.find("info/type").text.strip()
     reg = _registry()
-    if type_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{type_name} models are not ported to quickrank_tpu_torch yet: "
-            f"ROADMAP.md {_NOT_PORTED[type_name]}"
-        )
     if type_name not in reg:
         raise ValueError(f"unknown ranker type {type_name!r}; known: {sorted(reg)}")
     return reg[type_name]._from_xml(root)

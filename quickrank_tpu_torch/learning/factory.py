@@ -3,9 +3,10 @@ after src/learning/ltr_algorithm_factory.cc:41-262): construction by name
 from a flat parameter dict, model-in loading, the restart-train state
 import and the meta wrapping (``meta_factory``).
 
-MART, LAMBDAMART, OBVMART, OBVLAMBDAMART, DART, COORDASC and LINESEARCH are
-ported, and METACLEAVER as a meta algorithm; the other names the JAX package
-knows raise ``NotImplementedError`` naming their ROADMAP.md item.
+Every learner of the JAX package is ported: MART, LAMBDAMART, OBVMART,
+OBVLAMBDAMART, DART, RANDOMFOREST, RANKBOOST, LAMBDAMART-SELECTIVE,
+STOCHASTIC-NEGATIVE, COORDASC, LINESEARCH and CUSTOM, and METACLEAVER as a
+meta algorithm.
 """
 
 from __future__ import annotations
@@ -13,17 +14,6 @@ from __future__ import annotations
 from typing import Optional
 
 from quickrank_tpu_torch.learning.base import LTRAlgorithm
-
-_LEARNERS_ITEM = "§A item 7 (other learners)"
-#: algorithms of the JAX package that the port does not have yet
-UNPORTED = {
-    "RANDOMFOREST": _LEARNERS_ITEM,
-    "RANKBOOST": _LEARNERS_ITEM,
-    "LAMBDAMART-SELECTIVE": _LEARNERS_ITEM,
-    "STOCHASTIC-NEGATIVE": _LEARNERS_ITEM,
-    "CUSTOM": _LEARNERS_ITEM,
-}
-
 
 def _tree_kwargs(p: dict) -> dict:
     return dict(
@@ -63,6 +53,7 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
     if model_in is not None and not restart_train:
         return LTRAlgorithm.load(model_in)
 
+    from quickrank_tpu_torch.learning.custom import CustomLTR
     from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.learning.lambdamart import LambdaMart
     from quickrank_tpu_torch.learning.linear import CoordinateAscent, LineSearch
@@ -71,6 +62,10 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
         ObliviousLambdaMart,
         ObliviousMart,
     )
+    from quickrank_tpu_torch.learning.randomforest import RandomForest
+    from quickrank_tpu_torch.learning.rankboost import RankBoost
+    from quickrank_tpu_torch.learning.selective import LambdaMartSelective
+    from quickrank_tpu_torch.learning.stochasticnegative import StochasticNegative
 
     name = algo.upper().strip()
     tk = _tree_kwargs(params)
@@ -96,17 +91,31 @@ def ltr_algorithm_factory(algo: str = "LAMBDAMART", model_in: Optional[str] = No
             drop_on_best=p.get("drop_on_best", False),
             **tk,
         )
+    elif name == "RANDOMFOREST":
+        out = RandomForest(**tk)
+    elif name == "RANKBOOST":
+        out = RankBoost(ntrees=tk["ntrees"], nthresholds=tk["nthresholds"], seed=tk["seed"])
+    elif name == "LAMBDAMART-SELECTIVE":
+        p = params
+        out = LambdaMartSelective(
+            sampling_iterations=p.get("sampling_iterations", 1),
+            rank_sampling_factor=p.get("rank_sampling_factor", 1.0),
+            random_sampling_factor=p.get("random_sampling_factor", 0.0),
+            normalization_factor=p.get("normalization_factor", 100),
+            adaptive_strategy=p.get("adaptive_strategy", "NO"),
+            negative_strategy=p.get("negative_strategy", "RATIO"),
+            **tk,
+        )
+    elif name == "STOCHASTIC-NEGATIVE":
+        out = StochasticNegative(**tk)
     elif name == "COORDASC":
         out = CoordinateAscent(**_linear_kwargs(params))
     elif name == "LINESEARCH":
         out = LineSearch(adaptive=params.get("adaptive", False),
                          train_only_last=params.get("train_only_last", 0),
                          **_linear_kwargs(params))
-    elif name in UNPORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to quickrank_tpu_torch yet: ROADMAP.md "
-            f"{UNPORTED[name]}"
-        )
+    elif name == "CUSTOM":
+        out = CustomLTR()
     else:
         raise ValueError(f"unknown LtR algorithm {algo!r}")
 

@@ -2,7 +2,8 @@
 and the reference's ``quickscore`` binary, src/quickscore.cc:62-134).
 
 Loads an SVML dataset and an XML model (any ported ranker: tree ensembles
-through their kernels, linear models as a float64 matrix-vector product),
+through their kernels, linear models and RankBoost's weak rankers as a
+float64 matrix-vector product, CustomLTR's fixed score),
 scores every doc ``rounds`` times on the chosen device, and reports total, per-dataset and per-doc time.  On CUDA
 the features are uploaded once, one warm-up call builds the kernels, and
 the timed loop is bracketed by ``torch.cuda.synchronize()``.
@@ -53,6 +54,8 @@ def main(argv=None) -> int:
         "qs": "QuickScorer kernel (any depth)",
         "oblivious": "oblivious bit-OR kernel",
         "linear": "linear model (X @ w in float64)",
+        "rankboost": "RankBoost weak rankers (column gather, compare, float64 product)",
+        "custom": "fixed score",
     }[model.scorer_path()]
     print(f"#\t Scorer path: {path} on {device.type}")
 

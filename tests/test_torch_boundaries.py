@@ -673,3 +673,131 @@ def test_cleaver_on_card_goes_through_k1_partial(cuda_device):
                                                           verbose=False, device=dev))
     assert infos[0]["pruned"] == infos[1]["pruned"]
     assert abs(infos[0]["metric_after"] - infos[1]["metric_after"]) <= 1e-5
+
+
+def test_new_learner_entry_points_need_a_card():
+    """RankBoost, the sampling learners, RandomForest and CustomLTR raise
+    without a card unless the caller asks for the CPU."""
+    from quickrank_tpu_torch.learning import (
+        CustomLTR,
+        LambdaMartSelective,
+        RandomForest,
+        RankBoost,
+        StochasticNegative,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    train, _, _ = _small_folds()
+    rb = RankBoost(ntrees=2, nthresholds=16)
+    rb.learn(train, verbose=False, device="cpu")
+    calls = [lambda: RankBoost(ntrees=1).learn(train, verbose=False),
+             lambda: rb.score_dataset(train),
+             lambda: CustomLTR().score_dataset(train)]
+    calls += [lambda cls=cls: cls(ntrees=1, nleaves=4).learn(train, verbose=False)
+              for cls in (LambdaMartSelective, RandomForest, StochasticNegative)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1e-7, 1.0])
+def test_node_histogram_kernel_one_signed_channel_on_card(cuda_device, scale):
+    """K4 as RankBoost calls it: one signed channel (potentials of magnitude
+    ~1/S, summing to about 0), the docs of a mask, ``f_used`` below W.  Bit
+    for bit its fixed-point reference; within the rounding bound of the
+    scatter-add's float32 sums."""
+    from quickrank_tpu_torch.ops.histogram import masked_histogram_scatter, masked_histogram_t
+
+    binned, vt, _ = (torch.from_numpy(a) for a in _histogram_inputs(W=40))
+    mask = vt[0] > 0
+    pi = torch.where(mask, vt[1] - vt[1][mask].mean(), 0.0) * scale
+    dev = [t.to(cuda_device) for t in (binned, pi, mask)]
+    before = kernel_histogram.LAUNCHES["node_histogram"]
+    got = masked_histogram_t(dev[0], dev[1][None].contiguous(), dev[2], 256, f_used=33)
+    assert kernel_histogram.LAUNCHES["node_histogram"] == before + 1
+    pos = torch.where(mask, 0, 1).to(torch.int32)
+    fixed = kernel_histogram.node_histogram_fixed(binned, pi[None].contiguous(), pos, 256, 0, 1,
+                                                  33)
+    assert got.shape == (33, 256, 1) and torch.equal(got.cpu(), fixed)
+    plain, mass, terms = (masked_histogram_scatter(binned[:, :33], v[:, None], mask, 256)
+                          for v in (pi, pi.abs(), torch.ones_like(pi)))
+    _assert_within_sum_tolerance(got, plain, mass, terms,
+                                 kernel_histogram.rounding_error(pi[None]), slice(0, 0))
+
+
+@pytest.mark.gpu
+def test_rankboost_on_card_matches_cpu(cuda_device):
+    """RankBoost on the card: K4 once a round and two host reads a round;
+    the CPU run's first five weak rankers, its train NDCG@10 within 1e-3,
+    and scores within 1e-12 relative of the CPU's numpy product."""
+    from quickrank_tpu_torch.learning import RankBoost, rankboost
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, valid, test = _small_folds()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = kernel_histogram.LAUNCHES["node_histogram"]
+        rankboost.HOST_SYNCS = 0
+        rb = RankBoost(ntrees=8, nthresholds=64)
+        runs[dev] = (rb, rb.learn(train, valid, Ndcg(10), verbose=False, device=dev))
+        assert rankboost.HOST_SYNCS == 16
+        launched = kernel_histogram.LAUNCHES["node_histogram"] - before
+        assert launched == (8 if dev == "cuda" else 0)
+    (card, hk), (cpu, hc) = runs["cuda"], runs["cpu"]
+    np.testing.assert_array_equal(card.features_[:5], cpu.features_[:5])
+    np.testing.assert_array_equal(card.thetas_[:5], cpu.thetas_[:5])
+    assert abs(hk["train"][-1] - hc["train"][-1]) <= 1e-3
+    got, want = card.score_dataset(test, device="cuda"), card.score_dataset(test, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_samplers_on_card_match_cpu(cuda_device):
+    """The presence samplers on CUDA tensors give the CPU's masks from the
+    same generator state (the keys are drawn on the host), for every
+    Selective strategy with and without random extras and for
+    Stochastic-Negative."""
+    from quickrank_tpu_torch.learning.mart import TrainData
+    from quickrank_tpu_torch.learning.selective import select_presence
+    from quickrank_tpu_torch.learning.stochasticnegative import sample_presence
+
+    train, _, _ = _small_folds()
+    tds = {dev: TrainData.build(train, 64, device=dev) for dev in ("cuda", "cpu")}
+    N = tds["cpu"].padded.num_docs_padded
+    s = torch.from_numpy(np.random.default_rng(0).standard_normal(N).astype(np.float32))
+    for strategy in ("RATIO", "MUL", "POS"):
+        for rd in (0.0, 0.5):
+            got, want = (select_presence(s.to(dev), tds[dev].step, N, strategy, 0.4, rd,
+                                         torch.Generator().manual_seed(3))
+                         for dev in ("cuda", "cpu"))
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    got, want = (sample_presence(tds[dev].step, N, 0.3, torch.Generator().manual_seed(4))
+                 for dev in ("cuda", "cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["LambdaMartSelective", "RandomForest", "StochasticNegative"])
+def test_new_tree_learners_on_card_go_through_kernels(cuda_device, name):
+    """The tree learners of this slice train on the card through K4 and
+    K5, and the scores they carried are the model's kernel scores (within
+    the perfect-tree path's float32 sum against the Kahan carry)."""
+    from quickrank_tpu_torch import learning
+    from quickrank_tpu_torch.metrics import Ndcg
+
+    train, valid, _ = _small_folds()
+    kw = dict(ntrees=3, nleaves=16, nthresholds=64, seed=1)
+    kw.update({"LambdaMartSelective": dict(sampling_iterations=1, rank_sampling_factor=0.5,
+                                           random_sampling_factor=0.25),
+               "RandomForest": dict(subsample=0.6, max_features=0.5),
+               "StochasticNegative": dict(subsample=0.3)}[name])
+    before = dict(kernel_histogram.LAUNCHES)
+    m = getattr(learning, name)(**kw)
+    h = m.learn(train, None, Ndcg(10), verbose=False, device="cuda")
+    assert all(kernel_histogram.LAUNCHES[k] > before[k] for k in before)
+    assert np.isfinite(h["train"]).all()
+    carried = m.train_scores[: train.num_docs].cpu().numpy()
+    np.testing.assert_allclose(m.score_dataset(train, device="cuda"), carried, rtol=0,
+                               atol=1e-5 * max(1.0, float(np.abs(carried).max())))

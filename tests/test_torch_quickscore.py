@@ -85,11 +85,27 @@ def test_quickscore_matches_jax(files, name, capsys):
 
 
 def test_quickscore_refuses_unported_type(files, capsys):
+    """Every ranker type the JAX package writes is served now: a RankBoost
+    model scores its weak rankers (quickscore's -s equals score_dataset);
+    a type neither package knows is refused."""
+    from quickrank_tpu_torch.learning import RankBoost
+
     svml, models, d = files
-    bad = d / "rankboost.xml"
+    rb = RankBoost(ntrees=3)
+    rb.best_T, rb.features_ = 2, np.asarray([0, 5], np.int32)
+    rb.thetas_ = np.asarray([0.0, -0.5], np.float32)
+    rb.signs_, rb.alphas_ = np.ones(2, np.int32), np.asarray([0.75, 0.25], np.float32)
+    rb.save(str(d / "rankboost.xml"))
+    out = d / "rankboost.scores"
+    assert quickscore.main(["-d", svml, "-m", str(d / "rankboost.xml"), "-r", "1",
+                            "--device", "cpu", "-s", str(out)]) == 0
+    assert "Scorer path: RankBoost weak rankers" in capsys.readouterr().out
+    want = rb.score_dataset(read_svml(svml), device="cpu")
+    np.testing.assert_allclose(np.loadtxt(out), want, rtol=1e-14, atol=0)
+    bad = d / "nosuch.xml"
     with open(models["balanced"]) as f:
-        bad.write_text(f.read().replace("<type>LAMBDAMART</type>", "<type>RANKBOOST</type>"))
-    with pytest.raises(NotImplementedError):
+        bad.write_text(f.read().replace("<type>LAMBDAMART</type>", "<type>NOSUCH</type>"))
+    with pytest.raises(ValueError, match="unknown ranker type"):
         quickscore.main(["-d", svml, "-m", str(bad), "--device", "cpu"])
 
 

@@ -88,18 +88,39 @@ def test_port_saved_model_loads_in_jax(tmp_path, name):
 
 
 def test_unported_types_raise_not_implemented(tmp_path):
-    m = Mart()
-    m.ensemble = random_ensemble.random_balanced_ensemble(2, 2, 3)
-    path = tmp_path / "m.xml"
-    m.save(str(path))
-    text = path.read_text()
-    for other in ("CUSTOM", "RANDOMFOREST", "RANKBOOST"):
-        path.write_text(text.replace("<type>MART</type>", f"<type>{other}</type>"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            xml_model.load_model(str(path))
-    path.write_text(text.replace("<type>MART</type>", "<type>NOSUCH</type>"))
+    """Every ranker type the JAX package writes is ported now: XML models
+    the JAX package saved as CUSTOM, RANDOMFOREST and RANKBOOST load in the
+    port as those learners, with the JAX model's fields; an unknown type
+    still raises ValueError."""
+    from quickrank_tpu.learning.custom import CustomLTR as JaxCustom
+    from quickrank_tpu.learning.randomforest import RandomForest as JaxRandomForest
+    from quickrank_tpu.learning.rankboost import RankBoost as JaxRankBoost
+    from quickrank_tpu_torch.learning import CustomLTR, RandomForest, RankBoost
+
+    path = str(tmp_path / "m.xml")
+    jrf = JaxRandomForest(ntrees=7, nleaves=4, subsample=0.6, max_features=0.5)
+    jrf.ensemble = jax_random.random_balanced_ensemble(2, 2, 3)
+    jax_xml.save_model(jrf, path)
+    rf = xml_model.load_model(path)
+    assert type(rf) is RandomForest and (rf.ntrees, rf.subsample, rf.max_features) == (
+        7, 0.6, 0.5)
+    _assert_same(rf.ensemble, _jax_fields(jax_xml.load_model(path).ensemble))
+    jrb = JaxRankBoost(ntrees=9)
+    jrb.best_T, jrb.features_ = 2, np.asarray([3, 0], np.int32)
+    jrb.thetas_ = np.asarray([0.25, -1.5], np.float32)
+    jrb.signs_, jrb.alphas_ = np.ones(2, np.int32), np.asarray([0.5, 0.125], np.float32)
+    jax_xml.save_model(jrb, path)
+    rb = xml_model.load_model(path)
+    assert type(rb) is RankBoost and (rb.T, rb.best_T) == (9, 2)
+    for name in ("features_", "thetas_", "signs_", "alphas_"):
+        np.testing.assert_array_equal(getattr(rb, name), getattr(jrb, name))
+    jax_xml.save_model(JaxCustom(), path)
+    assert type(xml_model.load_model(path)) is CustomLTR
+    text = open(path).read()
+    with open(path, "w") as f:
+        f.write(text.replace("<type>CUSTOM</type>", "<type>NOSUCH</type>"))
     with pytest.raises(ValueError, match="unknown ranker type"):
-        xml_model.load_model(str(path))
+        xml_model.load_model(path)
 
 
 def test_learn_is_not_ported():
