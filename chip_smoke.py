@@ -46,7 +46,14 @@ LambdaMART-Selective on the card against the CPU, RandomForest, Selective
 (RATIO, MUL, POS) and Stochastic-Negative at full width with their presence
 rules checked on the card, and quicklearn for all five, with quickscore on
 each saved model, the three C code generators (compiled and run) and
-``--trace``.  The
+``--trace``.  Query-sharded training (phases 31-34): the histogram kernels'
+group entry (int64 sums under a given fixed-point scale, and the conversion)
+bitwise against its plain version, two halves of the bin matrix summed as
+integers against one launch over all the docs, and K4's library call
+(``index_add_``) timed; two gloo ranks sharing the card against a one-rank
+group and the unsharded run for the four growers (spawned ranks,
+``parallel/launch.py``); a one-rank NCCL group; and ``--num-shards`` in
+quicklearn and quickscore.  The
 wrappers' launch
 counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
@@ -1899,6 +1906,257 @@ def main() -> int:
               f"{kernels} of them the card's kernels")
         require(len(events) > 0, "--trace wrote no events")
 
+    # -- phase 31: the histogram kernels under a common scale -------------------
+    from quickrank_tpu_torch.parallel import launch, mesh, workers
+
+    kh = kernel_histogram
+    t0 = time.perf_counter()
+    td = TrainData.build(train_ds, 255, device=dev)
+    binned = td.step.binned
+    N, W = binned.shape
+    n_real = int(td.step.doc_mask.sum())
+    phase(f"31: K4 and K5 under a given scale (int64 sums, then the conversion: the "
+          f"group's entry) on {N} x {W} u8 bins, scale count {n_real}; binning "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cpu").manual_seed(5)  # phase 5's draws
+    g = torch.randn(N, generator=gen).to(dev)
+    vt = doc_channels(g, td.step.doc_mask).T.contiguous()
+    pos_root = torch.where(td.step.doc_mask, 0, 1).to(torch.int32)
+    pos16 = torch.randint(0, 16, (N,), generator=gen, dtype=torch.int32).to(dev)
+    halves = (slice(0, N // 2), slice(N // 2, N))
+    for label, v, pos, k in (("K4 root, C=3, k=1", vt, pos_root, 1),
+                             ("K4 C=2, k=16", vt[:2].contiguous(), pos16, 16)):
+        bits = kh.channel_max_bits(v)
+        whole = kh.node_histogram_int(binned, v, pos, 256, 0, k, bits, n_real)
+        require(torch.equal(whole, kh.node_histogram_fixed_int(binned, v, pos, 256, 0, k,
+                                                               bits, n_real)),
+                f"{label}: the int64 entry differs from node_histogram_fixed_int")
+        parts = [kh.node_histogram_int(binned[sl].contiguous(), v[:, sl].contiguous(),
+                                       pos[sl].contiguous(), 256, 0, k, bits, n_real)
+                 for sl in halves]
+        require(torch.equal(parts[0] + parts[1], whole),
+                f"{label}: the halves' int64 sums differ from the whole's")
+        require(torch.equal(kh.to_float(whole, bits, n_real),
+                            kh.fixed_to_float(whole, bits, n_real)),
+                f"{label}: the conversion differs from fixed_to_float")
+        print(f"  {label}: int64 sums bitwise node_histogram_fixed_int; halves + "
+              f"halves == whole; conversion bitwise fixed_to_float")
+    slots = torch.randint(0, 32, (N, 1), generator=gen, dtype=torch.int32).to(dev)
+    vals = torch.stack([g, torch.rand(N, generator=gen).to(dev)], dim=-1).contiguous()
+    bits5 = kh.channel_max_bits(vals.T)
+    k5 = kh.histogram_int(slots, vals, 32, bits5, n_real)
+    require(torch.equal(k5, kh.node_histogram_fixed_int(slots, vals.T.contiguous(), None, 32,
+                                                        0, 1, bits5, n_real)),
+            "K5's int64 entry differs from node_histogram_fixed_int")
+    k5_parts = [kh.histogram_int(slots[sl].contiguous(), vals[sl].contiguous(), 32, bits5,
+                                 n_real) for sl in halves]
+    require(torch.equal(k5_parts[0] + k5_parts[1], k5), "K5: halves' sums differ")
+    print("  K5 32 slots, C=2: int64 sums bitwise their plain version; halves sum to them")
+    bits = kh.channel_max_bits(vt)
+    acc = kh.node_histogram_int(binned, vt, pos_root, 256, 0, 1, bits, n_real)
+    fixed_ms = time_ms(lambda: kh.node_histogram_int(binned, vt, pos_root, 256, 0, 1, bits,
+                                                     n_real), reps=20)
+    fixed_plain_ms = time_ms(lambda: kh.node_histogram_fixed_int(
+        binned, vt, pos_root, 256, 0, 1, bits, n_real), reps=3)
+    conv_ms = time_ms(lambda: kh.to_float(acc, bits, n_real), reps=20)
+    conv_plain_ms = time_ms(lambda: kh.fixed_to_float(acc, bits, n_real), reps=3)
+    conv_err = float((kh.to_float(acc, bits, n_real)
+                      - kh.fixed_to_float(acc, bits, n_real)).abs().max())
+    fixed_bound = bound_ms(n_real * W + nbytes_of(vt, pos_root, bits) + acc.numel() * 8,
+                           n_real * W * 3)
+    conv_bound = bound_ms(acc.numel() * (8 + 4) + nbytes_of(bits), acc.numel())
+    # K4's one library call: index_add_ with the flat (feature, bin, node)
+    # index of every (doc, feature) of the root given; timed, never used
+    rows = td.step.doc_mask.nonzero()[:, 0]
+    flat = (torch.arange(W, device=dev)[None, :] * 256 + binned[rows].long()).reshape(-1)
+    vals4 = vt[:, rows].T[:, None, :].expand(-1, W, -1).reshape(-1, 3)
+    k4_library = time_ms(
+        lambda: torch.zeros((W * 256, 3), device=dev).index_add_(0, flat, vals4), reps=3)
+    lib = torch.zeros((W * 256, 3), device=dev).index_add_(0, flat, vals4).reshape(W, 256, 3)
+    k4_root = kh.node_histogram(binned, vt, pos_root, 256, 0, 1)
+    mass = torch.zeros((W * 256, 3), device=dev).index_add_(0, flat, vals4.abs()).reshape(
+        W, 256, 3)
+    # float32 atomics in any order: within (t - 1) 2^-24 sum|v| of the exact
+    # sum for a bin of t docs, and the kernel far closer than that
+    terms = lib[..., :1]
+    require(torch.equal(lib[..., 0], k4_root[..., 0])
+            and bool(((lib - k4_root).abs() <= terms * 2.0 ** -23 * mass + 1e-6).all()),
+            "K4: index_add_ disagrees with the kernel")
+    print(f"  ms per call on {card}: K4's int64 sums (root, scale given) {fixed_ms:.4f} / "
+          f"plain {fixed_plain_ms:.4f}; conversion {conv_ms:.4f} / plain {conv_plain_ms:.4f}; "
+          f"K4 whole (its own scale, sums, conversion) "
+          f"{k4_times['256 bins, k=1 (root)'][0]:.4f} (phase 5); K4's library call "
+          f"(index_add_, flat index given) {k4_library:.4f}")
+    print(f"  bounds: int64 sums {fixed_bound[0]:.4f} ms by {fixed_bound[1]}, conversion "
+          f"{conv_bound[0]:.4f} ms by {conv_bound[1]}")
+    del td, binned, g, vt, pos_root, pos16, slots, vals, acc, rows, flat, vals4, lib, mass
+    del k4_root, whole, parts, k5, k5_parts
+    torch.cuda.empty_cache()
+
+    # -- phase 32: two gloo ranks on the one card against one -------------------
+    phase(f"32: query-sharded LambdaMART, 2 gloo ranks on the one card against 1, "
+          f"best@255, bestk@255, level@255, oblivious@255, 4 trees at "
+          f"{train_ds.num_queries} + {valid_ds.num_queries} queries")
+    growers32 = {
+        "best": ("LambdaMart", dict(growth="best")),
+        "bestk": ("LambdaMart", dict(growth="bestk")),
+        "level": ("LambdaMart", dict(growth="level", max_depth=4)),
+        "oblivious": ("ObliviousLambdaMart", dict(treedepth=4)),
+    }
+    ntrees32 = 4
+    data_dir = tempfile.mkdtemp(prefix="qr_smoke_")
+    try:
+        t0 = time.perf_counter()
+        specs = {}
+        train_npz = workers.save_dataset(train_ds, os.path.join(data_dir, "train.npz"))
+        valid_npz = workers.save_dataset(valid_ds, os.path.join(data_dir, "valid.npz"))
+        for gname, (learner, kw) in growers32.items():
+            kw = dict(kw, ntrees=ntrees32, nthresholds=255, seed=1, esr=100)
+            if learner == "LambdaMart":
+                kw["nleaves"] = 16
+            specs[gname] = dict(learner=learner, kwargs=kw, train=train_npz, valid=valid_npz)
+        jobs1 = [j for s32 in specs.values()
+                 for j in (("train_rank", dict(s32, grouped=False)), ("train_rank", s32))]
+        one = launch.run_ranks(workers.batch_rank, 1, args=(jobs1,), device="cuda",
+                               backend="gloo", deadline=600)[0]
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = launch.run_ranks(workers.batch_rank, 2, args=(list(
+            ("train_rank", s32) for s32 in specs.values()),), device="cuda", backend="gloo",
+            deadline=600)
+        t_two = time.perf_counter() - t0
+        print(f"  launches: 1 rank {t_one:.1f} s (data written, loaded and binned, each "
+              f"grower unsharded and as a 1-rank group), 2 ranks {t_two:.1f} s")
+        group_launches = dict.fromkeys(kernel_histogram.LAUNCHES, 0)
+        for i, gname in enumerate(growers32):
+            solo, grp = one[2 * i], one[2 * i + 1]
+            pair = [r[i] for r in two]
+            for k, v in pair[0]["trees"].items():
+                require(np.array_equal(v, pair[1]["trees"][k]),
+                        f"{gname}: the two ranks hold different {k}")
+                require(np.array_equal(v, grp["trees"][k]),
+                        f"{gname}: 2 ranks' {k} differ from the 1-rank group's")
+            d_tr = float(np.abs(np.subtract(pair[0]["history"]["train"],
+                                            grp["history"]["train"])).max())
+            require(d_tr <= 1e-6, f"{gname}: 2 ranks' train NDCG@10 off by {d_tr}")
+            root = [(int(r["trees"]["feature"][0, 0]), int(r["trees"]["threshold_bin"][0, 0]))
+                    for r in (grp, solo)]
+            d_solo = float(np.abs(np.subtract(grp["history"]["train"],
+                                              solo["history"]["train"])).max())
+            require(root[0] == root[1], f"{gname}: the group's root split differs")
+            require(d_solo <= 1e-3, f"{gname}: group and unsharded NDCG@10 off by {d_solo}")
+            same = all(np.array_equal(v, solo["trees"][k]) for k, v in grp["trees"].items())
+            for r in [grp] + pair:
+                for k in group_launches:
+                    group_launches[k] += r["launches"][k]
+            c1, c2 = grp["collectives"], pair[0]["collectives"]
+            s_grp = float(np.median(grp["history"]["iter_seconds"][2:]))
+            s_solo = float(np.median(solo["history"]["iter_seconds"][2:]))
+            s_pair = float(np.median(pair[0]["history"]["iter_seconds"][2:]))
+            print(f"  {gname}@255: 2 ranks = 1-rank group node for node, leaf values bitwise, "
+                  f"train NDCG@10 within {d_tr:.3g}; 1-rank group vs unsharded: root {root[0]}, "
+                  f"NDCG@10 within {d_solo:.3g}, trees bitwise equal: {same}")
+            print(f"    collectives a tree (rank 0): 1 rank {c1['calls'] / ntrees32:.1f} calls, "
+                  f"{c1['bytes'] / ntrees32 / 1e6:.3f} MB, {c1['seconds'] * 1e3 / ntrees32:.3f} "
+                  f"ms; 2 ranks {c2['calls'] / ntrees32:.1f} calls, "
+                  f"{c2['bytes'] / ntrees32 / 1e6:.3f} MB, {c2['seconds'] * 1e3 / ntrees32:.3f} ms")
+            print(f"    s/tree (median of iterations 2+): unsharded {s_solo:.4f}, 1-rank group "
+                  f"{s_grp:.4f} ({s_grp / s_solo:.2f}x), 2 ranks sharing the card {s_pair:.4f}; "
+                  f"train NDCG@10 {[round(x, 5) for x in grp['history']['train']]}")
+        print(f"  histogram launches in the group runs (every rank): {group_launches}")
+        require(all(v > 0 for v in group_launches.values()),
+                f"a kernel of the group path was not launched: {group_launches}")
+
+        # -- phase 33: NCCL --------------------------------------------------------
+        phase("33: a 1-rank NCCL group trains LambdaMART best@255, 4 trees, against "
+              "phase 32's 1-rank gloo group")
+        nccl = launch.run_ranks(workers.batch_rank, 1, args=([("train_rank", specs["best"])],),
+                                device="cuda", deadline=600)[0][0]
+        for k, v in one[1]["trees"].items():
+            require(np.array_equal(v, nccl["trees"][k]), f"NCCL: {k} differs from gloo's")
+        require(nccl["history"]["train"] == one[1]["history"]["train"],
+                "NCCL: train NDCG@10 differs from gloo's")
+        s_nccl = float(np.median(nccl["history"]["iter_seconds"][2:]))
+        s_gloo = float(np.median(one[1]["history"]["iter_seconds"][2:]))
+        s_solo = float(np.median(one[0]["history"]["iter_seconds"][2:]))
+        print(f"  the NCCL group's trees and train NDCG@10 equal the gloo group's; collectives "
+              f"a tree {nccl['collectives']['calls'] / ntrees32:.1f} calls, "
+              f"{nccl['collectives']['bytes'] / ntrees32 / 1e6:.3f} MB, "
+              f"{nccl['collectives']['seconds'] * 1e3 / ntrees32:.3f} ms of host time (the "
+              f"enqueue); s/tree NCCL {s_nccl:.4f}, gloo {s_gloo:.4f}, unsharded {s_solo:.4f} "
+              f"(phase 32, the same card)")
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            duo = launch.run_ranks(workers.batch_rank, 2, args=(
+                [("train_rank", specs["best"])],), device="cuda", deadline=600)
+            for k, v in one[1]["trees"].items():
+                require(all(np.array_equal(v, r[0]["trees"][k]) for r in duo),
+                        f"2 NCCL ranks on 2 cards: {k} differs from 1 rank's")
+            print(f"  2 NCCL ranks on 2 of the {cards} cards equal 1 rank node for node; "
+                  f"s/tree {float(np.median(duo[0][0]['history']['iter_seconds'][2:])):.4f}")
+        else:
+            print(f"  SKIPPED: 2 NCCL ranks on 2 cards, since this machine has {cards} CUDA "
+                  "device and NCCL refuses two ranks on one card")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # -- phase 34: --num-shards in the two CLIs ----------------------------------
+    phase("34: quicklearn --num-shards 1 and quickscore --num-shards 1 on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds34 = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+                                    num_features=N_FEATURES, seed=0)
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        write_svml(ds34, svml)
+        n_pad = -(-(ds34.num_docs + 1) // 1024) * 1024
+        models = {}
+        for tag, flag in (("plain", []), ("shards1", ["--num-shards", "1"])):
+            models[tag] = os.path.join(tmp, f"{tag}.xml")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["--algo", "LAMBDAMART", "--train", svml, "--test", svml,
+                               "--num-trees", "4", "--num-leaves", "16", "--partial", "0",
+                               "--quiet", "--model-out", models[tag], "--scores",
+                               os.path.join(tmp, f"{tag}.scores")] + flag)
+            require(rc == 0, f"quicklearn {' '.join(flag)}: exit {rc}")
+        a, b = (LTRAlgorithm.load(models[t]).ensemble.numpy() for t in ("plain", "shards1"))
+        require(all(np.array_equal(a[k], b[k]) for k in a),
+                "quicklearn --num-shards 1: its model differs from the no-flag run's")
+        got, want = (np.loadtxt(os.path.join(tmp, f"{t}.scores")) for t in ("shards1", "plain"))
+        require(np.array_equal(got, want), "quicklearn --num-shards 1: test scores differ")
+        print(f"  quicklearn --num-shards 1 (one NCCL rank) saved the no-flag run's model and "
+              f"test scores bit for bit ({ds34.num_docs} real docs and {n_pad} padded rows, "
+              f"both of bit length {ds34.num_docs.bit_length()} / {n_pad.bit_length()}: the "
+              f"same fixed-point scale)")
+        outs = {}
+        for tag, flag in (("plain", []), ("shards1", ["--num-shards", "1"])):
+            outs[tag] = os.path.join(tmp, f"qs.{tag}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = quickscore.main(["-d", svml, "-m", models["plain"], "-r", "3", "-s",
+                                      outs[tag]] + flag)
+            require(rc == 0, f"quickscore {' '.join(flag)}: exit {rc}")
+        require(np.array_equal(np.loadtxt(outs["plain"]), np.loadtxt(outs["shards1"])),
+                "quickscore --num-shards 1 differs from quickscore")
+        print("  quickscore --num-shards 1 writes quickscore's scores bit for bit")
+        cards = torch.cuda.device_count()
+        two_args = ["--algo", "LAMBDAMART", "--train", svml, "--num-trees", "2", "--quiet",
+                    "--partial", "0", "--num-shards", "2"]
+        if cards < 2:
+            try:
+                cli.main(two_args)
+                require(False, "quicklearn --num-shards 2 ran on one card")
+            except ValueError as e:
+                require(f"{cards} are visible" in str(e), f"unexpected refusal: {e}")
+                print(f"  quicklearn --num-shards 2 on {cards} card raises: {e}")
+            try:
+                quickscore.main(["-d", svml, "-m", models["plain"], "--num-shards", "2"])
+                require(False, "quickscore --num-shards 2 ran on one card")
+            except ValueError as e:
+                require(f"{cards} are visible" in str(e), f"unexpected refusal: {e}")
+                print(f"  quickscore --num-shards 2 on {cards} card raises: {e}")
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                require(cli.main(two_args) == 0, "quicklearn --num-shards 2 failed")
+            print(f"  quicklearn --num-shards 2 trained on 2 of the {cards} cards")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -1913,12 +2171,16 @@ def main() -> int:
             launches["perfect_score"], pf_err, *times[("perfect", 1000, 4)], pf_bound),
         row("oblivious_score", "oblivious_score.cu", "pallas_oblivious.py:100", k3_launches,
             obl_err, *obl_times[(1000, 4)], obl_bound),
+        # launches: the training runs of phase 7, RankBoost's (phase 27) and
+        # the group runs of phase 32 (every rank)
         row("node_histogram", "histogram.cu", "pallas_histogram.py:183",
-            train_launches["node_histogram"] + rb_launches["node_histogram"],
-            hist_err["node_histogram"], *k4_times["256 bins, k=1 (root)"], k4_bound),
+            train_launches["node_histogram"] + rb_launches["node_histogram"]
+            + group_launches["node_histogram"],
+            hist_err["node_histogram"], *k4_times["256 bins, k=1 (root)"], k4_bound,
+            library_ms=k4_library),
         row("histogram", "histogram.cu", "pallas_histogram.py:278",
-            train_launches["histogram"], hist_err["histogram"], *k5_times, k5_bound,
-            library_ms=k5_library),
+            train_launches["histogram"] + group_launches["histogram"], hist_err["histogram"],
+            *k5_times, k5_bound, library_ms=k5_library),
         # the largest byte difference over the three directive sets; no
         # single PyTorch call computes the function (the row scatter alone is
         # printed by phase 13)
@@ -1929,6 +2191,13 @@ def main() -> int:
         # extraction's blocks (phase 25)
         row("qs_partial", "qs_score.cu", "pallas_qs.py:100", cleaver_partial_launches,
             partial_err, partial_ms, partial_plain_ms, partial_bound),
+        # K4's and K5's conversion of the int64 sums, a launch of its own
+        # since the group's ranks add their sums before it; timed on K4's
+        # root pass (phase 31)
+        row("histogram_to_float", "histogram.cu", "pallas_histogram.py:183",
+            train_launches["histogram_to_float"] + rb_launches["histogram_to_float"]
+            + group_launches["histogram_to_float"], conv_err, conv_ms, conv_plain_ms,
+            conv_bound),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "

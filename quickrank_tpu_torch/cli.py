@@ -7,6 +7,7 @@ optimization, testing and code generation.  Every flag is parsed; those whose
 modules are not ported yet raise in ``driver.run``, naming their ROADMAP.md item.
 ``--device`` (cuda or cpu, default cuda) takes the place of ``--platform``:
 without a CUDA device ``--device cuda`` is an error, never a CPU run.
+``--num-shards N`` trains in N ranks (``driver.run``).
 
 Run as ``python -m quickrank_tpu_torch.cli --help``.
 """
@@ -43,13 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restart training from a previous partial model")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--num-shards", type=int, default=0,
-                   help="shard queries over this many devices (0 = single)")
+                   help="train query-sharded in this many ranks, one a "
+                        "device (NCCL, a card a rank; gloo ranks on the CPU "
+                        "with --device cpu); rank 0 writes the model "
+                        "(0 = one process)")
     g.add_argument("--num-feat-shards", type=int, default=0,
                    help="also shard the histogram/split-scan feature axis "
-                        "over this many devices (2-D data x feature mesh; "
-                        "total devices = num-shards x num-feat-shards; see "
-                        "PARITY.md known exclusions for unsupported "
-                        "algorithm combinations)")
+                        "(2-D data x feature mesh; not ported yet)")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="training and scoring device; cuda without a CUDA "
                         "device is an error")

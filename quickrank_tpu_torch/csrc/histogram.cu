@@ -60,6 +60,19 @@
 // is the old doc-a-lane mapping over the dense list.  The kernel is
 // compiled for each channel count, so a doc's values stay in registers.
 //
+// The scale is an input.  A launch takes the channels' max-bits words and
+// the doc count n of the scale, writes the int64 accumulator, and
+// histogram_to_float converts it with the same bits and n: one entry for a
+// single device (the launch's own max |value| and row count, which
+// ops/kernel_histogram.py computes) and for query sharding, where every rank
+// holds a shard of the docs and the ranks must sum each bin as one launch
+// over all the docs would.  There the bits are the ranks' all-reduced max
+// and n the real docs over all ranks (pad rows carry zeros, so that count
+// bounds every sum); the ranks add their accumulators as integers before
+// the conversion.  Integer adds are exact and order-free, so the reduced
+// histogram is bit for bit that of one rank over all the docs, and no
+// partial sum of real values reaches 2^62 (no wrap).
+//
 // A cell is two 32-bit words kept in two arrays (low words, high words)
 // with a feature's words padded to 1 mod 32, so lanes on different
 // features with equal bins fall into different banks, and all 32 banks
@@ -135,26 +148,6 @@ __device__ __forceinline__ void add_doc(unsigned int* lo_cells, unsigned int* hi
     if (high[c] != 0u) atomicAdd(hi_cells + c, high[c]);
 }
 
-// max |v| per channel, as IEEE bits (they order like the values for
-// non-negative floats; NaN sorts above inf).  Max is order-free.
-__global__ void absmax_kernel(const float* __restrict__ values, int64_t n,
-                              int channels, int64_t stride_c, int64_t stride_n,
-                              unsigned int* __restrict__ maxbits) {
-  unsigned int local[kMaxChannels] = {0u};
-  for (int64_t d = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       d < n; d += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    for (int c = 0; c < channels; ++c) {
-      const unsigned int b = __float_as_uint(fabsf(values[c * stride_c + d * stride_n]));
-      local[c] = max(local[c], b);
-    }
-  }
-  for (int c = 0; c < channels; ++c) {
-    unsigned int v = local[c];
-    for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if ((threadIdx.x & 31) == 0 && v) atomicMax(maxbits + c, v);
-  }
-}
-
 // The dense list: docs of the block's node, with their values in fixed
 // point, channel-major so neighbouring ranks write neighbouring words.
 struct DocList {
@@ -199,7 +192,7 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
                  int features, int log2_fpb, int cell_stride,
                  const float* __restrict__ values, int64_t stride_c, int64_t stride_n,
                  const int32_t* __restrict__ pos, int n0, int k, int num_bins,
-                 const unsigned int* __restrict__ maxbits,
+                 const unsigned int* __restrict__ maxbits, int64_t n_scale,
                  unsigned long long* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int fpb = 1 << log2_fpb;           // features a block
@@ -221,7 +214,7 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
   const int f0 = blockIdx.x << log2_fpb;
   const int node = blockIdx.y;
   for (int i = tid; i < 2 * ncells; i += blockDim.x) s_lo[i] = 0u;
-  if (tid < C) s_scale[tid] = ldexp(1.0, channel_shift(maxbits[tid], n));
+  if (tid < C) s_scale[tid] = ldexp(1.0, channel_shift(maxbits[tid], n_scale));
   __syncthreads();
   double scale[C];
 #pragma unroll
@@ -362,12 +355,13 @@ inline size_t smem_bytes(int threads, int log2_fpb, int num_bins, int channels) 
          (static_cast<size_t>(8) << log2_fpb) * cell_stride_of(num_bins, channels) + 256;
 }
 
+// n_scale: the doc count of the fixed-point scale; acc is left unconverted
 template <typename BinT, int C>
 cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
                    const float* values, int64_t stride_c, int64_t stride_n,
                    const int32_t* pos, int n0, int k, int num_bins,
-                   unsigned int* maxbits, unsigned long long* acc, float* out,
-                   cudaStream_t stream) {
+                   const unsigned int* maxbits, int64_t n_scale,
+                   unsigned long long* acc, cudaStream_t stream) {
   if (n > 0xffffffffll) return cudaErrorInvalidValue;  // the list's doc indices
   // features a block: the most, up to a warp's 32, whose cells fit beside
   // the doc list of at least 256 threads
@@ -383,19 +377,13 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
   // several blocks an SM where they fit: 512 threads each
   if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
   const size_t smem = smem_bytes(threads, log2_fpb, num_bins, C);
-  const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * C;
 
-  cudaError_t err = cudaSuccess;  // the caller has cleared maxbits and acc
+  cudaError_t err = cudaSuccess;  // the caller has cleared acc
   if (n > 0) {
     int device = 0, sms = 0;
     err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    const int64_t max_blocks = (n + 511) / 512;
-    absmax_kernel<<<static_cast<unsigned int>(std::min<int64_t>(max_blocks, 4 * sms)),
-                    512, 0, stream>>>(values, n, C, stride_c, stride_n, maxbits);
-    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
     auto kernel = histogram_kernel<BinT, C>;
@@ -426,15 +414,10 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
                     static_cast<unsigned int>(splits));
     kernel<<<grid, threads, smem, stream>>>(
         binned, n, width, features, log2_fpb, cell_stride_of(num_bins, C), values, stride_c,
-        stride_n, pos, n0, k, num_bins, maxbits, acc);
+        stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
   }
-  if (ncells > 0) {
-    to_float_kernel<<<static_cast<unsigned int>((ncells + 255) / 256), 256, 0,
-                      stream>>>(acc, ncells, C, n, maxbits, out);
-  }
-  return cudaGetLastError();
+  return err;
 }
 
 // the kernel is compiled for each channel count, so a doc's values stay in
@@ -443,12 +426,12 @@ template <typename BinT>
 cudaError_t launch_channels(int channels, const BinT* binned, int64_t n, int64_t width,
                             int features, const float* values, int64_t stride_c,
                             int64_t stride_n, const int32_t* pos, int n0, int k,
-                            int num_bins, unsigned int* maxbits,
-                            unsigned long long* acc, float* out, cudaStream_t stream) {
+                            int num_bins, const unsigned int* maxbits, int64_t n_scale,
+                            unsigned long long* acc, cudaStream_t stream) {
 #define QR_CASE(C)                                                                       \
   case C:                                                                                \
     return launch<BinT, C>(binned, n, width, features, values, stride_c, stride_n, pos,  \
-                           n0, k, num_bins, maxbits, acc, out, stream)
+                           n0, k, num_bins, maxbits, n_scale, acc, stream)
   switch (channels) {
     QR_CASE(1);
     QR_CASE(2);
@@ -464,40 +447,57 @@ cudaError_t launch_channels(int channels, const BinT* binned, int64_t n, int64_t
 #undef QR_CASE
 }
 
+bool bad_shape(int channels, int k, int num_bins, int features, int64_t width) {
+  return channels < 1 || channels > kMaxChannels || k < 1 || num_bins < 1 ||
+         features < 1 || features > width;
+}
+
 }  // namespace
 
-// hist[f, b, i*C + c] = sum over docs d with pos[d] == n0 + i (every doc,
-// i = 0, when pos is null) of values[c * stride_c + d * stride_n] where
-// binned[d * width + f] == b, for f < features, b < num_bins, i < k.
-// binned holds bin_bytes-wide ids (1: uint8, 4: int32).  scratch is 64-bit
-// words [features * num_bins * k * C + 4]: the accumulator, then the
-// channels' largest |value| bits; one memset clears both.  out is float32
-// of the accumulator's size.  Launches on `stream`; returns the first CUDA
-// error.
+// acc[f, b, i*C + c] = the fixed-point sum over docs d with pos[d] == n0 + i
+// (every doc, i = 0, when pos is null) of values[c * stride_c + d * stride_n]
+// where binned[d * width + f] == b, for f < features, b < num_bins, i < k,
+// each value scaled by its channel's power of two from maxbits[c] (the
+// largest |value| bits of channel c) and n_scale (the doc count of the
+// scale).  binned holds bin_bytes-wide ids (1: uint8, 4: int32).  acc is
+// int64 [features * num_bins * k * C], cleared first; histogram_to_float
+// converts it.  Launches on `stream`; returns the first CUDA error.
 extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
-                                int64_t width, int features,
-                                const float* values, int channels,
-                                int64_t stride_c, int64_t stride_n,
+                                int64_t width, int features, const float* values,
+                                int channels, int64_t stride_c, int64_t stride_n,
                                 const int32_t* pos, int n0, int k, int num_bins,
-                                unsigned long long* scratch, float* out,
-                                void* stream) {
-  if (channels < 1 || channels > kMaxChannels || k < 1 || num_bins < 1 ||
-      features < 1 || features > width)
+                                const unsigned int* maxbits, int64_t n_scale,
+                                unsigned long long* acc, void* stream) {
+  if (bad_shape(channels, k, num_bins, features, width) || n_scale < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * channels;
-  unsigned int* maxbits = reinterpret_cast<unsigned int*>(scratch + ncells);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (ncells + 4), s);
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * ncells, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bin_bytes == 1)
-    err = launch_channels(channels, static_cast<const uint8_t*>(binned), n, width,
-                          features, values, stride_c, stride_n, pos, n0, k, num_bins,
-                          maxbits, scratch, out, s);
+    err = launch_channels(channels, static_cast<const uint8_t*>(binned), n, width, features,
+                          values, stride_c, stride_n, pos, n0, k, num_bins, maxbits,
+                          n_scale, acc, s);
   else if (bin_bytes == 4)
-    err = launch_channels(channels, static_cast<const int32_t*>(binned), n, width,
-                          features, values, stride_c, stride_n, pos, n0, k, num_bins,
-                          maxbits, scratch, out, s);
+    err = launch_channels(channels, static_cast<const int32_t*>(binned), n, width, features,
+                          values, stride_c, stride_n, pos, n0, k, num_bins, maxbits,
+                          n_scale, acc, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// out[i] = float(double(acc[i]) / scale of channel i % channels), the scale
+// from maxbits and n_scale as histogram_launch took it; NaN where the
+// channel's max bits are non-finite.
+extern "C" int histogram_to_float(const unsigned long long* acc, int64_t ncells,
+                                  int channels, const unsigned int* maxbits,
+                                  int64_t n_scale, float* out, void* stream) {
+  if (channels < 1 || channels > kMaxChannels || ncells < 0 || n_scale < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ncells == 0) return 0;
+  to_float_kernel<<<static_cast<unsigned int>((ncells + 255) / 256), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(acc, ncells, channels, n_scale,
+                                                         maxbits, out);
+  return static_cast<int>(cudaGetLastError());
 }

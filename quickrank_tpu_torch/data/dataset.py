@@ -7,8 +7,10 @@ Docs live in one flat ``[num_docs_padded]`` axis, queries contiguous, and
 ``pad_index`` turns flat per-doc arrays into ``[num_queries, max_docs]``
 views with a validity mask.  The JAX package's sort-based ``scatter_padded``
 (a TPU workaround for slow gathers) is not carried over: ``gather_padded``
-gives the same view bit for bit.  Sharding over several devices is ROADMAP.md
-§A item 10."""
+gives the same view bit for bit.  ``shard_and_pad(ds, num_shards)`` packs
+the queries into equal per-shard blocks exactly as the JAX package does; a
+rank of a query-sharded group (``parallel/mesh.py``) lays out its own block
+alone (``block=rank``), which is that layout's slice."""
 
 from __future__ import annotations
 
@@ -112,22 +114,28 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class PaddedDataset:
-    """One-shard padded layout, the JAX package's ``PaddedDataset`` with
-    ``num_shards = 1``.  Tensors are CPU torch tensors; callers move what
+    """The padded layout (the JAX package's ``PaddedDataset``): ``S``
+    shard blocks of equal size stacked on the doc and query axes, or one
+    shard's block alone.  Tensors are CPU torch tensors; callers move what
     they need to their device.
 
-      features   f32 numpy ``[num_docs_padded, F]`` (padding rows zero)
-      labels     f32 ``[num_docs_padded]``
-      doc_mask   bool ``[num_docs_padded]`` (False on padding rows)
-      pad_index  int64 ``[Q, max_docs]``: row of each (query, slot);
-                 padding slots point at the last (dummy) row
-      slot_mask  bool ``[Q, max_docs]``;  query_mask bool ``[Q]``
-      nvalid     int32 ``[Q]`` docs per query
-      orig_index int64 ``[num_docs_padded]`` dataset row of each padded row
-                 (-1 on padding rows)
-      inv_q, inv_slot  int64 ``[num_docs_padded]`` query and slot of each
-                 row (0 on padding rows; gate with doc_mask)
-    """
+      features   f32 numpy ``[S * docs_per_shard, F]`` (padding rows zero)
+      labels     f32 ``[S * docs_per_shard]``
+      doc_mask   bool ``[S * docs_per_shard]`` (False on padding rows)
+      pad_index  int64 ``[S * queries_per_shard, max_docs]``: row of each
+                 (query, slot) inside its shard's block; padding slots point
+                 at the block's last (dummy) row
+      slot_mask  bool ``[S * Q_s, max_docs]``;  query_mask bool ``[S * Q_s]``
+                 (False on padding queries)
+      nvalid     int32 ``[S * Q_s]`` docs per query (0 on padding queries)
+      orig_index int64 ``[S * docs_per_shard]`` dataset row of each padded
+                 row (-1 on padding rows)
+      inv_q, inv_slot  int64 ``[S * docs_per_shard]`` query (inside its
+                 block) and slot of each row (0 on padding rows; gate with
+                 doc_mask)
+
+    With one block the indices are the flat layout's own.  JAX holds the
+    index arrays in int32; torch indexes with int64, values equal."""
 
     features: np.ndarray
     labels: torch.Tensor
@@ -140,6 +148,31 @@ class PaddedDataset:
     inv_q: torch.Tensor
     inv_slot: torch.Tensor
     num_docs_padded: int
+    num_shards: int = 1
+    docs_per_shard: int = 0
+    queries_per_shard: int = 0
+    max_docs: int = 0
+
+
+def assign_queries_to_shards(doc_counts: np.ndarray, num_shards: int) -> list:
+    """Contiguous groups of queries, one a shard, with roughly equal doc
+    counts (queries keep their order and never straddle shards; JAX
+    dataset.py:186)."""
+    total = int(doc_counts.sum())
+    target = total / num_shards
+    groups: list = []
+    cum = np.cumsum(doc_counts)
+    start = 0
+    for s in range(num_shards - 1):
+        # the first query whose cumulative count reaches (s+1) * target,
+        # leaving at least one query for each remaining shard
+        bound = int(np.searchsorted(cum, (s + 1) * target))
+        remaining_shards = num_shards - s - 1
+        bound = min(max(bound, start + 1), len(doc_counts) - remaining_shards)
+        groups.append(list(range(start, bound)))
+        start = bound
+    groups.append(list(range(start, len(doc_counts))))
+    return groups
 
 
 def shard_and_pad(
@@ -147,53 +180,79 @@ def shard_and_pad(
     num_shards: int = 1,
     max_docs: Optional[int] = None,
     doc_align: int = 1024,
+    block: Optional[int] = None,
+    force_dims: Optional[tuple] = None,
 ) -> PaddedDataset:
-    """Lay ``ds`` out in the padded format: queries in dataset order, one
-    dummy row after the last doc, rows rounded up to ``doc_align`` (the
-    JAX package's histogram tile; kept so both packages pad alike)."""
-    if num_shards != 1:
-        raise NotImplementedError(
-            "sharded layouts are not ported to quickrank_tpu_torch yet: "
-            "ROADMAP.md §A item 10 (parallel training)"
-        )
+    """Lay ``ds`` out in the padded format, the JAX package's layout element
+    for element (JAX dataset.py:209): queries packed into ``num_shards``
+    contiguous groups of balanced doc counts, every block holding the
+    largest group's query count and its doc count plus one dummy row,
+    rounded up to ``doc_align`` (the JAX package's histogram tile; kept so
+    both packages pad alike).  ``block=s`` lays out shard ``s``'s block
+    alone (a rank's own data).  ``force_dims`` = (queries, rows, longest
+    query) a block, agreed between processes (``parallel/multihost.py``)."""
     counts = ds.docs_per_query()
+    if len(counts) < num_shards:
+        raise ValueError(f"num_queries={len(counts)} < num_shards={num_shards}")
     dmax = int(max_docs or counts.max())
     if counts.max() > dmax:
         raise ValueError(f"max_docs={dmax} < longest query ({counts.max()})")
-    Q = ds.num_queries
-    n_loc = _round_up(ds.num_docs + 1, doc_align)
-    features = np.zeros((n_loc, ds.num_features), dtype=FEATURE_DTYPE)
-    features[: ds.num_docs] = ds.features
-    labels = np.zeros((n_loc,), dtype=LABEL_DTYPE)
-    labels[: ds.num_docs] = ds.labels
-    doc_mask = np.zeros((n_loc,), dtype=bool)
-    doc_mask[: ds.num_docs] = True
-    orig_index = np.full((n_loc,), -1, dtype=np.int64)
-    orig_index[: ds.num_docs] = np.arange(ds.num_docs)
-    q_of_doc = np.repeat(np.arange(Q), counts)
-    slot_of_doc = np.arange(ds.num_docs) - np.repeat(ds.query_offsets[:-1], counts)
-    inv_q = np.zeros((n_loc,), dtype=np.int64)
-    inv_q[: ds.num_docs] = q_of_doc
-    inv_slot = np.zeros((n_loc,), dtype=np.int64)
-    inv_slot[: ds.num_docs] = slot_of_doc
-    pad_index = np.full((Q, dmax), n_loc - 1, dtype=np.int64)
-    pad_index[q_of_doc, slot_of_doc] = np.arange(ds.num_docs)
-    slot_mask = np.zeros((Q, dmax), dtype=bool)
-    slot_mask[q_of_doc, slot_of_doc] = True
-    t = torch.from_numpy
+    groups = assign_queries_to_shards(counts, num_shards)
+    q_loc = max(len(g) for g in groups)
+    n_loc = _round_up(max(int(counts[g].sum()) for g in groups) + 1, doc_align)
+    if force_dims is not None:
+        fq, fn, fd = force_dims
+        if fq < q_loc or fn < n_loc or fd < dmax:
+            raise ValueError(f"force_dims {force_dims} below local minima "
+                             f"{(q_loc, n_loc, dmax)}")
+        q_loc, n_loc, dmax = fq, fn, fd
+    shards = range(num_shards) if block is None else [block]
+    parts = [_pad_block(ds, groups[s], q_loc, n_loc, dmax) for s in shards]
+    cat = lambda k: np.concatenate([p[k] for p in parts])  # noqa: E731
+    t = lambda k: torch.from_numpy(cat(k))  # noqa: E731
     return PaddedDataset(
-        features=features,
-        labels=t(labels),
-        doc_mask=t(doc_mask),
-        pad_index=t(pad_index),
-        slot_mask=t(slot_mask),
-        query_mask=torch.ones((Q,), dtype=torch.bool),
-        nvalid=t(counts.astype(np.int32)),
-        orig_index=t(orig_index),
-        inv_q=t(inv_q),
-        inv_slot=t(inv_slot),
-        num_docs_padded=n_loc,
+        features=cat("features"), labels=t("labels"), doc_mask=t("doc_mask"),
+        pad_index=t("pad_index"), slot_mask=t("slot_mask"), query_mask=t("query_mask"),
+        nvalid=t("nvalid"), orig_index=t("orig_index"), inv_q=t("inv_q"),
+        inv_slot=t("inv_slot"), num_docs_padded=len(parts) * n_loc,
+        num_shards=len(parts), docs_per_shard=n_loc, queries_per_shard=q_loc,
+        max_docs=dmax,
     )
+
+
+def _pad_block(ds: Dataset, queries: list, q_loc: int, n_loc: int, dmax: int) -> dict:
+    """One shard's block: ``queries`` (contiguous ids) in dataset order from
+    row 0, padded to ``q_loc`` queries and ``n_loc`` rows."""
+    counts = ds.docs_per_query()[queries]
+    Q = len(queries)
+    r0 = int(ds.query_offsets[queries[0]])
+    n = int(counts.sum())
+    rows = slice(r0, r0 + n)
+    out = dict(
+        features=np.zeros((n_loc, ds.num_features), dtype=FEATURE_DTYPE),
+        labels=np.zeros((n_loc,), dtype=LABEL_DTYPE),
+        doc_mask=np.zeros((n_loc,), dtype=bool),
+        orig_index=np.full((n_loc,), -1, dtype=np.int64),
+        inv_q=np.zeros((n_loc,), dtype=np.int64),
+        inv_slot=np.zeros((n_loc,), dtype=np.int64),
+        pad_index=np.full((q_loc, dmax), n_loc - 1, dtype=np.int64),
+        slot_mask=np.zeros((q_loc, dmax), dtype=bool),
+        query_mask=np.zeros((q_loc,), dtype=bool),
+        nvalid=np.zeros((q_loc,), dtype=np.int32),
+    )
+    out["features"][:n] = ds.features[rows]
+    out["labels"][:n] = ds.labels[rows]
+    out["doc_mask"][:n] = True
+    out["orig_index"][:n] = np.arange(r0, r0 + n)
+    q_of_doc = np.repeat(np.arange(Q), counts)
+    slot_of_doc = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts)
+    out["inv_q"][:n] = q_of_doc
+    out["inv_slot"][:n] = slot_of_doc
+    out["pad_index"][q_of_doc, slot_of_doc] = np.arange(n)
+    out["slot_mask"][q_of_doc, slot_of_doc] = True
+    out["query_mask"][:Q] = True
+    out["nvalid"][:Q] = counts
+    return out
 
 
 def pack_doc_values(padded: PaddedDataset, values_dataset_order) -> torch.Tensor:

@@ -12,8 +12,14 @@ model into standalone scoring code (``--code-file`` from ``--model-file``
 with the ``condop``, ``oblivious`` or ``vpred`` generator).  Everything runs
 on ``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
 writes the test set's per-tree scores as an SVML file; ``--trace DIR``
-captures a ``torch.profiler`` trace of the training phase into DIR.  What is
-not ported (sharded training, the ``stablehlo`` generator) raises
+captures a ``torch.profiler`` trace of the training phase into DIR.
+
+``--num-shards N`` trains query-sharded: the pipeline runs in N spawned
+ranks (``parallel/launch.py``), one a device (NCCL, a card a rank; on
+``--device cpu`` gloo ranks on the CPU), each training on its block of the
+queries; every rank holds the same model, and rank 0 alone prints, writes
+the model and scores ``--test``.  What is not ported (the 2-D mesh, the
+learners and phases not yet sharded, the ``stablehlo`` generator) raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -37,17 +43,17 @@ from quickrank_tpu_torch.data.dataset import (
 from quickrank_tpu_torch.data.svml import read_svml, write_svml
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_factory
+from quickrank_tpu_torch.learning.mart import SHARDING_ITEM
 from quickrank_tpu_torch.metrics.metrics import metric_factory
 from quickrank_tpu_torch.optimization.cleaver import Cleaver
 from quickrank_tpu_torch.optimization.factory import optimization_factory
 from quickrank_tpu_torch.utils.profiling import phase_timer, trace
 
 _EXPORT_ITEM = "§A item 9 (CLIs and export)"
-_PARALLEL_ITEM = "§A item 10 (parallel training)"
 #: what is not ported: (parameter, the value refused or None for any) ->
 #: ROADMAP.md item
 UNPORTED = {
-    ("num_shards", None): _PARALLEL_ITEM, ("num_feat_shards", None): _PARALLEL_ITEM,
+    ("num_feat_shards", None): SHARDING_ITEM,
     ("generator", "stablehlo"): _EXPORT_ITEM,
 }
 
@@ -127,16 +133,65 @@ def _refuse_unported(p: dict) -> None:
             )
 
 
+def _learner(p: dict) -> LTRAlgorithm:
+    """The learner of ``p`` (built, or loaded with ``--model-in``)."""
+    rest = {k: v for k, v in p.items()
+            if k not in ("algo", "model_in", "restart_train", "device")}
+    return ltr_algorithm_factory(
+        algo=p.get("algo", "LAMBDAMART"), model_in=p.get("model_in"),
+        restart_train=p.get("restart_train", False), **rest)
+
+
+def _refuse_unsharded(p: dict, shards: int) -> None:
+    """What --num-shards does not cover yet raises before any data is read;
+    the learner says what of it does not train under a group."""
+    if p.get("meta_algo") or p.get("opt_algo") or p.get("opt_model"):
+        what = "the optimization phase (Cleaver, --meta-algo)"
+    elif p.get("model_in") and not p.get("restart_train"):
+        what = "scoring a loaded model without training"
+    else:
+        what = _learner(p).group_refusal()
+    if what:
+        raise NotImplementedError(
+            f"--num-shards {shards} with {what} is not ported to quickrank_tpu_torch "
+            f"yet: ROADMAP.md {SHARDING_ITEM}")
+
+
 def run(params: dict) -> dict:
     """The full pipeline from a flat parameter dict.  Every phase is
     wall-clocked into ``results["timings"]`` (the reference's phase prints,
-    mart.cc:216-258 / driver.cc:239-246)."""
+    mart.cc:216-258 / driver.cc:239-246).  With ``num_shards`` the pipeline
+    runs in that many ranks and the results are rank 0's (without the
+    learner object); ``deadline`` (seconds, no flag) bounds their launch."""
     p = params
     _refuse_unported(p)
-    device = resolve_device(p.get("device"))
+    shards = int(p.get("num_shards") or 0)
+    if not shards:
+        return run_rank(p, None)
+    _refuse_unsharded(p, shards)
+    device = str(p.get("device") or "cuda")
+    if device != "cpu" and torch.cuda.device_count() < shards:
+        raise ValueError(
+            f"--num-shards {shards} on {device} needs {shards} CUDA devices, one a rank, "
+            f"but {torch.cuda.device_count()} are visible (--device cpu runs the ranks "
+            "on the CPU)")
+    from quickrank_tpu_torch.parallel.launch import run_ranks
+    from quickrank_tpu_torch.parallel.workers import driver_rank
+
+    return run_ranks(driver_rank, shards, args=(p,), device=device,
+                     deadline=p.get("deadline"))[0]
+
+
+def run_rank(params: dict, group) -> dict:
+    """:func:`run`'s pipeline in one process, or in one rank of a group
+    (``group``, a ``parallel.DataGroup``): the rank trains on its block on
+    the group's device, and rank 0 alone prints, saves and tests."""
+    p = params
+    device = group.device if group is not None else resolve_device(p.get("device"))
+    lead = group is None or group.rank == 0
     timings: dict = {}
     results: dict = {"timings": timings}
-    verbose = not p.get("quiet", False)
+    verbose = not p.get("quiet", False) and lead
 
     def timed(name):
         return phase_timer(name, sink=timings, verbose=False)
@@ -148,11 +203,7 @@ def run(params: dict) -> dict:
     train_metric = metric_factory(p.get("train_metric", "NDCG"), p.get("train_cutoff", 10))
     test_metric = metric_factory(p.get("test_metric", "NDCG"), p.get("test_cutoff", 10))
 
-    rest = {k: v for k, v in p.items()
-            if k not in ("algo", "model_in", "restart_train", "device")}
-    algo = ltr_algorithm_factory(
-        algo=p.get("algo", "LAMBDAMART"), model_in=p.get("model_in"),
-        restart_train=p.get("restart_train", False), **rest)
+    algo = _learner(p)
 
     meta_algo = p.get("meta_algo")
     optimizer = None
@@ -229,13 +280,15 @@ def run(params: dict) -> dict:
                           output_basename=str(p["model_out"]).removesuffix(".xml"))
         if p.get("restart_train"):
             kwargs["warm_start"] = True
+        if group is not None:
+            kwargs["mesh"] = group
         dropped = [k for k in kwargs if k not in supported]
         for k in dropped:
             kwargs.pop(k)
         if dropped and verbose:
             print(f"# note: {type(algo).__name__}.learn has no "
                   f"{'/'.join(dropped)} support; ignoring those flags")
-        tracer = (trace(p["trace"], cuda=device.type == "cuda") if p.get("trace")
+        tracer = (trace(p["trace"], cuda=device.type == "cuda") if p.get("trace") and lead
                   else contextlib.nullcontext())
         with tracer as trace_path, timed("train"):
             results["training"] = algo.learn(train, valid, train_metric, verbose=verbose,
@@ -243,7 +296,7 @@ def run(params: dict) -> dict:
             sync()
         if trace_path and verbose:
             print(f"# trace of the training phase written to {trace_path}")
-        if p.get("model_out"):
+        if p.get("model_out") and lead:
             algo.save(p["model_out"])
             if verbose:
                 print(f"# model saved to {p['model_out']}")
@@ -273,7 +326,7 @@ def run(params: dict) -> dict:
                 print(f"# optimized model saved to {out}")
 
     # -- testing phase (driver.cc:326-385) -----------------------------------
-    if test is not None:
+    if test is not None and lead:
         with timed("test"):
             scores = algo.score_dataset(test, device=device)
             padded = shard_and_pad(test)
@@ -297,7 +350,7 @@ def run(params: dict) -> dict:
                 print(f"# detailed per-tree scores saved to {p['detailed']}")
 
     # -- codegen phase (driver.cc:199-223) -----------------------------------
-    if p.get("code_file") and p.get("model_file"):
+    if p.get("code_file") and p.get("model_file") and lead:
         from quickrank_tpu_torch.io import codegen
 
         generator = p.get("generator", "condop")

@@ -32,6 +32,13 @@ class LTRAlgorithm:
               verbose: bool = True, device=None) -> dict:
         raise NotImplementedError
 
+    def group_refusal(self):
+        """What of this learner does not train under a query-sharded group
+        (``learn(mesh=...)``, quicklearn's ``--num-shards``), or None when
+        all of it does; by default the learner itself (ROADMAP.md §A item
+        10b)."""
+        return self.NAME
+
     def score_dataset(self, ds: Dataset, device=None) -> np.ndarray:
         """float32 scores per doc in dataset order, computed on ``device``
         (``None`` = the CUDA card; see :func:`resolve_device`)."""

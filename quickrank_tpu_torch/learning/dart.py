@@ -40,7 +40,7 @@ order), never in routing or leaf values.
 Score updates of the form ``s + w * d`` are fused multiply-adds
 (``ops/scoring.py::fma_f32``), as XLA contracts them on the CPU.
 
-One device only: a mesh raises, naming ROADMAP.md §A item 10.
+One device only: a mesh raises, naming ROADMAP.md §A item 10b.
 """
 
 from __future__ import annotations
@@ -140,6 +140,7 @@ class DropTable:
 
 class Dart(LambdaMart):
     NAME = "DART"
+    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(
         self,
@@ -227,11 +228,7 @@ class Dart(LambdaMart):
         times, and per iteration the dropped slots (``dropped``) and the ms
         of their delta (``delta_ms``: CUDA events on the card, the host
         clock on the CPU)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported to quickrank_tpu_torch yet: "
-                "ROADMAP.md §A item 10 (parallel training)"
-            )
+        self._refuse_group(mesh)
         metric = metric or self.default_metric()
         device = resolve_device(device)
         t0 = time.time()

@@ -43,6 +43,7 @@ import torch
 
 from quickrank_tpu_torch.data.dataset import Dataset, shard_and_pad
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
+from quickrank_tpu_torch.learning.mart import refuse_group
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.scoring import fma_f32, matvec_f32
@@ -56,14 +57,8 @@ CANDIDATE_BATCH_BYTES = 2 << 30
 #: order, the sorted labels, gains and discounts, and the ideal sort
 _CELL_BYTES = 96
 
-_MESH_ITEM = "ROADMAP.md §A item 10 (parallel training)"
-
-
 def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a mesh is not ported to quickrank_tpu_torch yet: {_MESH_ITEM}"
-        )
+    refuse_group("the linear rankers, Cleaver and MetaCleaver", mesh)
 
 
 class Fold:

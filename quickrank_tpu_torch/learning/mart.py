@@ -23,6 +23,16 @@ Random draws (doc subsampling, feature sampling) come from a
 ``torch.Generator`` seeded from (seed, iteration, stream): they cannot
 reproduce ``jax.random``'s bits.
 
+Query-sharded training (``learn(mesh=group)``, a ``parallel.DataGroup``):
+every rank runs this loop on its own block of the queries.  The histograms
+and leaf sums are reduced over the ranks inside the growers
+(``ops/histogram.py``) and the metric's (numerator, denominator) in
+:func:`eval_metric` (JAX mart.py:138-140); early stopping and rollback read
+the reduced metrics only, so every rank keeps the same ensemble.  Doc
+subsampling draws per rank, feature sampling the same on every rank (JAX's
+``fold_in(k1, axis_index)``, mart.py:485-488).  Rank 0 alone prints and
+writes partial models.
+
 Inference.  Scorer dispatch depends on the model's shape only: the
 perfect-tree scorer when every tree has depth <= 5, QuickScorer otherwise
 (any depth).  The device then picks kernel or plain version inside the
@@ -52,6 +62,7 @@ from quickrank_tpu_torch.ops.binning import FLT_MAX, apply_bins, build_threshold
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import kahan_add, partial_scores, tree_delta_binned
+from quickrank_tpu_torch.parallel.mesh import DataGroup
 from quickrank_tpu_torch.trees.grow import GrowConfig, fit_tree, leaf_outputs
 from quickrank_tpu_torch.trees.grow_bestk import fit_tree_bestk
 from quickrank_tpu_torch.trees.grow_cluster import (
@@ -69,6 +80,18 @@ PERFECT_MAX_DEPTH = 5
 
 #: ROADMAP.md §A entry for bin ids wider than a byte on CUDA
 _WIDE_BINS_ITEM = "§A item 12 (bins wider than u8 on CUDA)"
+#: ROADMAP.md §A entry for what query-sharded training does not cover yet
+SHARDING_ITEM = "§A item 10b (the rest of parallel training)"
+
+
+def refuse_group(what: str, mesh) -> None:
+    """Raise for ``mesh`` (a ``DataGroup`` or anything else) where ``what``
+    does not run under one, naming ROADMAP.md's item."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} under a query-sharded group is not ported to "
+            f"quickrank_tpu_torch yet: ROADMAP.md {SHARDING_ITEM}"
+        )
 
 
 @dataclasses.dataclass
@@ -92,19 +115,37 @@ class StepData:
 @dataclasses.dataclass
 class TrainData:
     """Padded layout, binned step tensors on the device, and the host copy
-    of the threshold tables."""
+    of the threshold tables.  Under a query-sharded group the layout is this
+    rank's block and ``group`` carries the real docs of all ranks."""
 
     padded: PaddedDataset
     step: StepData
     thresholds: np.ndarray  # f32 [W, B], host
     num_real_features: int
+    group: Optional[DataGroup] = None
 
     @staticmethod
     def build(ds: Dataset, nthresholds: int,
               thresholds: Optional[np.ndarray] = None,
-              device=None) -> "TrainData":
-        device = resolve_device(device)
-        padded = shard_and_pad(ds)
+              device=None, group: Optional[DataGroup] = None,
+              force_dims: Optional[tuple] = None,
+              num_docs: Optional[int] = None) -> "TrainData":
+        """Bin ``ds`` and move its step tensors to ``device``.  With
+        ``group`` (and no ``force_dims``) ``ds`` is the whole dataset and this
+        rank lays out its own block of ``shard_and_pad(ds, world_size)``, on
+        the group's device; the tables come from all of ``ds``.  With
+        ``force_dims`` ``ds`` is this process's block already
+        (``parallel/multihost.py``), laid out with the agreed geometry, and
+        ``num_docs`` counts the real docs of all processes."""
+        device = resolve_device(group.device if group is not None else device)
+        if group is None:
+            padded = shard_and_pad(ds)
+        elif force_dims is None:
+            padded = shard_and_pad(ds, group.world_size, block=group.rank)
+            group = group.with_num_docs(ds.num_docs)
+        else:
+            padded = shard_and_pad(ds, force_dims=force_dims)
+            group = group.with_num_docs(num_docs)
         if thresholds is None:
             thresholds, _ = build_thresholds(ds.features, nthresholds)
         binned = apply_bins(padded.features, np.asarray(thresholds))
@@ -145,7 +186,7 @@ class TrainData:
             thresholds=to(torch.from_numpy(np.ascontiguousarray(thresholds))),
         )
         return TrainData(padded=padded, step=sd, thresholds=thresholds,
-                         num_real_features=ds.num_features)
+                         num_real_features=ds.num_features, group=group)
 
     @property
     def num_bins(self) -> int:
@@ -167,15 +208,19 @@ def build_valid_traindata(tr: TrainData, valid: Optional[Dataset],
         )
     return TrainData.build(valid, nthresholds,
                            thresholds=tr.thresholds[: valid.num_features],
-                           device=device)
+                           device=device, group=tr.group)
 
 
-def eval_metric(metric: Metric, sd: StepData, scores: torch.Tensor) -> torch.Tensor:
+def eval_metric(metric: Metric, sd: StepData, scores: torch.Tensor,
+                group: Optional[DataGroup] = None) -> torch.Tensor:
     """Dataset-level metric of flat padded scores: per-query values, then
-    the (num, den) mean of metric.h:77-106; a 0-d tensor."""
+    the (num, den) mean of metric.h:77-106; a 0-d tensor.  Under ``group``
+    (num, den) are summed over the ranks first (JAX mart.py:138-140)."""
     s = gather_padded(scores, sd.pad_index, sd.slot_mask)
     pq = metric.evaluate_per_query(s, sd.labels2d, sd.slot_mask, sd.nvalid)
     num, den = metric.aggregate(pq, sd.query_mask, sd.doc_mask.sum())
+    if group is not None:
+        num, den = group.all_reduce_sum(torch.stack([num.float(), den.float()]))
     return metric.finalize(num, den)
 
 
@@ -183,6 +228,9 @@ class Mart(LTRAlgorithm):
     NAME = "MART"
     #: Newton leaf outputs (sum lambda / sum w); LambdaMart turns this on
     _newton = False
+    #: trains under a query-sharded group (learners whose draws or hooks
+    #: are not sharded yet turn it off)
+    _shardable = True
 
     def __init__(
         self,
@@ -290,10 +338,12 @@ class Mart(LTRAlgorithm):
     def _level_depth(self) -> int:
         return self.max_depth or max(1, (self.nleaves - 1).bit_length())
 
-    def _generator(self, m: int, stream: int) -> torch.Generator:
+    def _generator(self, m: int, stream: int, rank: Optional[int] = None) -> torch.Generator:
         """Host generator of iteration ``m``'s draws: stream 0 samples docs,
-        stream 1 features."""
-        seed = np.random.SeedSequence([self.seed, m, stream]).generate_state(1)[0]
+        stream 1 features.  ``rank`` gives each rank of a group its own
+        draws (doc subsampling)."""
+        key = [self.seed, m, stream] + ([rank] if rank is not None else [])
+        seed = np.random.SeedSequence(key).generate_state(1)[0]
         return torch.Generator().manual_seed(int(seed))
 
     def _sample_mask(self, sd: StepData, generator, presence):
@@ -328,22 +378,23 @@ class Mart(LTRAlgorithm):
         """(tree, node_of_doc, leaves_done): the level-wise grower sets
         leaf values itself; the best-first growers (dataset order or
         node-clustered) and best-k leave them to :func:`leaf_outputs`."""
-        sd = tr.step
+        sd, group = tr.step, tr.group
         if self.growth == "level":
             tree, node = fit_tree_levelwise(
                 sd.binned, grad, smask, sd.thresholds, self._level_depth(),
-                cfg, generator, weights=weights,
+                cfg, generator, weights=weights, group=group,
             )
             return tree, node, True
         thresholds = torch.from_numpy(tr.thresholds)
         if self.growth == "bestk":
             tree, node = fit_tree_bestk(sd.binned, grad, smask, thresholds, cfg,
-                                        self.split_pack, generator)
+                                        self.split_pack, generator, group=group)
         elif self._cluster_applicable(sd, cfg):
             tree, node = fit_tree_clustered(sd.binned, grad, smask, thresholds, cfg,
                                             generator)
         else:
-            tree, node = fit_tree(sd.binned, grad, smask, thresholds, cfg, generator)
+            tree, node = fit_tree(sd.binned, grad, smask, thresholds, cfg, generator,
+                                  group=group)
         return tree, node, False
 
     # -- the boosting step ---------------------------------------------------
@@ -354,16 +405,17 @@ class Mart(LTRAlgorithm):
         """One boosting iteration: pushes a tree into ``ens`` and returns
         (train Kahan pair, valid Kahan pair, train metric, valid metric).
         ``presence`` is the doc pool of a presence hook (None: every doc)."""
-        sd = tr.step
+        sd, group = tr.step, tr.group
         pool = sd.doc_mask if presence is None else presence & sd.doc_mask
-        smask = self._sample_mask(sd, self._generator(m, 0), pool)
+        rank = group.rank if group is not None else None
+        smask = self._sample_mask(sd, self._generator(m, 0, rank), pool)
         grad, w = self._gradients(sd, scores_tr[0], smask,
                                   full_mask=self.subsample == 1.0 and presence is None)
         w = w if self._newton else None
         tree, node, leaves_done = self._fit_and_assign(
             tr, grad, smask, cfg, self._generator(m, 1), weights=w)
         if not leaves_done:
-            tree = leaf_outputs(tree, node, grad, smask, weights=w)
+            tree = leaf_outputs(tree, node, grad, smask, weights=w, group=group)
         shrinkage = torch.tensor(self._tree_weight(), dtype=torch.float32,
                                  device=sd.binned.device)
         ens.push(tree, self._tree_weight())
@@ -373,18 +425,40 @@ class Mart(LTRAlgorithm):
         # the step fused as XLA fuses it (ops/scoring.py).
         d_tr = tree.leaf_value[node.long().clamp(min=0)]
         s_tr = kahan_add(scores_tr[0], scores_tr[1], shrinkage, d_tr)
-        m_tr = eval_metric(metric, sd, s_tr[0])
+        m_tr = eval_metric(metric, sd, s_tr[0], group)
         if va is None:
             return s_tr, scores_va, m_tr, None
         d_va = tree_delta_binned(va.step.binned, tree, self._descend_depth())
         s_va = kahan_add(scores_va[0], scores_va[1], shrinkage, d_va)
-        return s_tr, s_va, m_tr, eval_metric(metric, va.step, s_va[0])
+        return s_tr, s_va, m_tr, eval_metric(metric, va.step, s_va[0], group)
 
     # -- training ------------------------------------------------------------
 
-    def learn(self, train: Dataset, valid: Optional[Dataset] = None,
+    def _refuse_group(self, mesh) -> None:
+        """What does not train under a query-sharded group raises, naming
+        ROADMAP.md's item, before any data is touched."""
+        if mesh is None:
+            return
+        if not isinstance(mesh, DataGroup):
+            raise NotImplementedError(
+                f"learn(mesh=...) takes a parallel.DataGroup (a 1-D query-sharded "
+                f"group), got {type(mesh).__name__}; other meshes, such as the 2-D "
+                f"data x feature mesh, are ROADMAP.md {SHARDING_ITEM}"
+            )
+        what = self.group_refusal()
+        if what:
+            refuse_group(what, mesh)
+
+    def group_refusal(self):
+        if not self._shardable:
+            return self.NAME
+        if self.cluster == "on":
+            return 'cluster="on" (the node-clustered grower)'
+        return None
+
+    def learn(self, train, valid: Optional[Dataset] = None,
               metric: Optional[Metric] = None, verbose: bool = True,
-              device=None, mesh=None, warm_start: bool = False,
+              device=None, mesh: Optional[DataGroup] = None, warm_start: bool = False,
               partial_save: int = 0, output_basename: str = "") -> dict:
         """Train on ``device``: the CUDA card by default (the kernels; an
         error without one), or "cpu" (the plain versions).  With
@@ -393,18 +467,25 @@ class Mart(LTRAlgorithm):
         --restart-train (mart.cc:237-253).  With ``partial_save`` and an
         ``output_basename`` the model so far is saved every ``partial_save``
         iterations as ``<output_basename>.T<iteration>.xml`` (mart.cc:378-381).
-        Returns the history dict:
-        per-iteration train and valid metric (the new iterations only), best
-        iteration, times."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported to quickrank_tpu_torch yet: "
-                "ROADMAP.md §A item 10 (parallel training)"
-            )
+        With ``mesh``, a ``parallel.DataGroup``, this rank trains on its
+        block of ``train`` (or on ``train``, this process's ``TrainData``
+        from ``parallel/multihost.py``) on the group's device, and every rank
+        returns the same model.  Returns the history dict: per-iteration
+        train and valid metric (the new iterations only), best iteration,
+        times."""
+        self._refuse_group(mesh)
         metric = metric or self.default_metric()
-        device = resolve_device(device)
         t_init = time.time()
-        tr = TrainData.build(train, self.nthresholds, device=device)
+        if isinstance(train, TrainData):
+            if (mesh is None) != (train.group is None) or (
+                    mesh is not None and train.group.rank != mesh.rank):
+                raise ValueError("a TrainData trains with mesh= the group it was built "
+                                 "for, and without one when it was built without")
+            tr = train
+        else:
+            tr = TrainData.build(train, self.nthresholds, device=device, group=mesh)
+        device = tr.step.binned.device
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         va = build_valid_traindata(tr, valid, self.nthresholds, device)
         cfg = self._grow_config(tr.num_bins, tr.num_real_features)
         ens = EnsembleTensors.empty(self.ntrees, cfg.max_nodes, device)
@@ -460,7 +541,8 @@ class Mart(LTRAlgorithm):
             elif va is None and m_tr > max(hist_tr[:-1], default=-np.inf):
                 improved = True
             self._post_iteration(m, improved)
-            if partial_save and output_basename and (m + 1) % partial_save == 0:
+            if (partial_save and output_basename and (m + 1) % partial_save == 0
+                    and (mesh is None or mesh.rank == 0)):
                 snapshot = self.ensemble
                 self.ensemble = ens.live().to("cpu")
                 self.save(f"{output_basename}.T{m + 1}.xml")
@@ -489,8 +571,9 @@ class Mart(LTRAlgorithm):
             "metric": repr(metric),
         }
         #: the scores training carried on the train fold for the model it
-        #: returns (after any rollback), flat padded order: the Kahan sum a
-        #: rescoring of the model must reproduce
+        #: returns (after any rollback), flat padded order (this rank's block
+        #: under a group): the Kahan sum a rescoring of the model must
+        #: reproduce
         self.train_scores = best_scores if va is not None and best_it >= 0 else scores_tr[0]
         if verbose:
             print(f"# done: {self.ensemble.num_trees} trees kept, "

@@ -11,6 +11,7 @@ from quickrank_tpu_torch.learning.mart import Mart, StepData
 
 class RandomForest(Mart):
     NAME = "RANDOMFOREST"
+    _shardable = False  # ROADMAP.md §A item 10b
 
     def _gradients(self, sd: StepData, scores, sample_mask, full_mask=False):
         return sd.labels.float(), None

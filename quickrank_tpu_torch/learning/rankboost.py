@@ -65,7 +65,7 @@ from quickrank_tpu_torch.data.dataset import (
     shard_and_pad,
 )
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
-from quickrank_tpu_torch.learning.mart import StepData, TrainData, eval_metric
+from quickrank_tpu_torch.learning.mart import StepData, TrainData, eval_metric, refuse_group
 from quickrank_tpu_torch.ops.histogram import (
     masked_histogram_scatter,
     masked_histogram_t,
@@ -196,11 +196,7 @@ class RankBoost(LTRAlgorithm):
         ``best_T`` and each round's wall seconds (``iter_seconds``, ended by
         the round's metric read)."""
         global HOST_SYNCS
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported to quickrank_tpu_torch yet: "
-                "ROADMAP.md §A item 10 (parallel training)"
-            )
+        refuse_group(self.NAME, mesh)
         metric = metric or self.default_metric()
         levels = [float(x) for x in np.unique(train.labels)]
         if len(levels) > _MAX_LABEL_LEVELS:

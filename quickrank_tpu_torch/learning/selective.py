@@ -91,6 +91,7 @@ def select_presence(scores_flat: torch.Tensor, sd: StepData, num_docs_padded: in
 
 class LambdaMartSelective(LambdaMart):
     NAME = "LAMBDAMART-SELECTIVE"
+    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(self, *args, sampling_iterations: int = 1, rank_sampling_factor: float = 1.0,
                  random_sampling_factor: float = 0.0, normalization_factor: float = 100,

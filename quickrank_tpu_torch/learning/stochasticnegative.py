@@ -51,6 +51,7 @@ def sample_presence(sd: StepData, num_docs_padded: int, frac: float,
 
 class StochasticNegative(LambdaMart):
     NAME = "STOCHASTIC-NEGATIVE"
+    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(self, *args, subsample: float = 0.5, **kw):
         super().__init__(*args, subsample=1.0, **kw)

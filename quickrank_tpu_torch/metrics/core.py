@@ -40,6 +40,20 @@ def unsort_to_slots(order, *vals):
     return outs if len(vals) > 1 else outs[0]
 
 
+def query_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over one axis of a per-query view.  On the CPU a float32 sum (the
+    order the tests hold against XLA's).  On CUDA it accumulates in float64
+    and rounds once to float32: CUDA's float32 reductions take their order
+    from the tensor's shape and each row's alignment, so a query's sum would
+    depend on which queries share its batch (its rank's block under query
+    sharding, or its chunk); in float64 the order leaves the rounded sum
+    unchanged unless the exact sum lies within ~2^-29 of a float32 rounding
+    boundary."""
+    if x.device.type == "cpu" or x.dtype != torch.float32:
+        return torch.sum(x, dim=dim)
+    return torch.sum(x, dim=dim, dtype=torch.float64).to(torch.float32)
+
+
 def gains(labels):
     """2^label - 1 (exponential gain, dcg.cc:35-39)."""
     return torch.exp2(labels) - 1.0
@@ -62,7 +76,7 @@ def sorted_labels_by_score(scores, labels, slot_mask):
 def dcg_from_sorted(sorted_labels, nvalid, cutoff: int):
     """DCG of a rank-ordered label matrix ``[Q, D]`` (dcg.cc:33-39)."""
     disc = discounts(sorted_labels.shape[-1], cutoff, nvalid)
-    return torch.sum(gains(sorted_labels) * disc, dim=-1)
+    return query_sum(gains(sorted_labels) * disc)
 
 
 def ideal_dcg(labels, slot_mask, nvalid, cutoff: int):
@@ -100,9 +114,9 @@ def tndcg(scores, labels, slot_mask, nvalid, cutoff: int):
     g = torch.where(sm, gains(sl), 0.0)
     same = _tie_groups(ss, sm)
     group_size = torch.clamp(same.sum(-1), min=1)
-    avg_gain = torch.sum(same * g[..., None, :], dim=-1) / group_size
+    avg_gain = query_sum(same * g[..., None, :]) / group_size
     disc = discounts(ss.shape[-1], cutoff, nvalid)
-    t = torch.sum(avg_gain * disc, dim=-1)
+    t = query_sum(avg_gain * disc)
     return torch.where(idcg > 0, t / torch.clamp(idcg, min=1e-30), 0.0)
 
 
@@ -115,7 +129,7 @@ def average_precision(scores, labels, slot_mask, nvalid, cutoff: int):
     in_cut = (r[None, :] < torch.clamp(nvalid, max=cutoff)[:, None]) & sm
     rel = torch.where(in_cut & (sl > 0), 1.0, 0.0)
     relcount = torch.cumsum(rel, dim=-1)
-    ap = torch.sum(rel * relcount / (r[None, :] + 1.0), dim=-1)
+    ap = query_sum(rel * relcount / (r[None, :] + 1.0))
     nrel = rel.sum(-1)
     return torch.where(nrel > 0, ap / torch.clamp(nrel, min=1.0), 0.0)
 
@@ -126,7 +140,7 @@ def rmse_sse(scores, labels, slot_mask, nvalid, cutoff: int):
     r = torch.arange(scores.shape[-1], device=scores.device)
     in_cut = (r[None, :] < torch.clamp(nvalid, max=cutoff)[:, None]) & slot_mask
     err = torch.where(in_cut, scores - labels, 0.0)
-    return torch.sum(err * err, dim=-1)
+    return query_sum(err * err)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +183,7 @@ def tndcg_delta_matrix(sorted_labels, sorted_scores, sm, nvalid, cutoff: int):
     ss = torch.where(sm, sorted_scores, NEG_INF)
     same = _tie_groups(ss, sm)
     gsize = torch.clamp(same.sum(-1), min=1)
-    w = torch.sum(same * disc_all[..., None, :], dim=-1) / gsize
+    w = query_sum(same * disc_all[..., None, :]) / gsize
 
     idcg = ideal_dcg(sorted_labels, sm, nvalid, cutoff)
     safe = torch.clamp(idcg, min=1e-30)

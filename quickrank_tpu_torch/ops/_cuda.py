@@ -48,9 +48,11 @@ SIGNATURES = {
     # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
     "oblivious_score": [_P, _I, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # binned, bin_bytes, n, width, features, values, channels, stride_c,
-    # stride_n, pos, n0, k, num_bins, scratch, out, stream
+    # stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,
-                         _I, _I, _P, _P, _P],
+                         _I, _I, _P, _I64, _P, _P],
+    # acc, ncells, channels, maxbits, n_scale, out, stream
+    "histogram_to_float": [_P, _I64, _I, _P, _I64, _P, _P],
     # data, n, width, mode, dsta, dstb, stamp_z, stamp_o, fstar, tstar,
     # pos_col, out, stream
     "partition_rows": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],

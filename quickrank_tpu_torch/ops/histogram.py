@@ -15,6 +15,21 @@ does, so on the CPU the port's histograms are bitwise the JAX package's.
 ``prefix_sum`` and ``tree_sum`` reproduce the order in which XLA on the CPU
 sums a histogram's bin axis, so that the gain scan picks the same split
 from the same histogram, bit for bit.
+
+On the card every histogram is the kernels' fixed-point sum under a scale
+(:func:`histogram_scale`: the channels' max bits and a doc count), which a
+grower takes once a tree and passes to each histogram of the tree.
+
+Under a query-sharded group (``parallel/mesh.py::DataGroup``) the same
+functions return the histogram of every rank's docs: this module is the
+growers' one collective site for histograms (JAX trees/grow.py:184-188,
+grow_bestk.py:92-93, grow_level.py:125-126, oblivious.py:126-127) and, through
+:func:`group_histogram`, for the leaf sums.  On the card the ranks agree on
+the scale (an all-reduce max of the channels' max bits, and the real docs of
+all ranks as its count), add the kernels' int64 accumulators and convert the
+sum once, so the histogram is bit for bit that of one rank over all the
+docs; on the CPU the plain float histograms are summed, as JAX's ``psum``
+sums them.
 """
 
 from __future__ import annotations
@@ -37,47 +52,110 @@ def doc_channels(grad: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([m, grad * m, grad * grad * m], dim=-1)
 
 
-def masked_histogram_t(binned, values_t, mask, num_bins: int, f_used: int = 0):
+def histogram_scale(values_t, group=None):
+    """The fixed-point scale of the card's histograms of channel-major
+    values ``[C, N]``: (max bits int32 ``[C]``, doc count).  On one device
+    the values' own max and N rows; under ``group`` the ranks agree on it
+    with one all-reduce max of the bits, and the count is the real docs of
+    all ranks (``DataGroup.num_docs``).  None on the CPU, whose plain
+    histograms are float."""
+    from quickrank_tpu_torch.ops import kernel_histogram as kh
+
+    if values_t.device.type == "cpu":
+        return None
+    bits = kh.channel_max_bits(values_t)
+    if group is None:
+        return bits, values_t.shape[1]
+    return group.all_reduce_max(bits), group.num_docs
+
+
+def masked_histogram_t(binned, values_t, mask, num_bins: int, f_used: int = 0,
+                       group=None, scale=None):
     """Histogram ``[F, B, C]`` of the docs in ``mask`` from channel-major
     values ``[C, N]`` that are already zero outside the doc mask; the
     subset enters the kernel as a node id row (0 in the subset, 1 outside).
-    The best-first grower calls it once per split."""
-    from quickrank_tpu_torch.ops import kernel_histogram
-
+    The best-first grower calls it once per split, with the tree's
+    ``scale`` (:func:`histogram_scale` of ``values_t``; None takes it
+    here)."""
     pos = torch.where(mask, 0, 1).to(torch.int32)
-    return kernel_histogram.node_histogram(
-        binned, values_t, pos, num_bins, 0, 1, f_used=f_used
-    )
+    return _node_passes(binned, values_t, pos, num_bins, [(0, 1)], group,
+                        f_used=f_used, scale=scale)[0]
+
+
+def _node_passes(binned, values_t, pos, num_bins: int, passes, group, f_used: int = 0,
+                 scale=None):
+    """K4 over each ``(n0, k)`` of ``passes``: float32 ``[F, B, k*C]`` each,
+    reduced over ``group``'s ranks when one is given (on the CPU one float
+    sum for all passes; on the card one sum of the int64 accumulators)."""
+    from quickrank_tpu_torch.ops import kernel_histogram as kh
+
+    if binned.device.type == "cpu":
+        outs = [kh.node_histogram(binned, values_t, pos, num_bins, n0, k, f_used=f_used)
+                for n0, k in passes]
+        if group is not None:
+            _reduce_float(outs, group)
+        return outs
+    bits, n = scale if scale is not None else histogram_scale(values_t, group)
+    accs = [kh.node_histogram_int(binned, values_t, pos, num_bins, n0, k, bits, n,
+                                  f_used=f_used) for n0, k in passes]
+    if group is not None:
+        accs = _split_like(group.all_reduce_sum(torch.cat([a.reshape(-1) for a in accs])),
+                           accs)
+    return [kh.to_float(a, bits, n) for a in accs]
+
+
+def _split_like(flat, parts):
+    return [x.reshape(p.shape) for x, p in
+            zip(torch.split(flat, [p.numel() for p in parts]), parts)]
+
+
+def _reduce_float(outs, group) -> None:
+    """Sum float32 histograms over the ranks in one collective, in place."""
+    flat = group.all_reduce_sum(torch.cat([o.reshape(-1) for o in outs]))
+    for o, x in zip(outs, _split_like(flat, outs)):
+        o.copy_(x)
+
+
+def group_histogram(binned, values, num_bins: int, group=None):
+    """K5 (``[F, B, C]`` of doc-major ``values [N, C]``), reduced over
+    ``group``'s ranks when one is given, as :func:`masked_histogram_t`
+    reduces K4."""
+    from quickrank_tpu_torch.ops import kernel_histogram as kh
+
+    if binned.device.type == "cpu":
+        h = kh.histogram(binned, values, num_bins)
+        return h if group is None else group.all_reduce_sum(h)
+    bits, n = histogram_scale(values.T, group)
+    acc = kh.histogram_int(binned, values, num_bins, bits, n)
+    if group is not None:
+        acc = group.all_reduce_sum(acc)
+    return kh.to_float(acc, bits, n)
 
 
 def node_histograms(binned, values, node_of_doc, doc_mask, num_nodes: int,
-                    num_bins: int, values_premasked: bool = False):
+                    num_bins: int, values_premasked: bool = False, group=None):
     """Histograms of every node at once: ``[num_nodes, F, B, C]``.  Docs
     with a node id outside [0, num_nodes), or outside ``doc_mask``,
     contribute nothing."""
     if not values_premasked:
         values = torch.where(doc_mask[:, None], values, 0.0)
     return node_histograms_t(binned, values.T.contiguous(), node_of_doc,
-                             num_nodes, num_bins)
+                             num_nodes, num_bins, group=group)
 
 
 def node_histograms_t(binned, values_t, node_of_doc, num_nodes: int,
-                      num_bins: int):
+                      num_bins: int, group=None, scale=None):
     """:func:`node_histograms` from channel-major values ``[C, N]`` that are
-    already zero outside the doc mask (a grower builds them once a tree).
-    Up to ``32 // C`` nodes share one kernel pass (the JAX package's
-    packing, histogram.py:151-161)."""
-    from quickrank_tpu_torch.ops import kernel_histogram
-
+    already zero outside the doc mask (a grower builds them, and their
+    ``scale``, once a tree).  Up to ``32 // C`` nodes share one kernel pass
+    (the JAX package's packing, histogram.py:151-161)."""
     C = values_t.shape[0]
     pos = node_of_doc.to(torch.int32).contiguous()
     per_pass = max(1, 32 // C)
-    outs = []
-    for n0 in range(0, num_nodes, per_pass):
-        k = min(per_pass, num_nodes - n0)
-        h = kernel_histogram.node_histogram(binned, values_t, pos, num_bins, n0, k)
-        outs.append(h.reshape(h.shape[0], num_bins, k, C).permute(2, 0, 1, 3))
-    return torch.cat(outs)
+    passes = [(n0, min(per_pass, num_nodes - n0)) for n0 in range(0, num_nodes, per_pass)]
+    outs = _node_passes(binned, values_t, pos, num_bins, passes, group, scale=scale)
+    return torch.cat([h.reshape(h.shape[0], num_bins, k, C).permute(2, 0, 1, 3)
+                      for h, (_, k) in zip(outs, passes)])
 
 
 def node_histograms_scatter(binned, values, node_of_doc, doc_mask,

@@ -11,7 +11,9 @@ beyond the metric cutoff:
 Delta is the metric's rank-space swap-delta matrix.  Outputs go back from
 rank space to doc slots through the score sort's permutation.  Queries are
 processed in chunks (a Python loop) so the live ``[chunk, D, D]`` or
-``[chunk, cut, D]`` pair tensors stay bounded.
+``[chunk, cut, D]`` pair tensors stay bounded.  The pair sums go through
+``metrics/core.py::query_sum``, so on the card a query's lambdas do not
+depend on the chunk or the rank's block it is computed in.
 """
 
 from __future__ import annotations
@@ -67,10 +69,10 @@ def _lambda_block_banded(scores, labels, slot_mask, nvalid, metric):
     W = torch.where((gt | lt) & valid, rd * (1.0 - rho), 0.0)
 
     in_cut = torch.arange(D, device=scores.device) < cut
-    lam_rank = torch.where(in_cut, F.pad(G.sum(-1), (0, D - cut)),
-                           -G.sum(-2)) * inv[..., None]
-    w_rank = torch.where(in_cut, F.pad(W.sum(-1), (0, D - cut)),
-                         W.sum(-2)) * inv[..., None]
+    lam_rank = torch.where(in_cut, F.pad(core.query_sum(G, -1), (0, D - cut)),
+                           -core.query_sum(G, -2)) * inv[..., None]
+    w_rank = torch.where(in_cut, F.pad(core.query_sum(W, -1), (0, D - cut)),
+                         core.query_sum(W, -2)) * inv[..., None]
     lam, w = core.unsort_to_slots(order, lam_rank, w_rank)
     return torch.where(slot_mask, lam, 0.0), torch.where(slot_mask, w, 0.0)
 
@@ -93,8 +95,8 @@ def _lambda_block(scores, labels, slot_mask, nvalid, metric):
     rho = torch.sigmoid(ss[..., None, :] - ss[..., :, None])
     m = torch.where(pair_mask, rho * delta, 0.0)
     mw = torch.where(pair_mask, rho * (1.0 - rho) * delta, 0.0)
-    lam_rank = m.sum(-1) - m.sum(-2)
-    w_rank = mw.sum(-1) + mw.sum(-2)
+    lam_rank = core.query_sum(m, -1) - core.query_sum(m, -2)
+    w_rank = core.query_sum(mw, -1) + core.query_sum(mw, -2)
     lam, w = core.unsort_to_slots(order, lam_rank, w_rank)
     return torch.where(slot_mask, lam, 0.0), torch.where(slot_mask, w, 0.0)
 

@@ -7,6 +7,9 @@ float64 matrix-vector product, CustomLTR's fixed score),
 scores every doc ``rounds`` times on the chosen device, and reports total, per-dataset and per-doc time.  On CUDA
 the features are uploaded once, one warm-up call builds the kernels, and
 the timed loop is bracketed by ``torch.cuda.synchronize()``.
+``--num-shards N`` fans the doc rows out over N devices in this process
+(``cuda:0..N-1``, or N blocks on the CPU with ``--device cpu``): each
+scores its block, with no collective (``parallel/mesh.py::RowShards``).
 
 Run: ``python -m quickrank_tpu_torch.quickscore -d data.svml -m model.xml -r 10``.
 """
@@ -29,12 +32,20 @@ def main(argv=None) -> int:
     p.add_argument("-s", "--scores", help="optional output scores file")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="scoring device; cuda without a CUDA device is an error")
+    p.add_argument("--num-shards", type=int, default=0,
+                   help="fan doc rows over this many devices (0 = single)")
     args = p.parse_args(argv)
     if args.rounds < 1:
         p.error("--rounds must be at least 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is available")
+    if args.num_shards < 0:
+        p.error("--num-shards must be at least 0")
     device = torch.device(args.device)
+    if args.num_shards and args.device == "cuda" and torch.cuda.device_count() < args.num_shards:
+        raise ValueError(
+            f"--num-shards {args.num_shards} needs {args.num_shards} CUDA devices, but "
+            f"{torch.cuda.device_count()} are visible")
 
     from quickrank_tpu_torch.data.svml import read_svml
     from quickrank_tpu_torch.learning.base import LTRAlgorithm
@@ -59,19 +70,22 @@ def main(argv=None) -> int:
     }[model.scorer_path()]
     print(f"#\t Scorer path: {path} on {device.type}")
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    from quickrank_tpu_torch.parallel.mesh import RowShards
 
-    fn, X = model.device_scorer(ds, device)
-    out = fn(X)  # warm-up: builds the kernels on first CUDA use
-    sync()
+    devices = ([f"{args.device}:{i}" if args.device == "cuda" else "cpu"
+                for i in range(args.num_shards)] if args.num_shards else [device])
+    if args.num_shards:
+        print(f"#\t Doc rows fanned out over {args.num_shards} devices: "
+              f"{', '.join(devices)}")
+    shards = RowShards(model, ds.features, devices)
+    out = shards.launch()  # warm-up: builds the kernels on first CUDA use
+    shards.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.rounds):
-        out = fn(X)
-    sync()
+        out = shards.launch()
+    shards.synchronize()
     total = time.perf_counter() - t0
-    scores = out.cpu().numpy()
+    scores = shards.gather(out)
     per_dataset = total / args.rounds
     per_doc = per_dataset / ds.num_docs
     print(f"       Total scoring time: {total:.6g} s.")

@@ -10,6 +10,11 @@ Python loop here: the heap bookkeeping lives on the host, the histograms,
 split scans and doc routing on the tensors' device, and each split reads one
 small tensor back (leaf, split found, feature, bin), one host sync a split.
 
+Under a query-sharded group (``group``, ``parallel/mesh.py``) every rank
+holds a shard of the docs; the node histograms and the leaf sums are
+reduced over the ranks (``ops/histogram.py``), and every decision is taken
+from the reduced values, so every rank grows the same tree.
+
 Reference semantics kept:
   * split priority = node deviance sum g^2 - (sum g)^2 / count (rt.cc:59-76);
   * gain = lsum^2/lcount + rsum^2/rcount over splits whose children both
@@ -30,6 +35,8 @@ import torch
 
 from quickrank_tpu_torch.ops.histogram import (
     doc_channels,
+    group_histogram,
+    histogram_scale,
     masked_histogram_t,
     prefix_sum,
     tree_sum,
@@ -128,7 +135,7 @@ def _best_split(hist_node: torch.Tensor, feat_mask: torch.Tensor, minls: int):
 
 def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
              thresholds: torch.Tensor, cfg: GrowConfig,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, group=None):
     """Grow one tree on binned docs.
 
     binned: uint8/int32 [N, F] bin ids; grad: f32 [N] pseudoresponses;
@@ -137,7 +144,9 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
 
     Returns (tree without leaf values, see :func:`leaf_outputs`;
     node_of_doc int32 [N]).  Every doc is routed, masked ones too, so the
-    caller can update scores from ``leaf_value[node_of_doc]``."""
+    caller can update scores from ``leaf_value[node_of_doc]``.  With
+    ``group`` the docs are this rank's shard and the histograms are
+    reduced over the ranks."""
     global HOST_SYNCS
     N, F = binned.shape
     dev = binned.device
@@ -148,9 +157,10 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
 
     chan = doc_channels(grad, doc_mask)
     chan_t = torch.where(doc_mask[None, :], chan.T, 0.0).contiguous()
+    scale = histogram_scale(chan_t, group)
 
     def hist_of(mask):
-        return masked_histogram_t(binned, chan_t, mask, B)
+        return masked_histogram_t(binned, chan_t, mask, B, group=group, scale=scale)
 
     hist = torch.zeros((max_nodes, F, B, 3), dtype=torch.float32, device=dev)
     hist[0] = hist_of(doc_mask)
@@ -271,27 +281,27 @@ def _collapse_leaves(nodes: dict, deviance: np.ndarray, depth: np.ndarray,
         n_eff -= 2
 
 
-def segment_sums(index: torch.Tensor, values: torch.Tensor, num_slots: int):
+def segment_sums(index: torch.Tensor, values: torch.Tensor, num_slots: int,
+                 group=None):
     """``sum_n values[n, c]`` into slot ``index[n]``: [num_slots, C], through
-    the plain histogram (K5) with one column of slot ids."""
-    from quickrank_tpu_torch.ops import kernel_histogram
-
-    return kernel_histogram.histogram(
-        index.to(torch.int32)[:, None].contiguous(), values.contiguous(), num_slots
-    )[0]
+    the plain histogram (K5) with one column of slot ids; over every rank's
+    docs under ``group`` (JAX grow.py:456-458)."""
+    return group_histogram(index.to(torch.int32)[:, None].contiguous(),
+                           values.contiguous(), num_slots, group)[0]
 
 
 def leaf_outputs(tree: Tree, node_of_doc: torch.Tensor, grad: torch.Tensor,
                  doc_mask: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None) -> Tree:
+                 weights: Optional[torch.Tensor] = None, group=None) -> Tree:
     """Fill leaf values: mean pseudoresponse (rt.cc:165-184), or the Newton
-    step sum(lambda)/sum(w) when ``weights`` is given (rt.cc:186-207)."""
+    step sum(lambda)/sum(w) when ``weights`` is given (rt.cc:186-207); the
+    sums over every rank's docs under ``group``."""
     max_nodes = tree.max_nodes
     ok = doc_mask & (node_of_doc >= 0)
     g = torch.where(ok, grad, 0.0)
     den_src = ok.float() if weights is None else torch.where(ok, weights, 0.0)
     idx = torch.where(ok, node_of_doc, max_nodes)
-    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), max_nodes + 1)
+    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), max_nodes + 1, group)
     sums, den = both[:max_nodes, 0], both[:max_nodes, 1]
     value = torch.where(den >= EPS, sums / torch.clamp(den, min=EPS), 0.0)
     return dataclasses.replace(

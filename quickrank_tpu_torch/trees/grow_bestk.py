@@ -23,7 +23,9 @@ a split is chosen.  ``k = 1`` is ``fit_tree`` bit for bit.
 
 Ties in deviance go to the lower node id (a stable descending sort), as
 ``jax.lax.top_k`` orders them.  Feature sampling draws one mask per popped
-rank from the host generator, ``fit_tree``'s schedule at k = 1.
+rank from the host generator, ``fit_tree``'s schedule at k = 1.  Under a
+query-sharded group a round's histograms are reduced over the ranks
+(``ops/histogram.py``), as in ``fit_tree``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.histogram import doc_channels, node_histograms_t
+from quickrank_tpu_torch.ops.histogram import doc_channels, histogram_scale, node_histograms_t
 from quickrank_tpu_torch.trees import grow
 from quickrank_tpu_torch.trees.grow import (
     NEG_INF,
@@ -49,12 +51,12 @@ from quickrank_tpu_torch.trees.grow import (
 def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
                    doc_mask: torch.Tensor, thresholds: torch.Tensor,
                    cfg: GrowConfig, k: int,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, group=None):
     """Grow one tree, splitting up to ``k`` heap leaves per histogram pass.
 
     Arguments and result as :func:`trees.grow.fit_tree` (a tree without leaf
-    values, and node_of_doc int32 [N] over all docs); ``k`` is clamped to
-    [1, nleaves - 1]."""
+    values, and node_of_doc int32 [N] over all docs, this rank's under
+    ``group``); ``k`` is clamped to [1, nleaves - 1]."""
     N, F = binned.shape
     dev = binned.device
     B = cfg.num_bins
@@ -65,9 +67,11 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
 
     chan = doc_channels(grad, doc_mask)
     chan_t = torch.where(doc_mask[None, :], chan.T, 0.0).contiguous()
+    scale = histogram_scale(chan_t, group)
 
     def hists_of(pos, num_nodes):
-        return node_histograms_t(binned, chan_t, pos, num_nodes, B)
+        return node_histograms_t(binned, chan_t, pos, num_nodes, B, group=group,
+                                 scale=scale)
 
     hist = torch.zeros((max_nodes, F, B, 3), dtype=torch.float32, device=dev)
     hist[0] = hists_of(torch.where(doc_mask, 0, 1), 1)[0]

@@ -12,7 +12,9 @@ its chosen (feature, bin), the right child is total minus left, and a node
 that stops keeps its own totals.  The Newton denominator rides as the third
 channel in place of the squared gradient.  The JAX package picks each doc's
 split column with a one-hot matmul on the TPU; the port gathers it.  There
-is no host sync.
+is no host sync.  Under a query-sharded group each level's histograms are
+reduced over the ranks (``ops/histogram.py``); the leaf values come from
+them, so they need no other collective.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from quickrank_tpu_torch.ops.histogram import node_histograms, prefix_sum
+from quickrank_tpu_torch.ops.histogram import histogram_scale, node_histograms_t, prefix_sum
 from quickrank_tpu_torch.trees.grow import EPS, NEG_INF, GrowConfig, _feature_sample_mask
 from quickrank_tpu_torch.trees.structs import Tree
 
@@ -31,7 +33,7 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
                        depth: int, cfg: GrowConfig,
                        generator: Optional[torch.Generator] = None,
-                       weights: Optional[torch.Tensor] = None):
+                       weights: Optional[torch.Tensor] = None, group=None):
     """Grow a depth-``depth`` tree breadth-first in heap layout (node i has
     children 2i+1 and 2i+2; leaves at [2^depth - 1, 2^(depth+1) - 1)).
 
@@ -48,7 +50,8 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     newton = weights is not None
     m = doc_mask.to(grad.dtype)
     cols = [m, grad * m] + ([weights * m] if newton else [])
-    chan = torch.stack(cols, dim=-1)
+    chan_t = torch.stack(cols).contiguous()
+    scale = histogram_scale(chan_t, group)
 
     tree = Tree.empty(max_nodes, dev)
     leaf_num = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
@@ -60,8 +63,8 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     for d in range(depth):
         n_nodes = 2 ** d
         base = n_nodes - 1
-        hist = node_histograms(binned, chan, pos, doc_mask, n_nodes, B,
-                               values_premasked=True)  # [nodes, F, B, C]
+        hist = node_histograms_t(binned, chan_t, pos, n_nodes, B, group=group,
+                                 scale=scale)  # [nodes, F, B, C]
         feat_mask = _feature_sample_mask(generator, F, nfs).to(dev)
 
         cum = prefix_sum(hist, 2)

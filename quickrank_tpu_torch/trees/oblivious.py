@@ -20,8 +20,9 @@ The level tables (feature and threshold per level, 2^D leaf values) make
 scoring free of traversal: a doc's leaf index is the OR of its per-level
 comparison bits (src/io/generate_oblivious.cc:306-312).
 
-Single device: sharding over a doc or a feature axis is ROADMAP.md §A
-item 10.
+Under a query-sharded group (``parallel/mesh.py``) each level's histograms
+and the leaf sums are reduced over the ranks (JAX oblivious.py:126-127,
+208-209); sharding the feature axis is ROADMAP.md §A item 10b.
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.histogram import node_histograms, prefix_sum, tree_sum
+from quickrank_tpu_torch.ops.histogram import (
+    histogram_scale,
+    node_histograms_t,
+    prefix_sum,
+    tree_sum,
+)
 from quickrank_tpu_torch.trees.structs import Tree
 
 NEG_INF = float("-inf")
@@ -145,7 +151,7 @@ class ObliviousEnsemble:
 
 def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
-                       depth: int, min_leaf_support: int = 1):
+                       depth: int, min_leaf_support: int = 1, group=None):
     """Level-synchronous fit (ot.cc:46-175).
 
     Returns ``(fid [D] i32, thr [D] f32, thr_bin [D] i32, node_of_doc [N]
@@ -158,7 +164,8 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
     # two channels (count, gradient): the shared-split gain never reads the
     # squared gradient, and 16 nodes pack into a pass instead of 10
     m = doc_mask.to(grad.dtype)
-    chan = torch.stack([m, grad * m], dim=-1)
+    chan_t = torch.stack([m, grad * m]).contiguous()
+    scale = histogram_scale(chan_t, group)
     node = torch.zeros(N, dtype=torch.int32, device=dev)
     fid = torch.zeros(depth, dtype=torch.int32, device=dev)
     thr = torch.full((depth,), FLT_MAX, dtype=torch.float32, device=dev)
@@ -166,8 +173,8 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
     alive = torch.ones((), dtype=torch.bool, device=dev)
 
     for d in range(depth):
-        hist = node_histograms(binned, chan, node, doc_mask, 2 ** d, B,
-                               values_premasked=True)  # [nodes, F, B, 2]
+        hist = node_histograms_t(binned, chan_t, node, 2 ** d, B, group=group,
+                                 scale=scale)  # [nodes, F, B, 2]
         cum = prefix_sum(hist, 2)
         lc = cum[..., 0]
         ls = cum[..., 1]
@@ -198,7 +205,8 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
 
 def oblivious_leaf_outputs(node_of_doc: torch.Tensor, grad: torch.Tensor,
                            doc_mask: torch.Tensor, num_leaves: int,
-                           weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           weights: Optional[torch.Tensor] = None,
+                           group=None) -> torch.Tensor:
     """Leaf values f32 [num_leaves]: mean pseudoresponse (ot.cc:146-152), or
     the Newton step when ``weights`` is given."""
     from quickrank_tpu_torch.trees.grow import EPS, segment_sums
@@ -206,7 +214,7 @@ def oblivious_leaf_outputs(node_of_doc: torch.Tensor, grad: torch.Tensor,
     idx = torch.where(doc_mask, node_of_doc, num_leaves)
     g = torch.where(doc_mask, grad, 0.0)
     den_src = doc_mask.float() if weights is None else torch.where(doc_mask, weights, 0.0)
-    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), num_leaves + 1)
+    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), num_leaves + 1, group)
     sums, den = both[:num_leaves, 0], both[:num_leaves, 1]
     return torch.where(den >= EPS, sums / torch.clamp(den, min=EPS), 0.0)
 

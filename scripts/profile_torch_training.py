@@ -5,12 +5,16 @@ Trains on MSLR-shaped synthetic data (data/synthetic.py: query lengths in
 [38, 232), 136 features) under ``torch.profiler`` and reports, for the
 boosting iterations after the first ``--skip``: wall seconds per tree, the
 device's busy and idle share (union of kernel intervals over the iteration
-window), and device time by kernel name.  One warm-up run first builds the
-kernels.
+window), the ms of each iteration's gradients (lambdas; CUDA events around
+the learner's ``_gradients``), and device time by kernel name.  One warm-up run
+first builds the kernels.  ``--f32-query-sums`` sums the lambdas' pairs and
+the metrics' per-query terms in float32 instead of
+``metrics/core.py::query_sum``'s float64, to price the latter.
 
 Run from the repository root:
     python scripts/profile_torch_training.py --queries 19000 --growth best
     python scripts/profile_torch_training.py --growth best --cluster on
+    python scripts/profile_torch_training.py --f32-query-sums [--metric MAP@10]
 """
 
 from __future__ import annotations
@@ -69,6 +73,11 @@ def main() -> int:
     p.add_argument("--trees", type=int, default=6)
     p.add_argument("--skip", type=int, default=2, help="iterations left out of the window")
     p.add_argument("--trace", help="write a chrome trace here")
+    p.add_argument("--metric", default="NDCG@10",
+                   help="training metric (metric_factory's names; e.g. MAP@10 for the "
+                        "[chunk, D, D] pair tensors, NDCG@10 for the banded ones)")
+    p.add_argument("--f32-query-sums", action="store_true",
+                   help="per-query sums in float32 (torch.sum), not query_sum's float64")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
@@ -77,8 +86,12 @@ def main() -> int:
     from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
     from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
     from quickrank_tpu_torch.learning.mart import Mart
-    from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.metrics import core
+    from quickrank_tpu_torch.metrics.metrics import metric_factory
     from quickrank_tpu_torch.trees import grow
+
+    if args.f32_query_sums:
+        core.query_sum = lambda x, dim=-1: torch.sum(x, dim=dim)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -93,7 +106,8 @@ def main() -> int:
                               growth=args.growth, split_pack=args.split_pack,
                               cluster=args.cluster,
                               max_depth=4 if args.growth == "level" else 0)
-    make(2).learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+    metric = metric_factory(args.metric)
+    make(2).learn(ds, None, metric, verbose=False, device="cuda")
 
     windows = []
     step = Mart._step
@@ -106,13 +120,29 @@ def main() -> int:
         windows.append((t0, time.perf_counter()))
         return out
 
+    grad_events = []
+    learner_cls = type(make(1))
+    gradients = learner_cls._gradients
+
+    def timed_gradients(self, *a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = gradients(self, *a, **k)
+        ev[1].record()
+        grad_events.append(ev)
+        return out
+
     Mart._step = timed_step
+    learner_cls._gradients = timed_gradients
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         lm = make(args.trees)
         grow.HOST_SYNCS = 0
-        lm.learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+        lm.learn(ds, None, metric, verbose=False, device="cuda")
     Mart._step = step
+    learner_cls._gradients = gradients
+    torch.cuda.synchronize()
+    gradient_ms = [round(a.elapsed_time(b), 4) for a, b in grad_events[args.skip:]]
     events = prof.events()
     marks = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name == "boost_iteration")
@@ -126,6 +156,9 @@ def main() -> int:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "growth": args.growth, "cluster": args.cluster, "docs": ds.num_docs,
+        "metric": args.metric,
+        "query_sums": "float32" if args.f32_query_sums else "query_sum (float64 on CUDA)",
+        "gradient_ms": gradient_ms,
         "queries": ds.num_queries,
         "seconds_per_tree": per_tree, "splits_per_tree": splits,
         "host_syncs_per_tree": grow.HOST_SYNCS / args.trees,
