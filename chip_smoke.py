@@ -53,9 +53,15 @@ integers against one launch over all the docs, and K4's library call
 (``index_add_``) timed; two gloo ranks sharing the card against a one-rank
 group and the unsharded run for the four growers (spawned ranks,
 ``parallel/launch.py``); a one-rank NCCL group; and ``--num-shards`` in
-quicklearn and quickscore.  The
-wrappers' launch
-counters show that each path ran its kernels; every kernel is timed beside
+quicklearn and quickscore, on data whose padded rows cross a power of two.
+The rest of parallel training (phases 35-37): DART and X-DART, then
+CoordinateAscent, LineSearch and Cleaver, each unsharded, as a one-rank
+group and as two gloo ranks sharing the card, equal bit for bit; and
+quicklearn's DART with the optimization phase under ``--num-shards 1``
+saving the no-flag run's files.  Phase 6 also holds the fixed-order
+per-query sum kernel (``csrc/query_sum.cu``, not a TPU kernel) against its
+plain version and times it beside the float64 sum it replaced.  The
+wrappers' launch counters show that each path ran its kernels; every kernel is timed beside
 its plain version and its bound (the larger of bytes moved over the card's
 memory rate and operations over its float32 rate).
 
@@ -67,6 +73,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -96,8 +103,13 @@ TRAIN_QUERIES = 19000
 VALID_QUERIES = 2000
 TRAIN_TREES = 8
 DART_TREES = 200  # phase 19: DART's full-width run
+DART35_TREES = 12  # phase 35: DART under a group, three ways
+#: phase 36: train and valid queries of the linear rankers and Cleaver under a
+#: group (cut from 19,000 + 2,000, widths kept), and the trees Cleaver prunes
+LINEAR36_QUERIES = (3000, 500)
+CLEAVER36_TREES = 50
 CPU_QUERIES = 200  # phases 7, 10, 12, 16, 21 and 24: the card against the CPU
-LINEAR_EPOCHS = 3  # phase 23: CoordinateAscent epochs, LineSearch iterations
+LINEAR_EPOCHS = 2  # phase 23: CoordinateAscent epochs, LineSearch iterations
 CLEAVER_RATE = 0.5  # phase 25: the share of the DART model's trees pruned
 CPU_TREES = 5
 T_START = 0.0  # perf_counter at the start of main(); phase headers print the time since
@@ -666,8 +678,11 @@ def main() -> int:
     from quickrank_tpu_torch.metrics import Ndcg
     from quickrank_tpu_torch.trees import grow
 
+    from quickrank_tpu_torch.ops import kernel_query_sum
+
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
+    kernel_query_sum.LAUNCHES = 0
     train_runs = {}
 
     def report_run(name, lm, hist):
@@ -693,9 +708,44 @@ def main() -> int:
         require(hist["train"][-1] > hist["train"][0],
                 f"{growth}: train NDCG@10 did not rise")
     train_launches = dict(kernel_histogram.LAUNCHES)
-    print(f"  histogram kernel launches during training: {train_launches}")
+    qsum_launches = kernel_query_sum.LAUNCHES
+    print(f"  histogram kernel launches during training: {train_launches}; query_sum "
+          f"{qsum_launches}")
     require(all(v > 0 for v in train_launches.values()),
             f"a histogram kernel of the training path was not launched: {train_launches}")
+    require(qsum_launches > 0, "query_sum was not launched during training")
+
+    # the fixed-order query sum (not a TPU kernel) at the shapes training gives
+    # it: a metric's per-query DCG terms [Q, D] and the banded lambda pairs
+    # [chunk, 10, D] summed over both axes; bitwise its plain version
+    Q_, D_ = train_ds.num_queries, train_ds.max_docs_per_query
+    g_ = torch.Generator(device=dev).manual_seed(6)
+    qsum_cases = {f"[{Q_}, {D_}] dim -1 (a metric's terms)":
+                  (torch.rand((Q_, D_), device=dev, generator=g_), -1)}
+    chunk_ = max(1, (45 << 20) // (4 * 10 * D_))
+    pairs_ = torch.randn((chunk_, 10, D_), device=dev, generator=g_)
+    qsum_cases[f"[{chunk_}, 10, {D_}] dim -1 (lambda pairs)"] = (pairs_, -1)
+    qsum_cases[f"[{chunk_}, 10, {D_}] dim -2 (lambda pairs)"] = (pairs_, -2)
+    qsum_times = {}
+    for label, (x_, dim_) in qsum_cases.items():
+        got_ = kernel_query_sum.query_sum(x_, dim_)
+        want_ = kernel_query_sum.pairwise_sum(x_, dim_)
+        require(torch.equal(got_.view(torch.int32), want_.view(torch.int32)),
+                f"query_sum {label}: not bitwise its plain version")
+        f64_ = torch.sum(x_, dim=dim_, dtype=torch.float64).float()
+        ms_ = time_ms(lambda: kernel_query_sum.query_sum(x_, dim_), reps=20)
+        plain_ = time_ms(lambda: kernel_query_sum.pairwise_sum(x_, dim_), reps=3)
+        f64_ms = time_ms(lambda: torch.sum(x_, dim=dim_, dtype=torch.float64).float(), reps=20)
+        lib_ = time_ms(lambda: torch.sum(x_, dim=dim_), reps=20)
+        L_ = x_.shape[dim_]
+        bnd_ = bound_ms(nbytes_of(x_, got_), got_.numel() * (L_ - 1))
+        qsum_times[label] = (ms_, plain_, f64_ms, lib_, bnd_,
+                             float((got_.double() - f64_.double()).abs().max()))
+        print(f"  query_sum {label}: bitwise its plain version; {ms_:.4f} ms (plain "
+              f"{plain_:.4f}, the float64 sum it replaces {f64_ms:.4f}, torch.sum {lib_:.4f}; "
+              f"bound {bnd_[0]:.4f} ms by {bnd_[1]}); max |kernel - float64 sum| "
+              f"{qsum_times[label][5]:.3g}")
+    del pairs_, qsum_cases, got_, want_, f64_
     with tempfile.TemporaryDirectory() as tmp:
         for growth, (lm, _) in train_runs.items():
             path = os.path.join(tmp, f"{growth}.xml")
@@ -1795,12 +1845,14 @@ def main() -> int:
         normalization_factor=4, adaptive_strategy="MIX", negative_strategy=s, **common))
         for s in ("RATIO", "MUL", "POS")]
     learners29 += [("STOCHASTIC-NEGATIVE", StochasticNegative(subsample=0.3, **common))]
+    # the five learners train on one binned copy of the 19,000 queries
+    td29 = TrainData.build(train_ds, 255)
     for label, m in learners29:
         checked = check_presence(m) if label != "RANDOMFOREST" else [None]
         for name in kernel_histogram.LAUNCHES:
             kernel_histogram.LAUNCHES[name] = 0
         grow.HOST_SYNCS = 0
-        h = m.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+        h = m.learn(td29, valid_ds, Ndcg(10), verbose=False)
         sampled_runs[label] = report_run(label, m, h)
         print(f"    train NDCG@10 {[round(x, 5) for x in h['train']]}, valid best "
               f"{max(h['valid']):.5f}; kernel launches {dict(kernel_histogram.LAUNCHES)}; "
@@ -2004,110 +2056,115 @@ def main() -> int:
         "oblivious": ("ObliviousLambdaMart", dict(treedepth=4)),
     }
     ntrees32 = 4
+    # phases 32-36 share the datasets written here; removed when the script exits
     data_dir = tempfile.mkdtemp(prefix="qr_smoke_")
-    try:
-        t0 = time.perf_counter()
-        specs = {}
-        train_npz = workers.save_dataset(train_ds, os.path.join(data_dir, "train.npz"))
-        valid_npz = workers.save_dataset(valid_ds, os.path.join(data_dir, "valid.npz"))
-        for gname, (learner, kw) in growers32.items():
-            kw = dict(kw, ntrees=ntrees32, nthresholds=255, seed=1, esr=100)
-            if learner == "LambdaMart":
-                kw["nleaves"] = 16
-            specs[gname] = dict(learner=learner, kwargs=kw, train=train_npz, valid=valid_npz)
-        jobs1 = [j for s32 in specs.values()
-                 for j in (("train_rank", dict(s32, grouped=False)), ("train_rank", s32))]
-        one = launch.run_ranks(workers.batch_rank, 1, args=(jobs1,), device="cuda",
-                               backend="gloo", deadline=600)[0]
-        t_one = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        two = launch.run_ranks(workers.batch_rank, 2, args=(list(
-            ("train_rank", s32) for s32 in specs.values()),), device="cuda", backend="gloo",
-            deadline=600)
-        t_two = time.perf_counter() - t0
-        print(f"  launches: 1 rank {t_one:.1f} s (data written, loaded and binned, each "
-              f"grower unsharded and as a 1-rank group), 2 ranks {t_two:.1f} s")
-        group_launches = dict.fromkeys(kernel_histogram.LAUNCHES, 0)
-        for i, gname in enumerate(growers32):
-            solo, grp = one[2 * i], one[2 * i + 1]
-            pair = [r[i] for r in two]
-            for k, v in pair[0]["trees"].items():
-                require(np.array_equal(v, pair[1]["trees"][k]),
-                        f"{gname}: the two ranks hold different {k}")
-                require(np.array_equal(v, grp["trees"][k]),
-                        f"{gname}: 2 ranks' {k} differ from the 1-rank group's")
-            d_tr = float(np.abs(np.subtract(pair[0]["history"]["train"],
-                                            grp["history"]["train"])).max())
-            require(d_tr <= 1e-6, f"{gname}: 2 ranks' train NDCG@10 off by {d_tr}")
-            root = [(int(r["trees"]["feature"][0, 0]), int(r["trees"]["threshold_bin"][0, 0]))
-                    for r in (grp, solo)]
-            d_solo = float(np.abs(np.subtract(grp["history"]["train"],
-                                              solo["history"]["train"])).max())
-            require(root[0] == root[1], f"{gname}: the group's root split differs")
-            require(d_solo <= 1e-3, f"{gname}: group and unsharded NDCG@10 off by {d_solo}")
-            same = all(np.array_equal(v, solo["trees"][k]) for k, v in grp["trees"].items())
-            for r in [grp] + pair:
-                for k in group_launches:
-                    group_launches[k] += r["launches"][k]
-            c1, c2 = grp["collectives"], pair[0]["collectives"]
-            s_grp = float(np.median(grp["history"]["iter_seconds"][2:]))
-            s_solo = float(np.median(solo["history"]["iter_seconds"][2:]))
-            s_pair = float(np.median(pair[0]["history"]["iter_seconds"][2:]))
-            print(f"  {gname}@255: 2 ranks = 1-rank group node for node, leaf values bitwise, "
-                  f"train NDCG@10 within {d_tr:.3g}; 1-rank group vs unsharded: root {root[0]}, "
-                  f"NDCG@10 within {d_solo:.3g}, trees bitwise equal: {same}")
-            print(f"    collectives a tree (rank 0): 1 rank {c1['calls'] / ntrees32:.1f} calls, "
-                  f"{c1['bytes'] / ntrees32 / 1e6:.3f} MB, {c1['seconds'] * 1e3 / ntrees32:.3f} "
-                  f"ms; 2 ranks {c2['calls'] / ntrees32:.1f} calls, "
-                  f"{c2['bytes'] / ntrees32 / 1e6:.3f} MB, {c2['seconds'] * 1e3 / ntrees32:.3f} ms")
-            print(f"    s/tree (median of iterations 2+): unsharded {s_solo:.4f}, 1-rank group "
-                  f"{s_grp:.4f} ({s_grp / s_solo:.2f}x), 2 ranks sharing the card {s_pair:.4f}; "
-                  f"train NDCG@10 {[round(x, 5) for x in grp['history']['train']]}")
-        print(f"  histogram launches in the group runs (every rank): {group_launches}")
-        require(all(v > 0 for v in group_launches.values()),
-                f"a kernel of the group path was not launched: {group_launches}")
+    atexit.register(shutil.rmtree, data_dir, True)
+    t0 = time.perf_counter()
+    specs = {}
+    train_npz = workers.save_dataset(train_ds, os.path.join(data_dir, "train.npz"))
+    valid_npz = workers.save_dataset(valid_ds, os.path.join(data_dir, "valid.npz"))
+    for gname, (learner, kw) in growers32.items():
+        kw = dict(kw, ntrees=ntrees32, nthresholds=255, seed=1, esr=100)
+        if learner == "LambdaMart":
+            kw["nleaves"] = 16
+        specs[gname] = dict(learner=learner, kwargs=kw, train=train_npz, valid=valid_npz)
+    jobs1 = [j for s32 in specs.values()
+             for j in (("train_rank", dict(s32, grouped=False)), ("train_rank", s32))]
+    one = launch.run_ranks(workers.batch_rank, 1, args=(jobs1,), device="cuda",
+                           backend="gloo", deadline=600)[0]
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = launch.run_ranks(workers.batch_rank, 2, args=(list(
+        ("train_rank", s32) for s32 in specs.values()),), device="cuda", backend="gloo",
+        deadline=600)
+    t_two = time.perf_counter() - t0
+    print(f"  launches: 1 rank {t_one:.1f} s (data written, loaded and binned, each "
+          f"grower unsharded and as a 1-rank group), 2 ranks {t_two:.1f} s")
+    group_launches = dict.fromkeys(kernel_histogram.LAUNCHES, 0)
+    for i, gname in enumerate(growers32):
+        solo, grp = one[2 * i], one[2 * i + 1]
+        pair = [r[i] for r in two]
+        for k, v in pair[0]["trees"].items():
+            require(np.array_equal(v, pair[1]["trees"][k]),
+                    f"{gname}: the two ranks hold different {k}")
+            require(np.array_equal(v, grp["trees"][k]),
+                    f"{gname}: 2 ranks' {k} differ from the 1-rank group's")
+        d_tr = float(np.abs(np.subtract(pair[0]["history"]["train"],
+                                        grp["history"]["train"])).max())
+        require(d_tr <= 1e-6, f"{gname}: 2 ranks' train NDCG@10 off by {d_tr}")
+        root = [(int(r["trees"]["feature"][0, 0]), int(r["trees"]["threshold_bin"][0, 0]))
+                for r in (grp, solo)]
+        d_solo = float(np.abs(np.subtract(grp["history"]["train"],
+                                          solo["history"]["train"])).max())
+        require(root[0] == root[1], f"{gname}: the group's root split differs")
+        require(d_solo <= 1e-3, f"{gname}: group and unsharded NDCG@10 off by {d_solo}")
+        same = all(np.array_equal(v, solo["trees"][k]) for k, v in grp["trees"].items())
+        for r in [grp] + pair:
+            for k in group_launches:
+                group_launches[k] += r["launches"][k]
+        c1, c2 = grp["collectives"], pair[0]["collectives"]
+        s_grp = float(np.median(grp["history"]["iter_seconds"][2:]))
+        s_solo = float(np.median(solo["history"]["iter_seconds"][2:]))
+        s_pair = float(np.median(pair[0]["history"]["iter_seconds"][2:]))
+        print(f"  {gname}@255: 2 ranks = 1-rank group node for node, leaf values bitwise, "
+              f"train NDCG@10 within {d_tr:.3g}; 1-rank group vs unsharded: root {root[0]}, "
+              f"NDCG@10 within {d_solo:.3g}, trees bitwise equal: {same}")
+        print(f"    collectives a tree (rank 0): 1 rank {c1['calls'] / ntrees32:.1f} calls, "
+              f"{c1['bytes'] / ntrees32 / 1e6:.3f} MB, {c1['seconds'] * 1e3 / ntrees32:.3f} "
+              f"ms; 2 ranks {c2['calls'] / ntrees32:.1f} calls, "
+              f"{c2['bytes'] / ntrees32 / 1e6:.3f} MB, {c2['seconds'] * 1e3 / ntrees32:.3f} ms")
+        print(f"    s/tree (median of iterations 2+): unsharded {s_solo:.4f}, 1-rank group "
+              f"{s_grp:.4f} ({s_grp / s_solo:.2f}x), 2 ranks sharing the card {s_pair:.4f}; "
+              f"train NDCG@10 {[round(x, 5) for x in grp['history']['train']]}")
+    print(f"  histogram launches in the group runs (every rank): {group_launches}")
+    require(all(v > 0 for v in group_launches.values()),
+            f"a kernel of the group path was not launched: {group_launches}")
 
-        # -- phase 33: NCCL --------------------------------------------------------
-        phase("33: a 1-rank NCCL group trains LambdaMART best@255, 4 trees, against "
-              "phase 32's 1-rank gloo group")
-        nccl = launch.run_ranks(workers.batch_rank, 1, args=([("train_rank", specs["best"])],),
-                                device="cuda", deadline=600)[0][0]
+    # -- phase 33: NCCL --------------------------------------------------------
+    phase("33: a 1-rank NCCL group trains LambdaMART best@255, 4 trees, against "
+          "phase 32's 1-rank gloo group")
+    nccl = launch.run_ranks(workers.batch_rank, 1, args=([("train_rank", specs["best"])],),
+                            device="cuda", deadline=600)[0][0]
+    for k, v in one[1]["trees"].items():
+        require(np.array_equal(v, nccl["trees"][k]), f"NCCL: {k} differs from gloo's")
+    require(nccl["history"]["train"] == one[1]["history"]["train"],
+            "NCCL: train NDCG@10 differs from gloo's")
+    s_nccl = float(np.median(nccl["history"]["iter_seconds"][2:]))
+    s_gloo = float(np.median(one[1]["history"]["iter_seconds"][2:]))
+    s_solo = float(np.median(one[0]["history"]["iter_seconds"][2:]))
+    print(f"  the NCCL group's trees and train NDCG@10 equal the gloo group's; collectives "
+          f"a tree {nccl['collectives']['calls'] / ntrees32:.1f} calls, "
+          f"{nccl['collectives']['bytes'] / ntrees32 / 1e6:.3f} MB, "
+          f"{nccl['collectives']['seconds'] * 1e3 / ntrees32:.3f} ms of host time (the "
+          f"enqueue); s/tree NCCL {s_nccl:.4f}, gloo {s_gloo:.4f}, unsharded {s_solo:.4f} "
+          f"(phase 32, the same card)")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        duo = launch.run_ranks(workers.batch_rank, 2, args=(
+            [("train_rank", specs["best"])],), device="cuda", deadline=600)
         for k, v in one[1]["trees"].items():
-            require(np.array_equal(v, nccl["trees"][k]), f"NCCL: {k} differs from gloo's")
-        require(nccl["history"]["train"] == one[1]["history"]["train"],
-                "NCCL: train NDCG@10 differs from gloo's")
-        s_nccl = float(np.median(nccl["history"]["iter_seconds"][2:]))
-        s_gloo = float(np.median(one[1]["history"]["iter_seconds"][2:]))
-        s_solo = float(np.median(one[0]["history"]["iter_seconds"][2:]))
-        print(f"  the NCCL group's trees and train NDCG@10 equal the gloo group's; collectives "
-              f"a tree {nccl['collectives']['calls'] / ntrees32:.1f} calls, "
-              f"{nccl['collectives']['bytes'] / ntrees32 / 1e6:.3f} MB, "
-              f"{nccl['collectives']['seconds'] * 1e3 / ntrees32:.3f} ms of host time (the "
-              f"enqueue); s/tree NCCL {s_nccl:.4f}, gloo {s_gloo:.4f}, unsharded {s_solo:.4f} "
-              f"(phase 32, the same card)")
-        cards = torch.cuda.device_count()
-        if cards >= 2:
-            duo = launch.run_ranks(workers.batch_rank, 2, args=(
-                [("train_rank", specs["best"])],), device="cuda", deadline=600)
-            for k, v in one[1]["trees"].items():
-                require(all(np.array_equal(v, r[0]["trees"][k]) for r in duo),
-                        f"2 NCCL ranks on 2 cards: {k} differs from 1 rank's")
-            print(f"  2 NCCL ranks on 2 of the {cards} cards equal 1 rank node for node; "
-                  f"s/tree {float(np.median(duo[0][0]['history']['iter_seconds'][2:])):.4f}")
-        else:
-            print(f"  SKIPPED: 2 NCCL ranks on 2 cards, since this machine has {cards} CUDA "
-                  "device and NCCL refuses two ranks on one card")
-    finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
+            require(all(np.array_equal(v, r[0]["trees"][k]) for r in duo),
+                    f"2 NCCL ranks on 2 cards: {k} differs from 1 rank's")
+        print(f"  2 NCCL ranks on 2 of the {cards} cards equal 1 rank node for node; "
+              f"s/tree {float(np.median(duo[0][0]['history']['iter_seconds'][2:])):.4f}")
+    else:
+        print(f"  SKIPPED: 2 NCCL ranks on 2 cards, since this machine has {cards} CUDA "
+              "device and NCCL refuses two ranks on one card")
 
     # -- phase 34: --num-shards in the two CLIs ----------------------------------
-    phase("34: quicklearn --num-shards 1 and quickscore --num-shards 1 on the card")
+    phase("34: quicklearn --num-shards 1 and quickscore --num-shards 1 on the card, on "
+          "data whose padded rows cross a power of two")
     with tempfile.TemporaryDirectory() as tmp:
-        ds34 = make_ranking_dataset(num_queries=1000, avg_docs_per_query=116,
+        # 946 queries: 130,110 real docs padded to 131,072 rows, so a scale
+        # counting the rows would round on another grid than the group's
+        ds34 = make_ranking_dataset(num_queries=946, avg_docs_per_query=116,
                                     num_features=N_FEATURES, seed=0)
         svml = os.path.join(tmp, "mslr-shaped.svml")
         write_svml(ds34, svml)
         n_pad = -(-(ds34.num_docs + 1) // 1024) * 1024
+        require(ds34.num_docs.bit_length() != n_pad.bit_length(),
+                f"phase 34's data do not cross a power of two: {ds34.num_docs} docs, "
+                f"{n_pad} rows")
         models = {}
         for tag, flag in (("plain", []), ("shards1", ["--num-shards", "1"])):
             models[tag] = os.path.join(tmp, f"{tag}.xml")
@@ -2124,8 +2181,8 @@ def main() -> int:
         require(np.array_equal(got, want), "quicklearn --num-shards 1: test scores differ")
         print(f"  quicklearn --num-shards 1 (one NCCL rank) saved the no-flag run's model and "
               f"test scores bit for bit ({ds34.num_docs} real docs and {n_pad} padded rows, "
-              f"both of bit length {ds34.num_docs.bit_length()} / {n_pad.bit_length()}: the "
-              f"same fixed-point scale)")
+              f"of bit lengths {ds34.num_docs.bit_length()} and {n_pad.bit_length()}: both "
+              f"runs count the real docs in the fixed-point scale)")
         outs = {}
         for tag, flag in (("plain", []), ("shards1", ["--num-shards", "1"])):
             outs[tag] = os.path.join(tmp, f"qs.{tag}")
@@ -2156,6 +2213,170 @@ def main() -> int:
             with contextlib.redirect_stdout(io.StringIO()):
                 require(cli.main(two_args) == 0, "quicklearn --num-shards 2 failed")
             print(f"  quicklearn --num-shards 2 trained on 2 of the {cards} cards")
+
+    def three_ways(jobs):
+        """``jobs`` (rank entry, spec) run unsharded and as a 1-rank gloo group
+        (one launch), then as 2 gloo ranks sharing the card: (unsharded
+        results, 1-rank group results, [rank 0, rank 1] results, seconds of
+        the two launches)."""
+        t0 = time.perf_counter()
+        one = launch.run_ranks(workers.batch_rank, 1, args=(
+            [j for e, sp in jobs for j in ((e, dict(sp, grouped=False)), (e, sp))],),
+            device="cuda", backend="gloo", deadline=900)[0]
+        t1 = time.perf_counter()
+        two = launch.run_ranks(workers.batch_rank, 2, args=(jobs,), device="cuda",
+                               backend="gloo", deadline=900)
+        secs = (t1 - t0, time.perf_counter() - t1)
+        return one[0::2], one[1::2], [list(r) for r in zip(*two)], secs
+
+    def model_of(r):
+        """A rank's result reduced to what must match bit for bit: the model
+        (trees or weights) as bytes, and the decisions (metrics, dropped
+        sets, pruned set)."""
+        out = {"model": {k: np.asarray(v).tobytes()
+                         for k, v in (r["trees"] if "trees" in r
+                                      else {"weights": r["weights"]}).items()}}
+        if "info" in r:
+            out.update({k: r["info"][k] for k in ("pruned", "metric_before", "metric_after",
+                                                  "metric_before_valid",
+                                                  "metric_after_valid")})
+        else:
+            out.update({k: r["history"].get(k) for k in ("train", "valid", "dropped")})
+        return out
+
+    def hold_three(label, solo, grp, pair):
+        require(model_of(pair[0]) == model_of(pair[1]), f"{label}: the two ranks differ")
+        require(model_of(pair[0]) == model_of(grp), f"{label}: 2 ranks differ from 1 rank")
+        require(model_of(grp) == model_of(solo),
+                f"{label}: the 1-rank group differs from the unsharded run")
+
+    def collectives(r, per):
+        c = r["collectives"]
+        return (f"{c['calls'] / per:.1f} calls, {c['bytes'] / per / 1e6:.4f} MB, "
+                f"{c['seconds'] * 1e3 / per:.3f} host ms")
+
+    # -- phase 35: DART under a group --------------------------------------------
+    phase(f"35: DART under a group, {DART35_TREES} iterations at {train_ds.num_queries} + "
+          f"{valid_ds.num_queries} queries: unsharded, a 1-rank gloo group and 2 gloo "
+          "ranks sharing the card")
+    dart35 = {"UNIFORM / TREE": dict(rate_drop=0.1),
+              "X-DART (WCONTR, keep_drop)": dict(sample_type="WCONTR", keep_drop=True,
+                                                 rate_drop=0.2)}
+    jobs35 = [("train_rank", dict(learner="Dart", train=train_npz, valid=valid_npz, kwargs=dict(
+        ntrees=DART35_TREES, nleaves=16, nthresholds=255, seed=1, esr=0, **kw)))
+        for kw in dart35.values()]
+    solo35, grp35, pair35, secs35 = three_ways(jobs35)
+    print(f"  launches: 1 rank {secs35[0]:.1f} s (unsharded and the 1-rank group), 2 ranks "
+          f"{secs35[1]:.1f} s")
+    dart35_s = {}
+    for i, label in enumerate(dart35):
+        hold_three(f"DART {label}", solo35[i], grp35[i], pair35[i])
+        h = grp35[i]["history"]
+        n_it = len(h["train"])
+        dropped = sum(len(d) for d in h["dropped"])
+        require(dropped > 0, f"DART {label}: no tree was dropped")
+        s = [float(np.median(r["history"]["iter_seconds"][2:]))
+             for r in (solo35[i], grp35[i], pair35[i][0])]
+        dart35_s[label] = s
+        launches35 = {k: v for k, v in grp35[i]["launches"].items() if v}
+        require(all(grp35[i]["launches"][k] > 0 for k in
+                    ("node_histogram", "histogram", "histogram_to_float", "query_sum",
+                     "qs_score")), f"DART {label}: a kernel was not launched: {launches35}")
+        print(f"  {label}: 2 ranks = 1-rank group = unsharded bit for bit (trees, weights, "
+              f"train and valid NDCG@10, dropped sets); {n_it} iterations, {dropped} trees "
+              f"dropped, last train NDCG@10 {h['train'][-1]:.6f}")
+        print(f"    s/iteration (median of iterations 2+): unsharded {s[0]:.4f}, 1-rank group "
+              f"{s[1]:.4f} ({s[1] / s[0]:.2f}x), 2 ranks sharing the card {s[2]:.4f}")
+        print(f"    collectives an iteration (rank 0): 1 rank {collectives(grp35[i], n_it)}; "
+              f"2 ranks {collectives(pair35[i][0], n_it)}; launches (1-rank group) "
+              f"{launches35}")
+
+    # -- phase 36: the linear rankers and Cleaver under a group --------------------
+    ds36 = [make_ranking_dataset(num_queries=n, num_features=N_FEATURES, seed=36 + i)
+            for i, n in enumerate(LINEAR36_QUERIES)]
+    phase(f"36: CoordinateAscent (1 epoch), LineSearch (2 iterations) and Cleaver "
+          f"(QUALITY_LOSS 0.5, LineSearch 2 iterations, {CLEAVER36_TREES} trees) at "
+          f"{ds36[0].num_queries} + {ds36[1].num_queries} queries x {N_FEATURES} features: "
+          "unsharded, a 1-rank gloo group and 2 gloo ranks sharing the card")
+    train36 = workers.save_dataset(ds36[0], os.path.join(data_dir, "train36.npz"))
+    valid36 = workers.save_dataset(ds36[1], os.path.join(data_dir, "valid36.npz"))
+    lm36 = LambdaMart(ntrees=CLEAVER36_TREES, nleaves=16, nthresholds=255, seed=1, esr=0)
+    lm36.learn(ds36[0], None, Ndcg(10), verbose=False)
+    model36 = os.path.join(data_dir, "lm36.xml")
+    lm36.save(model36)
+    jobs36 = [
+        ("train_rank", dict(learner="CoordinateAscent", kwargs=dict(max_iterations=1),
+                            train=train36, valid=valid36)),
+        ("train_rank", dict(learner="LineSearch", kwargs=dict(max_iterations=2),
+                            train=train36, valid=valid36)),
+        ("optimize_rank", dict(model=model36, train=train36, valid=valid36, cleaver=dict(
+            pruning_method="QUALITY_LOSS", pruning_rate=0.5,
+            line_search=dict(max_iterations=2)))),
+    ]
+    solo36, grp36, pair36, secs36 = three_ways(jobs36)
+    print(f"  launches: 1 rank {secs36[0]:.1f} s, 2 ranks {secs36[1]:.1f} s")
+    linear36 = {}
+    for i, label in enumerate(("COORDASC", "LINESEARCH", "CLEAVER")):
+        hold_three(label, solo36[i], grp36[i], pair36[i])
+        require(grp36[i]["launches"]["query_sum"] > 0, f"{label}: query_sum not launched")
+        if label == "CLEAVER":
+            s = [r["info"]["extract_seconds"] + r["info"]["prune_seconds"]
+                 + r["info"].get("pre_ls_seconds", 0.0) + r["info"].get("post_ls_seconds", 0.0)
+                 for r in (solo36[i], grp36[i], pair36[i][0])]
+            info = grp36[i]["info"]
+            require(grp36[i]["launches"]["qs_partial"] > 0, "Cleaver: K1's partial entry "
+                    "was not launched")
+            per, unit = 1, "a run"
+            print(f"  CLEAVER: 2 ranks = 1-rank group = unsharded bit for bit (pruned set "
+                  f"{len(info['pruned'])} of {info['num_trees_before']}, weights, metrics); "
+                  f"train NDCG@10 {info['metric_before']:.6f} -> {info['metric_after']:.6f}")
+        else:
+            secs_key = "epoch_seconds" if label == "COORDASC" else "iteration_seconds"
+            s = [float(np.median(r["history"][secs_key])) for r in
+                 (solo36[i], grp36[i], pair36[i][0])]
+            per = len(grp36[i]["history"]["train"])
+            unit = "an epoch" if label == "COORDASC" else "an iteration"
+            print(f"  {label}: 2 ranks = 1-rank group = unsharded bit for bit (weights, train "
+                  f"and valid NDCG@10 {grp36[i]['history']['train'][-1]:.6f} / "
+                  f"{grp36[i]['history']['valid'][-1]:.6f})")
+        linear36[label] = s
+        print(f"    seconds {unit}: unsharded {s[0]:.4f}, 1-rank group {s[1]:.4f} "
+              f"({s[1] / s[0]:.2f}x), 2 ranks sharing the card {s[2]:.4f}; collectives "
+              f"{unit} (rank 0): 1 rank {collectives(grp36[i], per)}; 2 ranks "
+              f"{collectives(pair36[i][0], per)}")
+    del ds36, lm36
+
+    # -- phase 37: quicklearn --num-shards 1 with DART and the optimization phase --
+    phase("37: quicklearn --algo DART with --opt-algo CLEAVER, --num-shards 1 against the "
+          "no-flag run, on phase 34's data")
+    with tempfile.TemporaryDirectory() as tmp:
+        svml = os.path.join(tmp, "mslr-shaped.svml")
+        write_svml(ds34, svml)
+        files = {}
+        for tag, flag in (("plain", []), ("shards1", ["--num-shards", "1"])):
+            files[tag] = {k: os.path.join(tmp, f"{tag}.{k}") for k in
+                          ("model.xml", "pruned.xml", "opt.xml", "ptrain.svml")}
+            f = files[tag]
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["--algo", "DART", "--train", svml, "--num-trees", "8",
+                               "--num-leaves", "16", "--rate-drop", "0.3", "--partial", "0",
+                               "--quiet", "--model-out", f["model.xml"], "--opt-algo",
+                               "CLEAVER", "--opt-method", "QUALITY_LOSS", "--pruning-rate",
+                               "0.5", "--with-line-search", "--max-iterations", "2",
+                               "--opt-model", f["opt.xml"], "--opt-algo-model",
+                               f["pruned.xml"], "--train-partial", f["ptrain.svml"]] + flag)
+            require(rc == 0, f"quicklearn --algo DART --opt-algo {' '.join(flag)}: exit {rc}")
+        for k in ("model.xml", "pruned.xml"):
+            a, b = (LTRAlgorithm.load(files[t][k]).ensemble.numpy() for t in files)
+            require(all(np.array_equal(a[x], b[x]) for x in a),
+                    f"quicklearn --num-shards 1: its {k} differs from the no-flag run's")
+        for k in ("opt.xml", "ptrain.svml"):
+            with open(files["plain"][k], "rb") as fa, open(files["shards1"][k], "rb") as fb:
+                require(fa.read() == fb.read(), f"quicklearn --num-shards 1: {k} differs")
+        kept = LTRAlgorithm.load(files["plain"]["pruned.xml"]).ensemble.num_trees
+        print(f"  quicklearn --algo DART --opt-algo CLEAVER --num-shards 1 (one NCCL rank) "
+              f"saved the no-flag run's DART model, pruned model ({kept} trees kept), "
+              f"optimizer model and per-tree scores bit for bit")
 
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -2208,6 +2429,20 @@ def main() -> int:
           f"{batch_ms:.4f} ms; Cleaver {cleaver_s:.2f} s; RankBoost {rb_s_round:.4f} s/round "
           f"(K4 {rb_k4_ms:.4f} ms a round); "
           + ", ".join(f"{k} {v:.4f}" for k, v in sampled_runs.items()) + " s/tree")
+    # the fixed-order query sum: not a TPU kernel, so a line of its own (its
+    # launches are phase 6's training runs; held bitwise against its plain
+    # version there, at a metric's [Q, D] terms)
+    q_label, q_t = next(iter(qsum_times.items()))
+    print(json.dumps({"query_sum": {
+        "name": "query_sum", "route": "cuda", "source": "quickrank_tpu_torch/csrc/query_sum.cu",
+        "replaces": None, "shape": q_label, "launches": qsum_launches, "max_abs_err": 0.0,
+        "ms": q_t[0], "plain_ms": q_t[1], "float64_sum_ms": q_t[2], "bound_ms": q_t[4][0],
+        "bound_by": q_t[4][1], "library_ms": q_t[3]}}))
+    print(f"  under a group (phases 35-36; unsharded / 1-rank gloo group / 2 gloo ranks): "
+          + "; ".join(f"DART {k} {' / '.join(f'{x:.4f}' for x in v)} s/iteration"
+                      for k, v in dart35_s.items())
+          + "; " + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} s"
+                             for k, v in linear36.items()))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,32 @@ class Dataset:
         return ds
 
 
+@dataclasses.dataclass
+class BlockDataset(Dataset):
+    """One rank's block of a query-sharded dataset (:func:`rank_block`): its
+    own queries' rows, and the geometry every block of the group is laid out
+    with, ``dims`` = (queries, rows, longest query) a block
+    (:func:`shard_and_pad`'s ``force_dims``)."""
+
+    dims: tuple = (0, 0, 0)
+
+
+def rank_block(ds: Dataset, num_shards: int, block: int) -> BlockDataset:
+    """Shard ``block`` of ``shard_and_pad(ds, num_shards)`` as a dataset of
+    its own rows: ``shard_and_pad(rank_block(ds, S, b), force_dims=dims)``
+    is ``shard_and_pad(ds, S, block=b)``."""
+    counts = ds.docs_per_query()
+    groups = assign_queries_to_shards(counts, num_shards)
+    dims = (max(len(g) for g in groups),
+            _round_up(max(int(counts[g].sum()) for g in groups) + 1, DOC_ALIGN),
+            int(counts.max()))
+    q0, q1 = groups[block][0], groups[block][-1] + 1
+    r0, r1 = int(ds.query_offsets[q0]), int(ds.query_offsets[q1])
+    return BlockDataset(ds.features[r0:r1], ds.labels[r0:r1],
+                        ds.query_offsets[q0:q1 + 1] - r0, ds.qids[q0:q1],
+                        name=ds.name, dims=dims)
+
+
 def select_columns(ds: Dataset, keep: np.ndarray, name: str = "") -> Dataset:
     """Dataset restricted to the 0-based feature columns ``keep`` (the
     driver's --features selection; Cleaver::filter_dataset,
@@ -106,6 +132,11 @@ def select_columns(ds: Dataset, keep: np.ndarray, name: str = "") -> Dataset:
     return Dataset.from_arrays(
         ds.features[:, keep], ds.labels, qids, name=name or ds.name
     )
+
+
+#: rows a block is rounded up to (the JAX package's histogram tile; kept so
+#: that both packages pad alike)
+DOC_ALIGN = 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -179,7 +210,7 @@ def shard_and_pad(
     ds: Dataset,
     num_shards: int = 1,
     max_docs: Optional[int] = None,
-    doc_align: int = 1024,
+    doc_align: int = DOC_ALIGN,
     block: Optional[int] = None,
     force_dims: Optional[tuple] = None,
 ) -> PaddedDataset:

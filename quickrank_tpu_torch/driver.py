@@ -107,16 +107,18 @@ def _model_max_feature(algo):
 
 
 def _partial_fold(algo, ds: Optional[Dataset], path: Optional[str], device,
-                  verbose: bool) -> Optional[Dataset]:
+                  verbose: bool, group=None) -> Optional[Dataset]:
     """The per-tree score dataset of one fold: read from ``path`` when it
     exists, else extracted from ``algo`` on ``ds`` and written to ``path``
-    when one is given."""
+    when one is given.  Under a group each rank extracts its own block,
+    except that rank 0 extracts all of ``ds`` when it writes ``path``."""
     if path and os.path.exists(path):
         return load_dataset(path, verbose)
     if ds is None:
         return None
-    pds = Cleaver.partial_dataset(algo, ds, device)
-    if path:
+    lead = group is None or group.rank == 0
+    pds = Cleaver.partial_dataset(algo, ds, device, None if path and lead else group)
+    if path and lead:
         write_svml(pds, path)
         if verbose:
             print(f"# partial scores saved to {path}")
@@ -145,9 +147,7 @@ def _learner(p: dict) -> LTRAlgorithm:
 def _refuse_unsharded(p: dict, shards: int) -> None:
     """What --num-shards does not cover yet raises before any data is read;
     the learner says what of it does not train under a group."""
-    if p.get("meta_algo") or p.get("opt_algo") or p.get("opt_model"):
-        what = "the optimization phase (Cleaver, --meta-algo)"
-    elif p.get("model_in") and not p.get("restart_train"):
+    if p.get("model_in") and not p.get("restart_train"):
         what = "scoring a loaded model without training"
     else:
         what = _learner(p).group_refusal()
@@ -306,21 +306,21 @@ def run_rank(params: dict, group) -> dict:
         # per-tree score datasets: loaded from --train-partial /
         # --valid-partial when the file exists, else extracted (and written
         # when a path is given), driver.cc:270-298
-        ptrain = _partial_fold(algo, train, p.get("train_partial"), device, verbose)
-        pvalid = _partial_fold(algo, valid, p.get("valid_partial"), device, verbose)
+        ptrain = _partial_fold(algo, train, p.get("train_partial"), device, verbose, group)
+        pvalid = _partial_fold(algo, valid, p.get("valid_partial"), device, verbose, group)
         with timed("optimize"):
             results["optimization"] = optimizer.optimize(
                 algo, train, valid, train_metric, verbose=verbose, ptrain=ptrain,
-                pvalid=pvalid, device=device)
+                pvalid=pvalid, device=device, mesh=group)
             sync()
-        if p.get("opt_model"):
+        if p.get("opt_model") and lead:
             optimizer.save(p["opt_model"])
             if verbose:
                 print(f"# optimizer model saved to {p['opt_model']}")
         # --opt-algo-model: the optimized ranker (--opt-model-out is its old
         # name; --model-out otherwise)
         out = p.get("opt_algo_model") or p.get("opt_model_out") or p.get("model_out")
-        if out:
+        if out and lead:
             algo.save(out)
             if verbose:
                 print(f"# optimized model saved to {out}")

@@ -40,7 +40,18 @@ order), never in routing or leaf values.
 Score updates of the form ``s + w * d`` are fused multiply-adds
 (``ops/scoring.py::fma_f32``), as XLA contracts them on the CPU.
 
-One device only: a mesh raises, naming ROADMAP.md §A item 10b.
+Query-sharded training (``learn(mesh=group)``, a ``parallel.DataGroup``;
+JAX dart.py:165-258): every rank keeps the same drop table (trees, not
+docs), the same host generator and the same weights, and runs the fit, the
+deltas, the rescores and the metrics on its own block.  The trees go through
+Mart's sharded growers; every metric (the line search's 16 points at once,
+the keep and restore decisions) is :func:`~quickrank_tpu_torch.learning.mart.
+reduce_queries` of the ranks' per-query values gathered in global order; a
+new tree's contribution (the CONTR samplers' and normalizations' input) is
+the mean |output| over the docs of every rank, gathered into global doc
+order and summed as one rank sums them.  So every decision is one rank's,
+bit for bit.  ``subsample`` draws per rank, as Mart's does.  Rank 0 alone
+prints and saves.
 """
 
 from __future__ import annotations
@@ -51,18 +62,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.data.dataset import Dataset
-from quickrank_tpu_torch.learning.base import resolve_device
+import torch.nn.functional as F
+
+from quickrank_tpu_torch.data.dataset import DOC_ALIGN, Dataset
 from quickrank_tpu_torch.learning.lambdamart import LambdaMart
 from quickrank_tpu_torch.learning.mart import (
     TrainData,
     _copy_into,
     build_valid_traindata,
     eval_metric,
+    per_query,
     rebin_ensemble,
+    reduce_queries,
     rescore_binned,
 )
 from quickrank_tpu_torch.metrics.metrics import Metric
+from quickrank_tpu_torch.parallel.mesh import BlockOrder
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import fma_f32, tree_delta_binned
@@ -84,6 +99,9 @@ NORMALIZATION_TYPES = (
     "TREE", "NONE", "WEIGHTED", "FOREST", "TREE_ADAPTIVE", "LINESEARCH",
     "TREE_BOOST3", "CONTR", "WCONTR", "LMART_ADAPTIVE",
 )
+#: the sampling and normalization types that read per-tree contributions
+_CONTRIBUTION_TYPES = ("CONTR", "CONTR_INV", "WCONTR", "WCONTR_INV", "TOP_WCONTR",
+                       "LESS_WCONTR")
 ADAPTIVE_TYPES = (
     "FIXED", "PLUS1_DIV2", "PLUSHALF_DIV2", "PLUSONETHIRD_DIV2",
     "PLUSHALF_RESET", "PLUSHALF_RESET_LB1_UB5", "PLUSHALF_RESET_LB1_UB10",
@@ -138,9 +156,22 @@ class DropTable:
             features, table_from_packed(self.rows[:num_trees], self.max_nodes))
 
 
+def mean_over_docs(values: torch.Tensor, n_real: int, docs=None) -> torch.Tensor:
+    """Each row of ``values [..., N]`` (zero on pad rows) summed over the doc
+    axis in XLA's order (``ops/histogram.py::tree_sum``, as JAX sums it) and
+    divided by the real doc count ``n_real``.  Under a group, ``docs`` (a
+    ``parallel.mesh.BlockOrder`` of the docs) gathers every rank's real docs
+    into global order, padded with zeros as one rank's layout pads them, so
+    the mean is one rank's bit for bit."""
+    if docs is not None:
+        values = docs.gather(values)
+        n = values.shape[-1]
+        values = F.pad(values, (0, -(-(n + 1) // DOC_ALIGN) * DOC_ALIGN - n))
+    return tree_sum(values) / np.float32(n_real)
+
+
 class Dart(LambdaMart):
     NAME = "DART"
-    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(
         self,
@@ -176,43 +207,56 @@ class Dart(LambdaMart):
 
     # ------------------------------------------------------------------
 
+    def _uses_contributions(self) -> bool:
+        """Whether a sampler or a normalization reads the per-tree
+        contributions (otherwise they are not computed, and stay 0)."""
+        return (self.sample_type in _CONTRIBUTION_TYPES
+                or self.normalize_type in _CONTRIBUTION_TYPES)
+
     def _fit(self, m: int, tr: TrainData, va: Optional[TrainData], scores_tr, cfg,
-             md: int, n_real: int):
+             md: int, docs=None):
         """Fit iteration ``m``'s tree on ``scores_tr``: (tree, train leaf
         values d_tr, valid leaf values d_va or None, contribution = mean
-        |d_tr| over the real docs)."""
-        sd = tr.step
-        smask = self._sample_mask(sd, self._generator(m, 0), sd.doc_mask)
+        |d_tr| over the real docs, :func:`mean_over_docs`; 0 when
+        :meth:`_uses_contributions` is false)."""
+        sd, group = tr.step, tr.group
+        rank = group.rank if group is not None else None
+        smask = self._sample_mask(sd, self._generator(m, 0, rank), sd.doc_mask)
         grad, w = self._gradients(sd, scores_tr, smask, full_mask=self.subsample == 1.0)
         w = w if self._newton else None
         tree, node, leaves_done = self._fit_and_assign(
             tr, grad, smask, cfg, self._generator(m, 1), weights=w)
         if not leaves_done:
-            tree = leaf_outputs(tree, node, grad, smask, weights=w)
+            tree = leaf_outputs(tree, node, grad, smask, weights=w, group=group,
+                                num_docs=cfg.num_docs)
         d_tr = tree.leaf_value[node.long().clamp(min=0)]
-        # summed in XLA's order (ops/histogram.py::tree_sum), as JAX sums it
-        contrib = float(tree_sum(d_tr.abs() * sd.doc_mask) / np.float32(n_real))
+        contrib = 0.0
+        if self._uses_contributions():
+            contrib = float(mean_over_docs(d_tr.abs() * sd.doc_mask, tr.num_docs, docs))
         d_va = tree_delta_binned(va.step.binned, tree, md) if va is not None else None
         return tree, d_tr, d_va, np.float32(contrib)
 
     @staticmethod
     def _contributions(table: DropTable, num_trees: int, features: torch.Tensor,
-                       doc_mask: torch.Tensor, n_real: int) -> list:
+                       doc_mask: torch.Tensor, n_real: int, docs=None) -> list:
         """Mean |output| over the real docs of each of the first
         ``num_trees`` trees of ``table``, from their per-tree columns (the
         QuickScorer kernel's partial entry on the card), each summed in XLA's
-        order as the JAX package's warm start sums it (``_contribs_j``)."""
+        order as the JAX package's warm start sums it (``_contribs_j``;
+        :func:`mean_over_docs`, gathered over a group's ranks by ``docs``)."""
         mask = doc_mask.float()[:, None]
-        out = [tree_sum((cols.abs() * mask).T.contiguous()) / np.float32(n_real)
+        out = [mean_over_docs((cols.abs() * mask).T.contiguous(), n_real, docs)
                for _, _, cols in table.partial(num_trees, features)]
         return [float(c) for c in torch.cat(out).cpu().numpy()] if out else []
 
-    def _linesearch(self, metric: Metric, sd, s_tr, d_tr) -> np.float32:
+    def _linesearch(self, metric: Metric, tr: TrainData, s_tr, d_tr) -> np.float32:
         """The new tree's weight by a window search (dart.cc:977-1034): the
-        positive points of 17 over [0, 2], the first maximum of the metric."""
+        positive points of 17 over [0, 2], the first maximum of the metric
+        (the 16 metrics reduced at once, one gather under a group)."""
         pts = np.float32(2.0 / 16.0) * np.arange(17, dtype=np.float32)
-        ms = torch.stack([eval_metric(metric, sd, fma_f32(torch.tensor(p), d_tr, s_tr))
-                          for p in pts[1:]]).cpu().numpy()
+        pq = torch.stack([per_query(metric, tr.step, fma_f32(torch.tensor(p), d_tr, s_tr))
+                          for p in pts[1:]])
+        ms = reduce_queries(metric, pq, tr.step, tr.group).cpu().numpy()
         return pts[1 + int(np.argmax(ms))]
 
     def learn(self, train: Dataset, valid: Optional[Dataset] = None,
@@ -227,18 +271,28 @@ class Dart(LambdaMart):
         history dict: per-iteration train and valid metric, best iteration,
         times, and per iteration the dropped slots (``dropped``) and the ms
         of their delta (``delta_ms``: CUDA events on the card, the host
-        clock on the CPU)."""
+        clock on the CPU).  With ``mesh``, a ``parallel.DataGroup``, this
+        rank trains on its block of ``train`` (or on ``train``, this
+        process's ``TrainData``) on the group's device, and every rank
+        returns the same model."""
         self._refuse_group(mesh)
         metric = metric or self.default_metric()
-        device = resolve_device(device)
         t0 = time.time()
-        tr = TrainData.build(train, self.nthresholds, device=device)
+        tr = self._train_data(train, device, mesh)
+        device = tr.step.binned.device
+        group = tr.group
+        lead = group is None or group.rank == 0
+        verbose = verbose and lead
         va = build_valid_traindata(tr, valid, self.nthresholds, device)
-        cfg = self._grow_config(tr.num_bins, tr.num_real_features)
+        cfg = self._grow_config(tr.num_bins, tr.num_real_features, tr.num_docs)
         self._train_metric = metric
         md = self._descend_depth()
         rng = np.random.default_rng(self.seed)
-        n_real = int(tr.padded.doc_mask.sum())
+        n_real = tr.num_docs
+        # under a group, where every rank's real docs sit in global order (the
+        # contributions' sum); a gather of the doc mask, once
+        docs = (BlockOrder.build(group, tr.step.doc_mask)
+                if group is not None and self._uses_contributions() else None)
         on_card = device.type == "cuda"
 
         def rows(td: TrainData) -> torch.Tensor:
@@ -287,14 +341,15 @@ class Dart(LambdaMart):
             T0 = ens.num_trees
             iter_offset = T0
             scores_tr = rescore_binned(ens, tr.step, md)
-            m_tr = float(eval_metric(metric, tr.step, scores_tr))
+            m_tr = float(eval_metric(metric, tr.step, scores_tr, group))
             if va is not None:
                 scores_va = rescore_binned(ens, va.step, md)
-                m_va = float(eval_metric(metric, va.step, scores_va))
+                m_va = float(eval_metric(metric, va.step, scores_va, group))
             # per-tree mean |output| drives the CONTR samplers: rebuilt for
             # the imported trees from their per-tree columns
-            contributions = self._contributions(table, T0, feats_tr, tr.step.doc_mask,
-                                                n_real)
+            contributions = (self._contributions(table, T0, feats_tr, tr.step.doc_mask,
+                                                 n_real, docs)
+                             if self._uses_contributions() else [0.0] * T0)
             best_tr = m_tr
             best_va = m_va if va is not None else -np.inf
             best_iter = 0
@@ -367,11 +422,11 @@ class Dart(LambdaMart):
                     s_va = scores_va - delta_va
 
             # 2. fit on the dropped-out scores
-            tree, d_tr, d_va, contribution = self._fit(m, tr, va, s_tr, cfg, md, n_real)
+            tree, d_tr, d_va, contribution = self._fit(m, tr, va, s_tr, cfg, md, docs)
 
             # 3. the new tree's first weight (dart.cc:944-1060)
             if nt == "LINESEARCH":
-                tw = self._linesearch(metric, tr.step, s_tr, d_tr)
+                tw = self._linesearch(metric, tr, s_tr, d_tr)
             elif nt == "TREE_ADAPTIVE":
                 tw = s_ / (s_ + k)
             elif nt == "TREE_BOOST3":
@@ -419,10 +474,10 @@ class Dart(LambdaMart):
             if self.keep_drop and have_drop:
                 # fitting after the drop, the dropped set left out for good
                 s_tr_fit = fma_f32(torch.tensor(tw), d_tr, s_tr)
-                m_tr_fit = float(eval_metric(metric, tr.step, s_tr_fit))
+                m_tr_fit = float(eval_metric(metric, tr.step, s_tr_fit, group))
                 if va is not None:
                     s_va_fit = fma_f32(torch.tensor(tw), d_va, s_va)
-                    m_va_fit = float(eval_metric(metric, va.step, s_va_fit))
+                    m_va_fit = float(eval_metric(metric, va.step, s_va_fit, group))
                     fit_improved = m_va_fit > np.float32(ref_va if np.isfinite(ref_va) else -3e38)
                 else:
                     s_va_fit, m_va_fit = None, 0.0
@@ -441,11 +496,11 @@ class Dart(LambdaMart):
                 f_t, w_t = torch.tensor(factor), torch.tensor(w_new)
                 scores_tr = fma_f32(w_t, d_tr, fma_f32(f_t, delta_tr, s_tr)
                                     if have_drop else s_tr)
-                m_tr = float(eval_metric(metric, tr.step, scores_tr))
+                m_tr = float(eval_metric(metric, tr.step, scores_tr, group))
                 if va is not None:
                     scores_va = fma_f32(w_t, d_va, fma_f32(f_t, delta_va, s_va)
                                         if have_drop else s_va)
-                    m_va = float(eval_metric(metric, va.step, scores_va))
+                    m_va = float(eval_metric(metric, va.step, scores_va, group))
                 w_host[dropped] = w_host[dropped] * factor
                 w_host[new_idx] = w_new
             sync_weights()
@@ -475,7 +530,8 @@ class Dart(LambdaMart):
                         scores_va = rescore_binned(ens, va.step, md)
                     last_global_rescore = m
             perf_valid_hist.append(m_va if va is not None else m_tr)
-            if partial_save and output_basename and (m + iter_offset) % partial_save == 0:
+            if (partial_save and output_basename and (m + iter_offset) % partial_save == 0
+                    and lead):
                 # periodic snapshot as <base>.T<k>.xml (mart.cc:378-381)
                 snapshot = self.ensemble
                 self.ensemble = ens.live().to("cpu")

@@ -32,6 +32,13 @@ per-query sums, ``log2`` and the mean over queries go their own way), and
 an argmax over an NDCG plateau can turn such a last bit into another point:
 the tests hold the per-step metrics within 1e-6 and whole runs to a quality
 band.
+
+Query-sharded (``learn(mesh=group)``, a ``parallel.DataGroup``; JAX
+linear.py:155-173, 1-D only): each rank holds its block of the queries in
+its :class:`Fold`, builds its rows of every candidate matrix, and a batch's
+per-query metrics cross ranks in one gather (:meth:`Fold.metrics`); the
+host decisions read only those metrics, so every rank keeps one rank's
+weights, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,12 +48,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.data.dataset import Dataset, shard_and_pad
+from quickrank_tpu_torch.data.dataset import BlockDataset, Dataset, rank_block, shard_and_pad
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
-from quickrank_tpu_torch.learning.mart import refuse_group
+from quickrank_tpu_torch.learning.mart import SHARDING_ITEM
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.histogram import tree_sum
+from quickrank_tpu_torch.ops.kernel_query_sum import pairwise_sum
 from quickrank_tpu_torch.ops.scoring import fma_f32, matvec_f32
+from quickrank_tpu_torch.parallel.mesh import BlockOrder, DataGroup
 
 NEG_INF = float("-inf")
 
@@ -58,7 +67,13 @@ CANDIDATE_BATCH_BYTES = 2 << 30
 _CELL_BYTES = 96
 
 def refuse_mesh(mesh) -> None:
-    refuse_group("the linear rankers, Cleaver and MetaCleaver", mesh)
+    """Raise for a ``mesh`` that is not a ``parallel.DataGroup`` (a 1-D
+    query-sharded group), naming ROADMAP.md's item."""
+    if mesh is not None and not isinstance(mesh, DataGroup):
+        raise NotImplementedError(
+            f"the linear rankers, Cleaver and MetaCleaver take a parallel.DataGroup (a "
+            f"1-D query-sharded group) as mesh, got {type(mesh).__name__}; other meshes, "
+            f"such as the 2-D data x feature mesh, are ROADMAP.md {SHARDING_ITEM} part 4")
 
 
 class Fold:
@@ -66,12 +81,23 @@ class Fold:
     float32 feature matrix (padding rows zero), the per-query view, and the
     metric of many score vectors at once.
 
+    Under a query-sharded ``group`` the fold is this rank's block (of
+    ``ds``, or ``ds`` itself when it is a ``BlockDataset``), and every
+    reduction over queries gathers the ranks' per-query values in global
+    query order first (``parallel.mesh.BlockOrder``), so each rank computes
+    the value one rank computes over all the queries, bit for bit.
+
     ``batch_bytes`` bounds the device memory of one chunk of
     :meth:`metrics`; the results do not depend on it."""
 
-    def __init__(self, ds: Dataset, device):
+    def __init__(self, ds: Dataset, device, group: Optional[DataGroup] = None):
         device = torch.device(device)
-        padded = shard_and_pad(ds)
+        if group is None:
+            padded = shard_and_pad(ds)
+        else:
+            if not isinstance(ds, BlockDataset):
+                ds = rank_block(ds, group.world_size, group.rank)
+            padded = shard_and_pad(ds, force_dims=ds.dims)
         to = lambda t: t.to(device)  # noqa: E731
         self.device = device
         self.num_features = ds.num_features
@@ -81,7 +107,12 @@ class Fold:
         self.labels2d = torch.where(self.slot_mask, to(padded.labels)[self.pad_index], 0.0)
         self.nvalid = to(padded.nvalid)
         self.query_mask = to(padded.query_mask)
-        self.num_docs = int(padded.doc_mask.sum())
+        self.queries = BlockOrder.build(group, self.nvalid) if group is not None else None
+        #: real queries and docs of the whole fold (every rank's)
+        self.num_queries = (self.queries.count if group is not None
+                            else int(padded.query_mask.sum()))
+        self.num_docs = (self.queries.total if group is not None
+                         else int(padded.doc_mask.sum()))
         self.batch_bytes = CANDIDATE_BATCH_BYTES
 
     def column(self, f: int) -> torch.Tensor:
@@ -93,36 +124,58 @@ class Fold:
         return matvec_f32(self.X, torch.from_numpy(np.asarray(w, np.float32)).to(self.device))
 
     def batch_size(self) -> int:
-        """Candidates one chunk of :meth:`metrics` evaluates at once."""
-        Q, D = self.slot_mask.shape
-        return max(1, self.batch_bytes // max(1, Q * D * _CELL_BYTES))
+        """Candidates one chunk of :meth:`metrics` evaluates at once, from the
+        whole fold's query count (so every rank of a group, and one rank,
+        chunk alike)."""
+        D = self.slot_mask.shape[1]
+        return max(1, self.batch_bytes // max(1, self.num_queries * D * _CELL_BYTES))
+
+    def real_queries(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-query values ``[..., Q]`` of this fold to ``[..., Q_real]``:
+        every real query of the whole fold, in global order (one gather
+        under a group)."""
+        if self.queries is not None:
+            return self.queries.gather(x)
+        return x[..., self.query_mask]
 
     def metrics(self, metric: Metric, cands: torch.Tensor) -> torch.Tensor:
         """The dataset-level ``metric`` of each row of ``cands`` (float32
         ``[C, N]`` scores in padded order): float32 ``[C]``.  Per-query
         values come from ``metric.evaluate_per_query`` on the rows of a
-        chunk stacked along the query axis; each row's mean over queries is
-        summed in float64 and rounded once, so a row's value does not
-        depend on the chunk it was evaluated in."""
+        chunk stacked along the query axis; then every row's values over
+        the real queries (:meth:`real_queries`, one gather for the batch)
+        are summed in float64 and rounded once, so a row's value depends
+        neither on the chunk it was evaluated in nor on the ranks."""
         Q, D = self.slot_mask.shape
-        _, den = metric.aggregate(torch.zeros(Q, device=self.device), self.query_mask,
-                                  torch.tensor(self.num_docs, device=self.device))
         n = self.batch_size()
-        out = []
+        pq = []
         for c0 in range(0, cands.shape[0], n):
             part = cands[c0:c0 + n]
             c = part.shape[0]
             sm = self.slot_mask.repeat(c, 1)
             s = torch.where(sm, part[:, self.pad_index].reshape(c * Q, D), 0.0)
-            pq = metric.evaluate_per_query(s, self.labels2d.repeat(c, 1), sm,
-                                           self.nvalid.repeat(c)).reshape(c, Q)
-            out.append(torch.where(self.query_mask, pq, 0.0).double().sum(-1))
-        num = torch.cat(out) if out else torch.zeros(0, dtype=torch.float64,
-                                                     device=self.device)
-        return metric.finalize(num, den.double()).float()
+            pq.append(metric.evaluate_per_query(s, self.labels2d.repeat(c, 1), sm,
+                                                self.nvalid.repeat(c)).reshape(c, Q))
+        if not pq:
+            return torch.zeros(0, dtype=torch.float32, device=self.device)
+        real = self.real_queries(torch.cat(pq))
+        ones = torch.ones(real.shape[-1], dtype=torch.bool, device=self.device)
+        _, den = metric.aggregate(real[0], ones, torch.tensor(self.num_docs,
+                                                              device=self.device))
+        return metric.finalize(real.double().sum(-1), den.double()).float()
 
     def metric(self, metric: Metric, scores: torch.Tensor) -> float:
         return float(self.metrics(metric, scores[None])[0])
+
+    def doc_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """Per column of ``x [N, c]`` (per-doc values, zero on pad rows), the
+        sum over the real docs of the whole fold: each query's docs, then
+        the real queries in global order (:meth:`real_queries`), each by the
+        pairwise tree of ``ops/kernel_query_sum.py::pairwise_sum``, whose
+        order depends on the lengths only.  ``[c]``, in ``x``'s dtype."""
+        per_doc = torch.where(self.slot_mask[..., None], x[self.pad_index], 0)
+        per_query = pairwise_sum(per_doc, 1)
+        return pairwise_sum(self.real_queries(per_query.T), -1)
 
 
 def grid_points(center: np.float32, window: np.float32, num_points: int) -> np.ndarray:
@@ -189,6 +242,10 @@ class _LinearRanker(LTRAlgorithm):
             raise RuntimeError(f"{self.NAME}: no trained model")
         return self.best_weights
 
+    def group_refusal(self):
+        """Nothing: both rankers train under a query-sharded group."""
+        return None
+
     def scorer_path(self) -> str:
         return "linear"
 
@@ -253,9 +310,12 @@ class _LinearRanker(LTRAlgorithm):
         )
 
     def _folds(self, train, valid, device, mesh):
+        """The train and valid folds on ``device``, or this rank's blocks on
+        the group's device under ``mesh``."""
         refuse_mesh(mesh)
-        device = resolve_device(device)
-        return Fold(train, device), (Fold(valid, device) if valid is not None else None)
+        device = mesh.device if mesh is not None else resolve_device(device)
+        return (Fold(train, device, mesh),
+                Fold(valid, device, mesh) if valid is not None else None)
 
 
 class CoordinateAscent(_LinearRanker):
@@ -287,12 +347,15 @@ class CoordinateAscent(_LinearRanker):
     def learn(self, train: Dataset, valid: Optional[Dataset] = None,
               metric: Optional[Metric] = None, verbose: bool = True, device=None,
               mesh=None) -> dict:
-        """Train on ``device`` (the CUDA card by default, or "cpu"); returns
-        ``{"train": [...], "valid": [...], "epoch_seconds": [...]}``."""
+        """Train on ``device`` (the CUDA card by default, or "cpu"), or on
+        this rank's block under ``mesh`` (a ``parallel.DataGroup``; every
+        rank returns the same weights); returns ``{"train": [...],
+        "valid": [...], "epoch_seconds": [...]}``."""
         import time
 
         metric = metric or self.default_metric()
         fold, vfold = self._folds(train, valid, device, mesh)
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         F = train.num_features
         # the window is normalised by the feature count (coordinate_ascent.cc:123)
         window = self.window_size / F
@@ -416,9 +479,11 @@ class LineSearch(_LinearRanker):
     def learn(self, train: Dataset, valid: Optional[Dataset] = None,
               metric: Optional[Metric] = None, verbose: bool = True, device=None,
               mesh=None) -> dict:
-        """Train on ``device`` (the CUDA card by default, or "cpu"), from
-        the imported weights when there are some, else from ones; returns
-        ``{"train": [...], "valid": [...], "iteration_seconds": [...]}``."""
+        """Train on ``device`` (the CUDA card by default, or "cpu"), or on
+        this rank's block under ``mesh`` (a ``parallel.DataGroup``; every
+        rank returns the same weights), from the imported weights when there
+        are some, else from ones; returns ``{"train": [...], "valid":
+        [...], "iteration_seconds": [...]}``."""
         import time
 
         metric = metric or self.default_metric()
@@ -429,6 +494,7 @@ class LineSearch(_LinearRanker):
                 f"!= num_features {F} (line_search.cc:187-193)"
             )
         fold, vfold = self._folds(train, valid, device, mesh)
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         w0 = (np.ones(F) if self.best_weights is None else self.best_weights).astype(np.float32)
         start = max(0, F - self.train_only_last) if self.train_only_last else 0
         w, w_prev = w0.copy(), w0.copy()

@@ -26,9 +26,11 @@ reproduce ``jax.random``'s bits.
 Query-sharded training (``learn(mesh=group)``, a ``parallel.DataGroup``):
 every rank runs this loop on its own block of the queries.  The histograms
 and leaf sums are reduced over the ranks inside the growers
-(``ops/histogram.py``) and the metric's (numerator, denominator) in
-:func:`eval_metric` (JAX mart.py:138-140); early stopping and rollback read
-the reduced metrics only, so every rank keeps the same ensemble.  Doc
+(``ops/histogram.py``), and :func:`eval_metric` gathers the per-query
+metric values of every rank in global query order and sums them as one
+rank would (JAX psums (numerator, denominator), mart.py:138-140); early
+stopping and rollback read the reduced metrics only, so every rank keeps the
+same ensemble, one rank's bit for bit.  Doc
 subsampling draws per rank, feature sampling the same on every rank (JAX's
 ``fold_in(k1, axis_index)``, mart.py:485-488).  Rank 0 alone prints and
 writes partial models.
@@ -62,7 +64,7 @@ from quickrank_tpu_torch.ops.binning import FLT_MAX, apply_bins, build_threshold
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import kahan_add, partial_scores, tree_delta_binned
-from quickrank_tpu_torch.parallel.mesh import DataGroup
+from quickrank_tpu_torch.parallel.mesh import BlockOrder, DataGroup
 from quickrank_tpu_torch.trees.grow import GrowConfig, fit_tree, leaf_outputs
 from quickrank_tpu_torch.trees.grow_bestk import fit_tree_bestk
 from quickrank_tpu_torch.trees.grow_cluster import (
@@ -110,6 +112,9 @@ class StepData:
     query_mask: torch.Tensor  # bool [Q]
     nvalid: torch.Tensor  # int32 [Q]
     thresholds: torch.Tensor  # f32 [W, B]
+    #: under a group, where every rank's real queries sit in global order
+    #: (the metric's order-free reduction, :func:`reduce_queries`)
+    queries: Optional[BlockOrder] = None
 
 
 @dataclasses.dataclass
@@ -185,12 +190,22 @@ class TrainData:
             nvalid=to(padded.nvalid),
             thresholds=to(torch.from_numpy(np.ascontiguousarray(thresholds))),
         )
+        if group is not None:
+            sd.queries = BlockOrder.build(group, sd.nvalid)
         return TrainData(padded=padded, step=sd, thresholds=thresholds,
                          num_real_features=ds.num_features, group=group)
 
     @property
     def num_bins(self) -> int:
         return int(self.thresholds.shape[1])
+
+    @property
+    def num_docs(self) -> int:
+        """Real docs of the run: all ranks' under a group, else this
+        layout's (the fixed-point scale's count, ``GrowConfig.num_docs``)."""
+        if self.group is not None:
+            return self.group.num_docs
+        return int(self.padded.doc_mask.sum())
 
 
 def build_valid_traindata(tr: TrainData, valid: Optional[Dataset],
@@ -211,17 +226,37 @@ def build_valid_traindata(tr: TrainData, valid: Optional[Dataset],
                            device=device, group=tr.group)
 
 
+def per_query(metric: Metric, sd: StepData, scores: torch.Tensor) -> torch.Tensor:
+    """The metric of each query of flat padded scores: ``[Q]``."""
+    s = gather_padded(scores, sd.pad_index, sd.slot_mask)
+    return metric.evaluate_per_query(s, sd.labels2d, sd.slot_mask, sd.nvalid)
+
+
+def reduce_queries(metric: Metric, pq: torch.Tensor, sd: StepData,
+                   group: Optional[DataGroup] = None) -> torch.Tensor:
+    """The (num, den) mean of metric.h:77-106 of per-query values ``[Q]``
+    (a 0-d tensor), or of each row of ``[C, Q]`` (``[C]``).  Under ``group``
+    every rank's real queries are gathered first, in global query order
+    (one collective, ``sd.queries``), and every rank sums them as one rank
+    sums its queries: the value is one rank's bit for bit, where a sum of
+    the ranks' (num, den) (JAX mart.py:138-140) would depend on how the
+    queries are split."""
+    if group is None:
+        query_mask, num_docs = sd.query_mask, sd.doc_mask.sum()
+    else:
+        pq = sd.queries.gather(pq)
+        query_mask = torch.ones(pq.shape[-1], dtype=torch.bool, device=pq.device)
+        num_docs = torch.tensor(sd.queries.total, device=pq.device)
+    rows = [metric.finalize(*metric.aggregate(r, query_mask, num_docs))
+            for r in (pq if pq.dim() > 1 else pq[None])]
+    return torch.stack(rows) if pq.dim() > 1 else rows[0]
+
+
 def eval_metric(metric: Metric, sd: StepData, scores: torch.Tensor,
                 group: Optional[DataGroup] = None) -> torch.Tensor:
-    """Dataset-level metric of flat padded scores: per-query values, then
-    the (num, den) mean of metric.h:77-106; a 0-d tensor.  Under ``group``
-    (num, den) are summed over the ranks first (JAX mart.py:138-140)."""
-    s = gather_padded(scores, sd.pad_index, sd.slot_mask)
-    pq = metric.evaluate_per_query(s, sd.labels2d, sd.slot_mask, sd.nvalid)
-    num, den = metric.aggregate(pq, sd.query_mask, sd.doc_mask.sum())
-    if group is not None:
-        num, den = group.all_reduce_sum(torch.stack([num.float(), den.float()]))
-    return metric.finalize(num, den)
+    """Dataset-level metric of flat padded scores (0-d): per-query values,
+    then :func:`reduce_queries`."""
+    return reduce_queries(metric, per_query(metric, sd, scores), sd, group)
 
 
 class Mart(LTRAlgorithm):
@@ -294,7 +329,8 @@ class Mart(LTRAlgorithm):
         (mart.cc:418-431)."""
         return (sd.labels - scores).float(), None
 
-    def _grow_config(self, num_bins: int, num_real_features: int = 0) -> GrowConfig:
+    def _grow_config(self, num_bins: int, num_real_features: int = 0,
+                     num_docs: int = 0) -> GrowConfig:
         nleaves = self.nleaves
         if self.growth == "level":
             nleaves = 2 ** self._level_depth()
@@ -303,7 +339,7 @@ class Mart(LTRAlgorithm):
             num_bins=num_bins, max_features=self.max_features,
             newton=self._newton, max_depth=self.max_depth,
             collapse_factor=self.collapse_leaves_factor,
-            num_real_features=num_real_features,
+            num_real_features=num_real_features, num_docs=num_docs,
         )
 
     def _tree_weight(self) -> float:
@@ -415,7 +451,8 @@ class Mart(LTRAlgorithm):
         tree, node, leaves_done = self._fit_and_assign(
             tr, grad, smask, cfg, self._generator(m, 1), weights=w)
         if not leaves_done:
-            tree = leaf_outputs(tree, node, grad, smask, weights=w, group=group)
+            tree = leaf_outputs(tree, node, grad, smask, weights=w, group=group,
+                                num_docs=cfg.num_docs)
         shrinkage = torch.tensor(self._tree_weight(), dtype=torch.float32,
                                  device=sd.binned.device)
         ens.push(tree, self._tree_weight())
@@ -449,6 +486,18 @@ class Mart(LTRAlgorithm):
         if what:
             refuse_group(what, mesh)
 
+    def _train_data(self, train, device, mesh: Optional[DataGroup]) -> TrainData:
+        """``train`` laid out and binned on ``device`` (this rank's block on
+        the group's device under ``mesh``), or ``train`` itself when it is a
+        ``TrainData`` already (``parallel/multihost.py``)."""
+        if not isinstance(train, TrainData):
+            return TrainData.build(train, self.nthresholds, device=device, group=mesh)
+        if (mesh is None) != (train.group is None) or (
+                mesh is not None and train.group.rank != mesh.rank):
+            raise ValueError("a TrainData trains with mesh= the group it was built "
+                             "for, and without one when it was built without")
+        return train
+
     def group_refusal(self):
         if not self._shardable:
             return self.NAME
@@ -476,18 +525,11 @@ class Mart(LTRAlgorithm):
         self._refuse_group(mesh)
         metric = metric or self.default_metric()
         t_init = time.time()
-        if isinstance(train, TrainData):
-            if (mesh is None) != (train.group is None) or (
-                    mesh is not None and train.group.rank != mesh.rank):
-                raise ValueError("a TrainData trains with mesh= the group it was built "
-                                 "for, and without one when it was built without")
-            tr = train
-        else:
-            tr = TrainData.build(train, self.nthresholds, device=device, group=mesh)
+        tr = self._train_data(train, device, mesh)
         device = tr.step.binned.device
         verbose = verbose and (mesh is None or mesh.rank == 0)
         va = build_valid_traindata(tr, valid, self.nthresholds, device)
-        cfg = self._grow_config(tr.num_bins, tr.num_real_features)
+        cfg = self._grow_config(tr.num_bins, tr.num_real_features, tr.num_docs)
         ens = EnsembleTensors.empty(self.ntrees, cfg.max_nodes, device)
 
         def zeros(t: Optional[TrainData]):

@@ -9,7 +9,9 @@ trees, (2) runs Cleaver on the per-tree score matrix to prune
 keeps the result only if the metric improved (``opt_last_only`` allows
 backtracking), until ``final_ntrees`` trees or an early stop; at the end the
 trees added after the best model are masked away (meta_cleaver.cc:337-347).
-Everything runs on the ``device`` given to :meth:`MetaCleaver.learn`.
+Everything runs on the ``device`` given to :meth:`MetaCleaver.learn`, or,
+under a query-sharded group, on each rank's block: the learner and Cleaver
+both train under it, and every rank keeps the same model.
 """
 
 from __future__ import annotations
@@ -47,11 +49,13 @@ class MetaCleaver(LTRAlgorithm):
     def learn(self, train: Dataset, valid: Optional[Dataset] = None,
               metric: Optional[Metric] = None, verbose: bool = True, device=None,
               mesh=None) -> dict:
-        """Grow and prune on ``device`` (the CUDA card by default, or "cpu").
+        """Grow and prune on ``device`` (the CUDA card by default, or "cpu"),
+        or on this rank's block under ``mesh`` (a ``parallel.DataGroup``).
         Returns ``{"iterations": [...], "best_train", "best_valid",
         "final_size"}``."""
         refuse_mesh(mesh)
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         metric = metric or self.default_metric()
         algo, cleaver = self.ltr_algo, self.cleaver
         cleaver.update_model = False  # the meta loop applies the weights
@@ -75,7 +79,7 @@ class MetaCleaver(LTRAlgorithm):
             # ntrees_per_iter more trees, without valid: the meta loop stops early
             algo.ntrees = last_size + self.ntrees_per_iter
             algo.learn(train, None, metric, verbose=self.meta_verbose, device=device,
-                       warm_start=True)
+                       warm_start=True, mesh=mesh)
             new_size = self._ensemble_size()
             diff = new_size - last_size
             if diff == 0:
@@ -100,7 +104,7 @@ class MetaCleaver(LTRAlgorithm):
             if cleaver.line_search is not None:
                 cleaver.line_search.reset_weights()
             cleaver.optimize(algo, train, valid, metric, verbose=self.meta_verbose,
-                             device=device)
+                             device=device, mesh=mesh)
 
             improvement = False
             if valid is not None:

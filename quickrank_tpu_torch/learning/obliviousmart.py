@@ -60,7 +60,7 @@ class _ObliviousFit:
         sd = tr.step
         fid, thr, tbin, leafidx = fit_oblivious_tree(
             sd.binned, grad, smask, sd.thresholds, self.treedepth,
-            min_leaf_support=self.minleafsupport, group=tr.group,
+            min_leaf_support=self.minleafsupport, group=tr.group, num_docs=cfg.num_docs,
         )
         L = 2 ** self.treedepth
         tree = oblivious_to_tree(

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from quickrank_tpu_torch.ops import kernel_query_sum
+
 NEG_INF = float("-inf")
 
 
@@ -42,16 +44,15 @@ def unsort_to_slots(order, *vals):
 
 def query_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Sum over one axis of a per-query view.  On the CPU a float32 sum (the
-    order the tests hold against XLA's).  On CUDA it accumulates in float64
-    and rounds once to float32: CUDA's float32 reductions take their order
-    from the tensor's shape and each row's alignment, so a query's sum would
-    depend on which queries share its batch (its rank's block under query
-    sharding, or its chunk); in float64 the order leaves the rounded sum
-    unchanged unless the exact sum lies within ~2^-29 of a float32 rounding
-    boundary."""
-    if x.device.type == "cpu" or x.dtype != torch.float32:
+    order the tests hold against XLA's).  On CUDA a float32 pairwise tree
+    over the axis padded to a power of two (``ops/kernel_query_sum.py``, one
+    launch): CUDA's own float32 reductions take their order from the
+    tensor's shape and each row's alignment, so a query's sum would depend
+    on which queries share its batch (its chunk, or its rank's block under
+    query sharding); the tree's order depends on the axis length only."""
+    if x.device.type == "cpu":
         return torch.sum(x, dim=dim)
-    return torch.sum(x, dim=dim, dtype=torch.float64).to(torch.float32)
+    return kernel_query_sum.query_sum(x, dim)
 
 
 def gains(labels):

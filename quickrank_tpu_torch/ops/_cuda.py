@@ -56,6 +56,8 @@ SIGNATURES = {
     # data, n, width, mode, dsta, dstb, stamp_z, stamp_o, fstar, tstar,
     # pos_col, out, stream
     "partition_rows": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    # x, rows, length, inner, out, stream
+    "query_sum": [_P, _I64, _I64, _I64, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,8 +17,9 @@ sums a histogram's bin axis, so that the gain scan picks the same split
 from the same histogram, bit for bit.
 
 On the card every histogram is the kernels' fixed-point sum under a scale
-(:func:`histogram_scale`: the channels' max bits and a doc count), which a
-grower takes once a tree and passes to each histogram of the tree.
+(:func:`histogram_scale`: the channels' max bits and the count of real docs,
+:func:`scale_doc_count`), which a grower takes once a tree and passes to
+each histogram of the tree.
 
 Under a query-sharded group (``parallel/mesh.py::DataGroup``) the same
 functions return the histogram of every rank's docs: this module is the
@@ -52,21 +53,31 @@ def doc_channels(grad: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([m, grad * m, grad * grad * m], dim=-1)
 
 
-def histogram_scale(values_t, group=None):
+def scale_doc_count(rows: int, group=None, num_docs: int = 0) -> int:
+    """The doc count of the card's fixed-point scale over ``rows`` rows: the
+    real docs of all ranks under ``group`` (``DataGroup.num_docs``), else
+    the caller's real docs ``num_docs`` (0: every row is a doc).  Pad rows
+    carry zeros, so the real count keeps the overflow bound, and one device
+    and any group round on the same grid whatever the padding."""
+    if group is not None:
+        return group.num_docs
+    return int(num_docs) or int(rows)
+
+
+def histogram_scale(values_t, group=None, num_docs: int = 0):
     """The fixed-point scale of the card's histograms of channel-major
-    values ``[C, N]``: (max bits int32 ``[C]``, doc count).  On one device
-    the values' own max and N rows; under ``group`` the ranks agree on it
-    with one all-reduce max of the bits, and the count is the real docs of
-    all ranks (``DataGroup.num_docs``).  None on the CPU, whose plain
-    histograms are float."""
+    values ``[C, N]``: (max bits int32 ``[C]``, doc count).  The bits are
+    the values' own max, and under ``group`` the ranks agree on them with
+    one all-reduce max; the count is :func:`scale_doc_count`'s.  None on the
+    CPU, whose plain histograms are float."""
     from quickrank_tpu_torch.ops import kernel_histogram as kh
 
     if values_t.device.type == "cpu":
         return None
     bits = kh.channel_max_bits(values_t)
-    if group is None:
-        return bits, values_t.shape[1]
-    return group.all_reduce_max(bits), group.num_docs
+    if group is not None:
+        bits = group.all_reduce_max(bits)
+    return bits, scale_doc_count(values_t.shape[1], group, num_docs)
 
 
 def masked_histogram_t(binned, values_t, mask, num_bins: int, f_used: int = 0,
@@ -116,16 +127,16 @@ def _reduce_float(outs, group) -> None:
         o.copy_(x)
 
 
-def group_histogram(binned, values, num_bins: int, group=None):
+def group_histogram(binned, values, num_bins: int, group=None, num_docs: int = 0):
     """K5 (``[F, B, C]`` of doc-major ``values [N, C]``), reduced over
     ``group``'s ranks when one is given, as :func:`masked_histogram_t`
-    reduces K4."""
+    reduces K4; ``num_docs`` counts the real docs among the rows (0: all)."""
     from quickrank_tpu_torch.ops import kernel_histogram as kh
 
     if binned.device.type == "cpu":
         h = kh.histogram(binned, values, num_bins)
         return h if group is None else group.all_reduce_sum(h)
-    bits, n = histogram_scale(values.T, group)
+    bits, n = histogram_scale(values.T, group, num_docs)
     acc = kh.histogram_int(binned, values, num_bins, bits, n)
     if group is not None:
         acc = group.all_reduce_sum(acc)

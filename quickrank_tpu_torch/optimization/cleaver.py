@@ -21,16 +21,25 @@ Flow (cleaver.cc:166-418):
      the pruned ones zero;
   5. an optional line search re-weights the column-filtered matrix;
   6. ``algo.update_weights`` writes back, dropping zero-weight trees.
+
+Query-sharded (``optimize(mesh=group)``, a ``parallel.DataGroup``; JAX
+cleaver.py:58-131): each rank extracts the per-tree matrix of its own block
+of the queries (K1's partial entry on its rows) and holds it in its
+``Fold``; every candidate metric and the SCORE_LOSS sums cross ranks in
+gathers that leave them one rank's values bit for bit (``Fold.metrics``,
+``Fold.doc_sums``), so every rank prunes the same set and keeps the same
+weights.  Rank 0 alone prints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.data.dataset import Dataset, select_columns
+from quickrank_tpu_torch.data.dataset import Dataset, rank_block
 from quickrank_tpu_torch.learning.base import resolve_device
 from quickrank_tpu_torch.learning.linear import Fold, LineSearch, refuse_mesh
 from quickrank_tpu_torch.metrics.metrics import Metric
@@ -61,11 +70,12 @@ class _PartialEval:
     49-79, random_adv_pruning.cc:43-76, score_loss_pruning.cc:58-77).
     Candidates are built a batch at a time (``Fold.batch_size``), so peak
     memory does not grow with the number of trees, and each candidate's
-    metric does not depend on the batch it was evaluated in."""
+    metric does not depend on the batch it was evaluated in.  Under a
+    ``group`` the fold is this rank's block."""
 
-    def __init__(self, metric: Metric, ds: Dataset, device):
+    def __init__(self, metric: Metric, ds: Dataset, device, group=None):
         self.metric = metric
-        self.fold = Fold(ds, device)
+        self.fold = Fold(ds, device, group)
         self.num_trees = ds.num_features
 
     def base(self, w) -> torch.Tensor:
@@ -100,8 +110,9 @@ class _PartialEval:
 
     def mask_metrics(self, base, w, masks) -> np.ndarray:
         """Metric after removing each row-mask's tree set: float32 ``[B]``.
-        ``base - P @ (w * m_b)``, the product summed in float64 over blocks
-        of :data:`_MASK_COLUMNS` columns cast at a time (so memory does not
+        ``base - P @ (w * m_b)``, the product summed in float64 tree by tree
+        (elementwise, so a doc's sum does not depend on the rows beside it;
+        :data:`_MASK_COLUMNS` columns cast at a time, so memory does not
         grow with the trees) and rounded once."""
         w64 = torch.from_numpy(np.asarray(w, np.float32).astype(np.float64)).to(self.fold.device)
         m = torch.from_numpy(np.asarray(masks, np.float32).astype(np.float64)).to(self.fold.device)
@@ -112,21 +123,24 @@ class _PartialEval:
             wm = w64[:, None] * m[b0:b0 + n].T
             delta = torch.zeros((X.shape[0], wm.shape[1]), dtype=torch.float64, device=X.device)
             for c0 in range(0, self.num_trees, _MASK_COLUMNS):
-                delta += X[:, c0:c0 + _MASK_COLUMNS].double() @ wm[c0:c0 + _MASK_COLUMNS]
+                cols = X[:, c0:c0 + _MASK_COLUMNS].double()
+                for j in range(cols.shape[1]):
+                    delta.addcmul_(cols[:, j:j + 1], wm[c0 + j][None, :])
             out.append(self.fold.metrics(self.metric, base[None, :] - delta.float().T))
         return torch.cat(out).cpu().numpy()
 
     def score_loss_sums(self, base, w) -> np.ndarray:
         """Per tree, the sum over docs of ``w_f * P[d, f] / score_d``
         (score_loss_pruning.cc:58-77's formula; padding rows are zero):
-        float64 ``[T]``, the float32 terms summed in float64."""
+        float64 ``[T]``, the float32 terms summed in float64 by query and
+        then over the queries (``Fold.doc_sums``)."""
         safe = torch.where(base == 0, torch.tensor(1e-12, device=base.device), base)
         w32 = self._weights(w)
         n = self.fold.batch_size()
         out = []
         for f0 in range(0, self.num_trees, n):
             terms = (self.fold.X[:, f0:f0 + n] * w32[None, f0:f0 + n]) / safe[:, None]
-            out.append(terms.double().sum(0))
+            out.append(self.fold.doc_sums(terms.double()))
         return torch.cat(out).cpu().numpy()
 
 
@@ -162,36 +176,46 @@ class Cleaver:
         self.weights_ = np.asarray(weights, np.float64).copy()
 
     @staticmethod
-    def partial_dataset(algo, ds: Dataset, device=None) -> Dataset:
+    def partial_dataset(algo, ds: Dataset, device=None, group=None) -> Dataset:
         """Per-tree score dataset, rows docs and columns trees
-        (Driver::extract_partial_scores, driver.cc:411-446)."""
+        (Driver::extract_partial_scores, driver.cc:411-446).  Under a
+        ``group``, this rank's block of ``ds`` only (a ``BlockDataset``):
+        each rank extracts its own rows."""
+        if group is not None:
+            ds = rank_block(ds, group.world_size, group.rank)
         P = algo.partial_scores_dataset(ds, device=device)
-        qids = np.repeat(ds.qids, ds.docs_per_query())
-        return Dataset.from_arrays(P, ds.labels, qids, name=f"partial:{ds.name}")
+        return dataclasses.replace(ds, features=np.ascontiguousarray(P, np.float32),
+                                   name=f"partial:{ds.name}")
 
     def optimize(self, algo, train, valid=None, metric=None, verbose: bool = True,
                  ptrain=None, pvalid=None, mesh=None, device=None) -> dict:
         """Prune and re-weight ``algo`` on ``device`` (the CUDA card by
         default, or "cpu").  ``ptrain``/``pvalid`` may supply precomputed
         per-tree score datasets (the driver's --train-partial /
-        --valid-partial, driver.cc:270-298).  Returns ``info``: metrics and
-        tree counts before and after, the pruned slots, and the seconds of
-        the extraction, the selection and each line search."""
+        --valid-partial, driver.cc:270-298).  With ``mesh``, a
+        ``parallel.DataGroup``, this rank works on its block of the folds
+        (of ``ptrain`` / ``pvalid`` too, unless they are ``BlockDataset``
+        blocks already) on the group's device, and every rank prunes the
+        same set.  Returns ``info``: metrics and tree counts before and
+        after, the pruned slots, and the seconds of the extraction, the
+        selection and each line search."""
         import time
 
         refuse_mesh(mesh)
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
+        verbose = verbose and (mesh is None or mesh.rank == 0)
         metric = metric or algo.default_metric()
         info: dict = {}
         t0 = time.time()
         if ptrain is None:
-            ptrain = self.partial_dataset(algo, train, device)
+            ptrain = self.partial_dataset(algo, train, device, mesh)
         if pvalid is None and valid is not None:
-            pvalid = self.partial_dataset(algo, valid, device)
+            pvalid = self.partial_dataset(algo, valid, device, mesh)
         info["extract_seconds"] = time.time() - t0
         T = ptrain.num_features
-        ev = _PartialEval(metric, ptrain, device)
-        ev_valid = _PartialEval(metric, pvalid, device) if pvalid is not None else None
+        ev = _PartialEval(metric, ptrain, device, mesh)
+        ev_valid = (_PartialEval(metric, pvalid, device, mesh) if pvalid is not None
+                    else None)
 
         window = self.last_estimators_to_optimize or T
         opt_last_only = self.last_estimators_to_optimize > 0
@@ -229,7 +253,7 @@ class Cleaver:
                 # <ensemble> was empty): run the line search
                 ls.update_weights(weights)
                 t1 = time.time()
-                ls.learn(ptrain, pvalid, metric, verbose=False, device=device)
+                ls.learn(ptrain, pvalid, metric, verbose=False, device=device, mesh=mesh)
                 info["pre_ls_seconds"] = time.time() - t1
                 weights = ls.get_weights().copy()
             else:
@@ -264,7 +288,8 @@ class Cleaver:
             ftrain = _filter_columns(ptrain, keep)
             fvalid = _filter_columns(pvalid, keep) if pvalid is not None else None
             t1 = time.time()
-            ls_hist = ls.learn(ftrain, fvalid, metric, verbose=False, device=device)
+            ls_hist = ls.learn(ftrain, fvalid, metric, verbose=False, device=device,
+                               mesh=mesh)
             info["post_ls_seconds"] = time.time() - t1
             info["post_ls_iteration_seconds"] = ls_hist["iteration_seconds"]
             weights[keep] = ls.get_weights()
@@ -430,5 +455,7 @@ class Cleaver:
 
 
 def _filter_columns(ds: Dataset, keep: np.ndarray) -> Dataset:
-    """The pruned columns dropped (Cleaver::filter_dataset, cleaver.cc:448-481)."""
-    return select_columns(ds, keep, name=f"filtered:{ds.name}")
+    """The pruned columns dropped (Cleaver::filter_dataset, cleaver.cc:448-481);
+    a ``BlockDataset`` stays one."""
+    return dataclasses.replace(ds, features=np.ascontiguousarray(ds.features[:, keep]),
+                               name=f"filtered:{ds.name}")

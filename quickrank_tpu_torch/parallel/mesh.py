@@ -12,17 +12,20 @@ same sites cross ranks through a :class:`DataGroup`:
      sums (``ops/histogram.py``: the kernels' 64-bit fixed-point sums are
      reduced as integers before they are converted, so the reduced
      histogram is the one a single rank computes over all the docs);
-  2. the metric's (numerator, denominator) per iteration
-     (``learning/mart.py::eval_metric``).
+  2. every metric: each rank's per-query values are gathered into global
+     query order (:class:`BlockOrder`) and every rank sums them as one rank
+     over all the queries would (``learning/mart.py::eval_metric``, the
+     linear rankers' and Cleaver's ``Fold``); DART's per-tree contribution
+     gathers the docs' values the same way.
 
-Every split, early stop and rollback is decided from reduced values only,
-so every rank grows the same trees and holds the same ensemble.  Nothing
-else crosses ranks, apart from the set-up data of
-``parallel/multihost.py`` (one gather of the threshold tables).
+Every split, early stop, rollback, dropped set, chosen point and pruned set
+is decided from reduced values only, so every rank grows the same trees and
+holds the same model.  Nothing else crosses ranks, apart from set-up data
+(the block orders, and ``parallel/multihost.py``'s threshold tables).
 
 A group's collectives are :meth:`DataGroup.all_reduce_sum`,
-:meth:`DataGroup.all_reduce_max` and :meth:`DataGroup.all_gather` (CPU
-tensors, set-up only).  NCCL is the default on CUDA and gloo on the CPU;
+:meth:`DataGroup.all_reduce_max` and :meth:`DataGroup.all_gather`.  NCCL is
+the default on CUDA and gloo on the CPU;
 gloo on CUDA stages each reduction through the host, and is the only
 backend that lets two ranks share one card (NCCL refuses two ranks on one
 device).
@@ -95,21 +98,64 @@ class DataGroup:
         return self._staged(t, dist.ReduceOp.MAX)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``[world_size, *t.shape]``: every rank's ``t`` (a CPU tensor of
-        the same shape on every rank), in rank order.  Set-up data only."""
+        """``[world_size, *t.shape]`` on ``t``'s device: every rank's ``t``
+        (the same shape and dtype on every rank), in rank order.  Gloo
+        gathers through host copies, NCCL on the group's device."""
         t0 = time.perf_counter()
         t = t.contiguous()
-        out = [torch.empty_like(t) for _ in range(self.world_size)]
-        if self.backend == "nccl":
-            dev = [x.to(self.device) for x in out]
-            dist.all_gather(dev, t.to(self.device), group=self.group)
-            out = [x.cpu() for x in dev]
+        if self.backend == "gloo":
+            src = t.cpu()
+            parts = [torch.empty_like(src) for _ in range(self.world_size)]
+            dist.all_gather(parts, src, group=self.group)
+            out = torch.stack(parts)
         else:
-            dist.all_gather(out, t, group=self.group)
+            src = t.to(self.device)
+            out = torch.empty((self.world_size,) + tuple(t.shape), dtype=t.dtype,
+                              device=self.device)
+            dist.all_gather_into_tensor(out, src, group=self.group)
+        out = out.to(t.device)
         COLLECTIVES["calls"] += 1
         COLLECTIVES["bytes"] += t.numel() * t.element_size()
         COLLECTIVES["seconds"] += time.perf_counter() - t0
-        return torch.stack(out)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockOrder:
+    """Where the real entries of every rank's block (its queries, or its
+    docs) sit in their global order: rank order, then block order, which is
+    the unsharded layout's (``data/dataset.py::shard_and_pad`` assigns
+    contiguous queries to the ranks in order, real entries first in each
+    block).  ``index`` points into the flattened ``[world_size * n]``
+    gather of a per-entry ``[..., n]`` tensor; ``total`` is the sum of the
+    per-entry counts it was built from (the real docs, for queries).
+
+    :meth:`gather` is the group's order-free reduction: every rank receives
+    the same ``[..., count]`` tensor, the one a single rank holds over all
+    the data, and then runs the sum one rank runs over it, so N ranks'
+    value is one rank's bit for bit."""
+
+    group: DataGroup
+    index: torch.Tensor
+    total: int
+
+    @staticmethod
+    def build(group: DataGroup, counts: torch.Tensor) -> "BlockOrder":
+        """From this rank's per-entry counts ``[n]`` (0 on padding entries:
+        ``nvalid`` for queries, ``doc_mask`` for docs), with one gather."""
+        every = group.all_gather(counts.to(torch.int64)).reshape(-1)
+        index = torch.nonzero(every > 0).squeeze(1)
+        return BlockOrder(group, index.to(counts.device), int(every.sum()))
+
+    @property
+    def count(self) -> int:
+        return int(self.index.numel())
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [..., n]``, this rank's per-entry values, to ``[..., count]``:
+        every rank's real entries in global order (one collective)."""
+        g = self.group.all_gather(x)
+        return g.movedim(0, -2).reshape(x.shape[:-1] + (-1,)).index_select(-1, self.index)
 
 
 def _device_of(rank: int, device: str, backend: str, world_size: int,

@@ -4,7 +4,9 @@ rank of a group and returns what the launcher gathers.
   * :func:`driver_rank`: quicklearn's pipeline (``driver.run``) under the
     group; rank 0 alone prints, writes the model and scores ``--test``;
   * :func:`train_rank`: one learner trained from a spec (``chip_smoke.py``,
-    the parallel tests);
+    the parallel tests): the Mart family and DART on a shared ``TrainData``,
+    the linear rankers and MetaCleaver on the datasets;
+  * :func:`optimize_rank`: Cleaver on a saved model;
   * :func:`grow_rank`: one tree a given (gradient, weight) pair through a
     learner's grower, with no boosting loop around it: the harness that
     holds the sharded growers against a reference given the same gradients;
@@ -51,10 +53,49 @@ def ensemble_arrays(model) -> dict:
     return model.ensemble.live().numpy()
 
 
+def _cleaver(kwargs: dict):
+    """A ``Cleaver`` from its keyword arguments, ``line_search`` given as the
+    ``LineSearch``'s own (or None)."""
+    from quickrank_tpu_torch.learning import LineSearch
+    from quickrank_tpu_torch.optimization import Cleaver
+
+    kw = dict(kwargs)
+    ls = kw.pop("line_search", None)
+    return Cleaver(line_search=LineSearch(**ls) if ls is not None else None, **kw)
+
+
 def _learner(spec: dict):
+    """``spec["learner"](**spec["kwargs"])``; a MetaCleaver's kwargs name its
+    learner as a spec (``ltr_algo``) and its Cleaver's kwargs (``cleaver``)."""
     from quickrank_tpu_torch import learning
 
-    return getattr(learning, spec["learner"])(**spec.get("kwargs", {}))
+    kw = dict(spec.get("kwargs", {}))
+    if spec["learner"] == "MetaCleaver":
+        kw["ltr_algo"] = _learner(kw["ltr_algo"])
+        kw["cleaver"] = _cleaver(kw["cleaver"])
+    return getattr(learning, spec["learner"])(**kw)
+
+
+def _reset_counters():
+    """Zero the collectives and the kernels' launch counters."""
+    from quickrank_tpu_torch.ops import kernel_histogram, kernel_qs, kernel_query_sum
+    from quickrank_tpu_torch.parallel import mesh
+
+    for counter in (mesh.COLLECTIVES, kernel_histogram.LAUNCHES):
+        for k in counter:
+            counter[k] = type(counter[k])(0)
+    kernel_query_sum.LAUNCHES = kernel_qs.LAUNCHES = kernel_qs.PARTIAL_LAUNCHES = 0
+
+
+def _counters() -> dict:
+    """The collectives and the kernels' launches since :func:`_reset_counters`."""
+    from quickrank_tpu_torch.ops import kernel_histogram, kernel_qs, kernel_query_sum
+    from quickrank_tpu_torch.parallel import mesh
+
+    return {"collectives": dict(mesh.COLLECTIVES),
+            "launches": {**kernel_histogram.LAUNCHES, "query_sum": kernel_query_sum.LAUNCHES,
+                         "qs_score": kernel_qs.LAUNCHES,
+                         "qs_partial": kernel_qs.PARTIAL_LAUNCHES}}
 
 
 def _data(spec: dict, group: DataGroup, nthresholds: int, cache: Optional[dict]):
@@ -78,27 +119,51 @@ def train_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> di
     ``spec.get("metric", "NDCG@10")``; with ``spec["grouped"] = False`` the
     same learner trains on the block alone, with no collective, on the
     rank's device (a one-rank launch: the unsharded run).  Returns the
-    history, the trees, the histogram kernels' launches and the collectives
-    issued (calls, bytes, seconds)."""
+    history, the model (trees, or the weights of a linear ranker), the
+    histogram kernels' launches and the collectives issued (calls, bytes,
+    seconds)."""
+    from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.metrics.metrics import metric_factory
-    from quickrank_tpu_torch.ops import kernel_histogram
-    from quickrank_tpu_torch.parallel import mesh
 
     model = _learner(spec)
-    tr, valid = _data(spec, group, model.nthresholds, cache)
     grouped = spec.get("grouped", True)
-    if not grouped:
-        tr = dataclasses.replace(tr, group=None)
-    counters = (mesh.COLLECTIVES, kernel_histogram.LAUNCHES)
-    for counter in counters:
-        for k in counter:
-            counter[k] = type(counter[k])(0)
+    if isinstance(model, Mart):
+        tr, valid = _data(spec, group, model.nthresholds, cache)
+        if not grouped:
+            tr = dataclasses.replace(tr, group=None)
+    else:
+        tr, valid = load_dataset(spec["train"]), load_dataset(spec.get("valid"))
+    _reset_counters()
     hist = model.learn(tr, valid, metric_factory(spec.get("metric", "NDCG@10")),
-                       verbose=False, mesh=group if grouped else None)
-    keep = ("train", "valid", "best_iteration", "iter_seconds", "init_seconds")
-    return {"rank": group.rank, "history": {k: hist[k] for k in keep},
-            "trees": ensemble_arrays(model), "collectives": dict(mesh.COLLECTIVES),
-            "launches": dict(kernel_histogram.LAUNCHES)}
+                       verbose=False, device=group.device, mesh=group if grouped else None)
+    keep = ("train", "valid", "best_iteration", "iter_seconds", "init_seconds",
+            "dropped", "epoch_seconds", "iteration_seconds", "iterations")
+    out = {"rank": group.rank, "history": {k: hist[k] for k in keep if k in hist},
+           **_counters()}
+    if hasattr(model, "best_weights"):
+        out["weights"] = model.get_weights()
+    else:
+        out["trees"] = ensemble_arrays(getattr(model, "ltr_algo", model))
+    return out
+
+
+def optimize_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> dict:
+    """Cleaver (``spec["cleaver"]``, :func:`_cleaver`'s kwargs) on the model
+    saved at ``spec["model"]``, on this rank's block of ``spec["train"]``
+    and ``spec.get("valid")`` (``spec["grouped"] = False``: on the whole
+    folds, with no collective).  Returns the pruned slots, the metrics, the
+    weights and the collectives."""
+    from quickrank_tpu_torch.learning.base import LTRAlgorithm
+    from quickrank_tpu_torch.metrics.metrics import metric_factory
+
+    grouped = spec.get("grouped", True)
+    cleaver = _cleaver(spec["cleaver"])
+    _reset_counters()
+    info = cleaver.optimize(LTRAlgorithm.load(spec["model"]), load_dataset(spec["train"]),
+                            load_dataset(spec.get("valid")),
+                            metric_factory(spec.get("metric", "NDCG@10")), verbose=False,
+                            device=group.device, mesh=group if grouped else None)
+    return {"rank": group.rank, "info": info, "weights": cleaver.weights_, **_counters()}
 
 
 def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> list:
@@ -112,7 +177,7 @@ def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> lis
 
     model = _learner(spec)
     tr, _ = _data(spec, group, model.nthresholds, cache)
-    cfg = model._grow_config(tr.num_bins, tr.num_real_features)
+    cfg = model._grow_config(tr.num_bins, tr.num_real_features, tr.num_docs)
     n = tr.padded.num_docs_padded
     rows = slice(group.rank * n, (group.rank + 1) * n)
     with np.load(spec["gradients"]) as z:
@@ -126,7 +191,8 @@ def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> lis
         tree, node, done = model._fit_and_assign(tr, g, smask, cfg,
                                                  model._generator(m, 1), weights=w)
         if not done:
-            tree = leaf_outputs(tree, node, g, smask, weights=w, group=group)
+            tree = leaf_outputs(tree, node, g, smask, weights=w, group=group,
+                                num_docs=cfg.num_docs)
         out.append({"tree": {k: v.cpu().numpy() for k, v in vars(tree).items()
                              if isinstance(v, torch.Tensor)},
                     "node": node.cpu().numpy()})

@@ -73,6 +73,10 @@ class GrowConfig:
     #: over binned's last pad columns, and keeps its histograms and split
     #: scan to the real columns.
     num_real_features: int = 0
+    #: real docs among the rows (0: every row is one), the doc count of the
+    #: card's fixed-point histogram scale (``ops/histogram.py::
+    #: scale_doc_count``); a query-sharded group counts its own
+    num_docs: int = 0
 
     @property
     def max_nodes(self) -> int:
@@ -157,7 +161,7 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
 
     chan = doc_channels(grad, doc_mask)
     chan_t = torch.where(doc_mask[None, :], chan.T, 0.0).contiguous()
-    scale = histogram_scale(chan_t, group)
+    scale = histogram_scale(chan_t, group, cfg.num_docs)
 
     def hist_of(mask):
         return masked_histogram_t(binned, chan_t, mask, B, group=group, scale=scale)
@@ -282,26 +286,30 @@ def _collapse_leaves(nodes: dict, deviance: np.ndarray, depth: np.ndarray,
 
 
 def segment_sums(index: torch.Tensor, values: torch.Tensor, num_slots: int,
-                 group=None):
+                 group=None, num_docs: int = 0):
     """``sum_n values[n, c]`` into slot ``index[n]``: [num_slots, C], through
     the plain histogram (K5) with one column of slot ids; over every rank's
-    docs under ``group`` (JAX grow.py:456-458)."""
+    docs under ``group`` (JAX grow.py:456-458).  ``num_docs`` counts the
+    real docs among the rows (0: all), for the card's fixed-point scale."""
     return group_histogram(index.to(torch.int32)[:, None].contiguous(),
-                           values.contiguous(), num_slots, group)[0]
+                           values.contiguous(), num_slots, group, num_docs)[0]
 
 
 def leaf_outputs(tree: Tree, node_of_doc: torch.Tensor, grad: torch.Tensor,
                  doc_mask: torch.Tensor,
-                 weights: Optional[torch.Tensor] = None, group=None) -> Tree:
+                 weights: Optional[torch.Tensor] = None, group=None,
+                 num_docs: int = 0) -> Tree:
     """Fill leaf values: mean pseudoresponse (rt.cc:165-184), or the Newton
     step sum(lambda)/sum(w) when ``weights`` is given (rt.cc:186-207); the
-    sums over every rank's docs under ``group``."""
+    sums over every rank's docs under ``group``.  ``num_docs`` counts the
+    real docs among the rows (0: all), for the card's fixed-point scale."""
     max_nodes = tree.max_nodes
     ok = doc_mask & (node_of_doc >= 0)
     g = torch.where(ok, grad, 0.0)
     den_src = ok.float() if weights is None else torch.where(ok, weights, 0.0)
     idx = torch.where(ok, node_of_doc, max_nodes)
-    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), max_nodes + 1, group)
+    both = segment_sums(idx, torch.stack([g, den_src], dim=-1), max_nodes + 1, group,
+                        num_docs)
     sums, den = both[:max_nodes, 0], both[:max_nodes, 1]
     value = torch.where(den >= EPS, sums / torch.clamp(den, min=EPS), 0.0)
     return dataclasses.replace(

@@ -67,7 +67,7 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
 
     chan = doc_channels(grad, doc_mask)
     chan_t = torch.where(doc_mask[None, :], chan.T, 0.0).contiguous()
-    scale = histogram_scale(chan_t, group)
+    scale = histogram_scale(chan_t, group, cfg.num_docs)
 
     def hists_of(pos, num_nodes):
         return node_histograms_t(binned, chan_t, pos, num_nodes, B, group=group,

@@ -51,7 +51,7 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     m = doc_mask.to(grad.dtype)
     cols = [m, grad * m] + ([weights * m] if newton else [])
     chan_t = torch.stack(cols).contiguous()
-    scale = histogram_scale(chan_t, group)
+    scale = histogram_scale(chan_t, group, cfg.num_docs)
 
     tree = Tree.empty(max_nodes, dev)
     leaf_num = torch.zeros(max_nodes, dtype=torch.float32, device=dev)

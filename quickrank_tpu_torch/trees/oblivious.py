@@ -151,12 +151,15 @@ class ObliviousEnsemble:
 
 def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
-                       depth: int, min_leaf_support: int = 1, group=None):
+                       depth: int, min_leaf_support: int = 1, group=None,
+                       num_docs: int = 0):
     """Level-synchronous fit (ot.cc:46-175).
 
     Returns ``(fid [D] i32, thr [D] f32, thr_bin [D] i32, node_of_doc [N]
     i32 in [0, 2^D))`` on ``binned``'s device.  Every doc is routed; the mask
-    only gates the statistics.  There is no host sync."""
+    only gates the statistics.  There is no host sync.  ``num_docs`` counts
+    the real docs among the rows (0: all), for the card's fixed-point
+    scale."""
     N = binned.shape[0]
     dev = binned.device
     B = thresholds.shape[1]
@@ -165,7 +168,7 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
     # squared gradient, and 16 nodes pack into a pass instead of 10
     m = doc_mask.to(grad.dtype)
     chan_t = torch.stack([m, grad * m]).contiguous()
-    scale = histogram_scale(chan_t, group)
+    scale = histogram_scale(chan_t, group, num_docs)
     node = torch.zeros(N, dtype=torch.int32, device=dev)
     fid = torch.zeros(depth, dtype=torch.int32, device=dev)
     thr = torch.full((depth,), FLT_MAX, dtype=torch.float32, device=dev)

@@ -8,8 +8,8 @@ device's busy and idle share (union of kernel intervals over the iteration
 window), the ms of each iteration's gradients (lambdas; CUDA events around
 the learner's ``_gradients``), and device time by kernel name.  One warm-up run
 first builds the kernels.  ``--f32-query-sums`` sums the lambdas' pairs and
-the metrics' per-query terms in float32 instead of
-``metrics/core.py::query_sum``'s float64, to price the latter.
+the metrics' per-query terms with ``torch.sum`` instead of
+``metrics/core.py::query_sum``'s fixed-order kernel, to price the latter.
 
 Run from the repository root:
     python scripts/profile_torch_training.py --queries 19000 --growth best
@@ -77,7 +77,7 @@ def main() -> int:
                    help="training metric (metric_factory's names; e.g. MAP@10 for the "
                         "[chunk, D, D] pair tensors, NDCG@10 for the banded ones)")
     p.add_argument("--f32-query-sums", action="store_true",
-                   help="per-query sums in float32 (torch.sum), not query_sum's float64")
+                   help="per-query sums by torch.sum, not query_sum's fixed-order kernel")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
@@ -157,7 +157,7 @@ def main() -> int:
     print(json.dumps({
         "growth": args.growth, "cluster": args.cluster, "docs": ds.num_docs,
         "metric": args.metric,
-        "query_sums": "float32" if args.f32_query_sums else "query_sum (float64 on CUDA)",
+        "query_sums": "torch.sum" if args.f32_query_sums else "query_sum (fixed-order kernel)",
         "gradient_ms": gradient_ms,
         "queries": ds.num_queries,
         "seconds_per_tree": per_tree, "splits_per_tree": splits,

@@ -65,8 +65,9 @@ def test_restart_train_and_partial_saves(svml_dir, tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--num-feat-shards", "2"], "item 10"),
-    # --num-shards trains the Mart family; the other learners wait for 10b
-    (["--num-shards", "2", "--algo", "DART"], "item 10"),
+    # --num-shards trains the Mart family, DART and the linear rankers; the
+    # sampling learners and RankBoost wait for 10b part 3
+    (["--num-shards", "2", "--algo", "RANDOMFOREST"], "item 10"),
     (["--num-shards", "4", "--algo", "RANKBOOST"], "item 10"),
     (["--model-file", "m.xml", "--code-file", "m.c", "--generator", "stablehlo"], "item 9"),
 ], ids=["extra2-item 10", "extra4-item 10", "extra6-item 10", "extra7-item 9"])  # stable ids

@@ -16,9 +16,17 @@ best-k, level-wise and oblivious LambdaMART at 60 queries:
     JAX's ``learn(mesh=make_mesh(2))`` (NDCG@10 within 1e-4 an iteration)
     and against the port's single-device run (``tests/test_sharding.py``'s
     tolerances: 1e-2 an iteration, 6e-3 on the last train value);
-  * the multi-host data path (each rank keeps its own query block).
+  * the multi-host data path (each rank keeps its own query block);
+  * DART (UNIFORM / TREE, and a run sampling by WCONTR),
+    CoordinateAscent, LineSearch, Cleaver (QUALITY_LOSS_ADV with a line
+    search before and after) and MetaCleaver over MART, each held against
+    JAX's run on ``make_mesh(2)`` and against the port's single-device run:
+    the linear rankers and Cleaver bit for bit (every metric is reduced in
+    one global query order), DART and MetaCleaver within
+    ``tests/test_sharding.py``'s tolerances (their trees come from the CPU's
+    float histograms, which two shards sum in another order than one).
 
-Every rank must return the same ensemble, byte for byte.  A rank that raises
+Every rank must return the same model, byte for byte.  A rank that raises
 fails its launch within the launch's deadline.  The histogram kernels' group
 entry and its ``gpu`` tests are in ``test_torch_parallel_gpu.py``.
 """
@@ -37,20 +45,26 @@ from jax.sharding import PartitionSpec as P
 
 from quickrank_tpu.data.dataset import shard_and_pad as jax_shard_and_pad
 from quickrank_tpu.data.synthetic import make_train_valid_test
+from quickrank_tpu import learning as JL
 from quickrank_tpu.learning import LambdaMart as JaxLambdaMart
 from quickrank_tpu.learning import ObliviousLambdaMart as JaxObliviousLambdaMart
+from quickrank_tpu.learning.base import LTRAlgorithm as JaxLTRAlgorithm
 from quickrank_tpu.learning.mart import TrainData as JaxTrainData
 from quickrank_tpu.metrics import Ndcg as JaxNdcg
 from quickrank_tpu.parallel import multihost as jax_multihost
 from quickrank_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from quickrank_tpu.parallel.mesh import shard_map, step_data_specs
 from quickrank_tpu.trees.grow import leaf_outputs as jax_leaf_outputs
+from quickrank_tpu_torch import learning as PL
 from quickrank_tpu_torch.data.dataset import Dataset, shard_and_pad
 from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
+from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.learning.mart import TrainData
 from quickrank_tpu_torch.metrics import Ndcg
 from quickrank_tpu_torch.ops.binning import build_thresholds
+from quickrank_tpu_torch.ops.histogram import scale_doc_count
 from quickrank_tpu_torch.parallel import multihost
+from quickrank_tpu_torch.parallel.mesh import BlockOrder
 from quickrank_tpu_torch.parallel.launch import run_ranks
 from quickrank_tpu_torch.parallel.workers import batch_rank, fail_rank, save_dataset
 
@@ -80,6 +94,44 @@ def _classes(growth):
     if growth == "oblivious":
         return "ObliviousLambdaMart", JaxObliviousLambdaMart
     return "LambdaMart", JaxLambdaMart
+
+
+#: the learners of ROADMAP §A 10b parts 1-2 in the launch: name -> (class
+#: name, constructor kwargs; Cleaver's and MetaCleaver's are built by
+#: :func:`_build`).  The DART runs drop trees from their third iteration and
+#: their draws need no ``jax.random`` (subsample 1); the second samples by
+#: WCONTR, so the contributions cross ranks.  X-DART's keep decisions are left
+#: to the card (``chip_smoke.py`` phase 35): on the CPU two shards' float
+#: histograms flip them at these folds, in JAX's runs too
+LEARNERS = {
+    "dart": ("Dart", dict(ntrees=5, nleaves=8, nthresholds=NTHR, rate_drop=0.25, seed=7)),
+    "dart-wcontr": ("Dart", dict(ntrees=5, nleaves=8, nthresholds=NTHR, rate_drop=0.5,
+                                 seed=1, sample_type="WCONTR")),
+    "coordasc": ("CoordinateAscent", dict(num_points=8, max_iterations=2)),
+    "linesearch": ("LineSearch", dict(num_points=8, max_iterations=3)),
+    "cleaver": ("Cleaver", dict(pruning_method="QUALITY_LOSS_ADV", pruning_rate=0.25,
+                                seed=3, line_search=dict(num_points=8, max_iterations=3))),
+    "metacleaver": ("MetaCleaver", dict(
+        ltr_algo=dict(learner="Mart", kwargs=dict(ntrees=4, nleaves=8, nthresholds=NTHR,
+                                                  seed=1)),
+        cleaver=dict(pruning_method="QUALITY_LOSS", line_search=None),
+        final_ntrees=8, ntrees_per_iter=4)),
+}
+
+
+def _build(pkg, opt, name):
+    """LEARNERS[name] built from the JAX package (``pkg``, ``opt``) or the
+    port's."""
+    cls, kw = LEARNERS[name]
+    kw = dict(kw)
+    if cls == "Cleaver":
+        ls = kw.pop("line_search")
+        return opt.Cleaver(line_search=pkg.LineSearch(**ls), **kw)
+    if cls == "MetaCleaver":
+        inner, cl = kw.pop("ltr_algo"), kw.pop("cleaver")
+        return pkg.MetaCleaver(getattr(pkg, inner["learner"])(**inner["kwargs"]),
+                               opt.Cleaver(**cl), **kw)
+    return getattr(pkg, cls)(**kw)
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +220,18 @@ def given(folds):
 
 
 @pytest.fixture(scope="module")
-def port_ranks(folds, given, tmp_path_factory):
+def cleaver_model(folds, tmp_path_factory):
+    """The model Cleaver prunes: 8 port LambdaMART trees, saved as XML (both
+    packages load it; their per-tree matrices are equal bit for bit)."""
+    lm = LambdaMart(ntrees=8, nleaves=8, nthresholds=NTHR, seed=1)
+    lm.learn(_port_ds(folds[0]), _port_ds(folds[1]), Ndcg(10), verbose=False, device="cpu")
+    path = str(tmp_path_factory.mktemp("cleaver") / "lm.xml")
+    lm.save(path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def port_ranks(folds, given, cleaver_model, tmp_path_factory):
     """The one launch: per grower the given-gradient trees and a training
     run, then the multi-host path, in two gloo ranks on the CPU."""
     tmp = tmp_path_factory.mktemp("ranks")
@@ -186,12 +249,21 @@ def port_ranks(folds, given, tmp_path_factory):
     mh = dict(learner="LambdaMart", kwargs=_kw("best"), train=train, valid=valid)
     full_thr, _ = build_thresholds(folds[0].features, NTHR)
     jobs += [("multihost_rank", dict(mh, thresholds=full_thr)), ("multihost_rank", mh)]
+    n_growth = len(jobs)
+    for name, (cls, kw) in LEARNERS.items():
+        if cls == "Cleaver":
+            jobs.append(("optimize_rank", dict(model=cleaver_model, cleaver=kw, train=train,
+                                               valid=valid)))
+        else:
+            jobs.append(("train_rank", dict(learner=cls, kwargs=kw, train=train,
+                                            valid=valid)))
     t0 = time.monotonic()
     out = run_ranks(batch_rank, SHARDS, args=(jobs,), device="cpu", deadline=DEADLINE)
     assert time.monotonic() - t0 < DEADLINE
     by_growth = {g: ([r[2 * i] for r in out], [r[2 * i + 1] for r in out])
                  for i, g in enumerate(GROWERS)}
-    return by_growth, [r[-2] for r in out], [r[-1] for r in out]
+    learners = {name: [r[n_growth + i] for r in out] for i, name in enumerate(LEARNERS)}
+    return by_growth, [r[n_growth - 2] for r in out], [r[n_growth - 1] for r in out], learners
 
 
 @pytest.fixture(scope="module")
@@ -315,15 +387,225 @@ def test_multihost_path_trains_the_same_model_everywhere(port_ranks, folds, tabl
         assert mh[0]["history"]["train"][-1] > mh[0]["history"]["train"][0]
 
 
+def _drawn_dart(dart):
+    """Record the dropped set a JAX ``Dart`` draws each iteration (its
+    history has none)."""
+    drawn = []
+    count, select = dart._trees_to_dropout, dart._select_dropout
+
+    def trees_to_dropout(*a):
+        drawn.append([])
+        return count(*a)
+
+    def select_dropout(*a):
+        drawn[-1] = select(*a)
+        return drawn[-1]
+
+    dart._trees_to_dropout, dart._select_dropout = trees_to_dropout, select_dropout
+    return drawn
+
+
+def _learner_run(pkg, opt, name, folds, model_path, **learn):
+    """(result, model) of LEARNERS[name] run by the JAX package or the port
+    on the module's folds; Cleaver prunes ``model_path``'s model."""
+    obj = _build(pkg, opt, name)
+    train, valid = folds[0], folds[1]
+    metric = (JaxNdcg if pkg is JL else Ndcg)(10)
+    if name == "cleaver":
+        model = (JaxLTRAlgorithm if pkg is JL else LTRAlgorithm).load(model_path)
+        info = obj.optimize(model, train, valid, metric, verbose=False, **learn)
+        return {"info": info, "weights": obj.weights_}, obj
+    drawn = _drawn_dart(obj) if pkg is JL and LEARNERS[name][0] == "Dart" else None
+    hist = obj.learn(train, valid, metric, verbose=False, **learn)
+    if drawn is not None:
+        hist = dict(hist, dropped=drawn)
+    out = {"history": hist}
+    if hasattr(obj, "best_weights"):
+        out["weights"] = np.asarray(obj.get_weights())
+    return out, obj
+
+
+@pytest.fixture(scope="module")
+def jax_learner_runs(folds, cleaver_model):
+    """JAX's runs of LEARNERS on ``make_mesh(2)``."""
+    from quickrank_tpu import optimization
+
+    return {name: _learner_run(JL, optimization, name, folds, cleaver_model,
+                               mesh=jax_make_mesh(SHARDS))
+            for name in LEARNERS}
+
+
+@pytest.fixture(scope="module")
+def port_unsharded(folds, cleaver_model):
+    """The port's single-device runs of LEARNERS on the CPU."""
+    from quickrank_tpu_torch import optimization
+
+    pf = tuple(_port_ds(f) for f in folds)
+    # one intra-op thread, as each rank has (parallel/launch.py): a step is
+    # thousands of small ops, which a thread pool on a loaded host slows down
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {name: _learner_run(PL, optimization, name, pf, cleaver_model, device="cpu")
+                for name in LEARNERS}
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _model_bytes(result) -> dict:
+    """A rank's model as bytes: its trees or its weights."""
+    if "trees" in result:
+        return {k: np.asarray(v).tobytes() for k, v in result["trees"].items()}
+    return {"weights": np.asarray(result["weights"]).tobytes()}
+
+
+@pytest.mark.parametrize("name", list(LEARNERS))
+def test_learner_ranks_hold_the_same_model(port_ranks, name):
+    """Every rank returns the same model (trees or weights) byte for byte,
+    the same history (metrics, dropped sets) and Cleaver's pruned set."""
+    runs = port_ranks[3][name]
+    for other in runs[1:]:
+        assert _model_bytes(other) == _model_bytes(runs[0])
+        if name == "cleaver":
+            assert other["info"]["pruned"] == runs[0]["info"]["pruned"]
+            assert other["info"]["metric_after"] == runs[0]["info"]["metric_after"]
+        else:
+            for k in ("train", "valid", "dropped", "iterations"):
+                assert other["history"].get(k) == runs[0]["history"].get(k), k
+
+
+@pytest.mark.parametrize("name", list(LEARNERS))
+def test_learner_matches_jax_sharded_run(port_ranks, jax_learner_runs, name):
+    """Two gloo ranks against JAX's run on ``make_mesh(2)``, with
+    ``tests/test_sharding.py``'s tolerances: DART the same dropped sets and
+    NDCG@10 within 1e-3; the linear rankers within 2e-3, weights within
+    1e-4; Cleaver the same pruned set, weights within 1e-4; MetaCleaver
+    (over MART, whose gradients both packages compute alike) the same
+    sizes, NDCG@10 within 1e-5 and the same weights."""
+    got = port_ranks[3][name][0]
+    want, jmodel = jax_learner_runs[name]
+    if name == "cleaver":
+        assert got["info"]["pruned"] == want["info"]["pruned"]
+        np.testing.assert_allclose(got["weights"], want["weights"], atol=1e-4)
+        assert abs(got["info"]["metric_after"] - want["info"]["metric_after"]) < 2e-3
+        return
+    g, w = got["history"], want["history"]
+    if name == "metacleaver":
+        assert [h["size"] for h in g["iterations"]] == [h["size"] for h in w["iterations"]]
+        for a, b in zip(g["iterations"], w["iterations"]):
+            assert a["train"] == pytest.approx(b["train"], abs=1e-5)
+            assert a["valid"] == pytest.approx(b["valid"], abs=1e-5)
+        np.testing.assert_array_equal(got["trees"]["weight"],
+                                      np.asarray(jmodel.get_weights(), np.float32))
+        return
+    dart = LEARNERS[name][0] == "Dart"
+    tol = 1e-3 if dart else 2e-3
+    np.testing.assert_allclose(g["train"], w["train"], atol=tol)
+    np.testing.assert_allclose(g["valid"], w["valid"], atol=tol)
+    if dart:
+        assert g["dropped"] == w["dropped"]
+        assert any(g["dropped"])
+    else:
+        np.testing.assert_allclose(got["weights"], want["weights"], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(LEARNERS))
+def test_learner_two_ranks_match_one(port_ranks, port_unsharded, name):
+    """Two gloo ranks against the port's single-device run: the linear
+    rankers and Cleaver bit for bit (weights, metrics, pruned set: every
+    metric is one rank's through the gathered per-query reduction); DART
+    the same dropped sets and NDCG@10 within 1e-3, MetaCleaver the same
+    sizes and the last train NDCG@10 within ``tests/test_sharding.py``'s
+    1e-2 (on the CPU two shards' float histograms add in another order than
+    one's; on the card they are int64 sums and the runs are equal bit for
+    bit, ``chip_smoke.py`` phases 35-36)."""
+    got = port_ranks[3][name][0]
+    want, _ = port_unsharded[name]
+    if name == "cleaver":
+        assert got["info"]["pruned"] == want["info"]["pruned"]
+        assert got["info"]["metric_after"] == want["info"]["metric_after"]
+        assert np.asarray(got["weights"]).tobytes() == np.asarray(want["weights"]).tobytes()
+        return
+    g, w = got["history"], want["history"]
+    if name == "metacleaver":
+        # JAX's own runs differ as much: QUALITY_LOSS prunes other trees of
+        # MART's tied few-leaf trees once their leaf values move a last bit
+        assert [h["size"] for h in g["iterations"]] == [h["size"] for h in w["iterations"]]
+        assert g["iterations"][-1]["train"] == pytest.approx(
+            w["iterations"][-1]["train"], abs=1e-2)
+        return
+    if LEARNERS[name][0] == "Dart":
+        assert g["dropped"] == w["dropped"]
+        np.testing.assert_allclose(g["train"], w["train"], atol=1e-3)
+        np.testing.assert_allclose(g["valid"], w["valid"], atol=1e-3)
+        return
+    assert g["train"] == w["train"] and g["valid"] == w["valid"]
+    assert np.asarray(got["weights"]).tobytes() == np.asarray(want["weights"]).tobytes()
+
+
+class _Blocks:
+    """A stand-in for a group's ranks in one process: ``all_gather`` returns
+    what every rank sends (``parallel.mesh.DataGroup``'s contract), the
+    per-query doc counts (int64) or the per-query values, each block padded
+    to the longest."""
+
+    def __init__(self, counts, values):
+        self.counts, self.values = counts, values
+
+    def all_gather(self, t):
+        return torch.stack(self.counts if t.dtype == torch.int64 else self.values)
+
+
+def test_gathered_query_reduction_is_one_bit_pattern():
+    """The metric reduction of a group (``BlockOrder``: every rank's real
+    queries gathered in global order, then one rank's sum) gives one bit
+    pattern over 1, 2 and 3 blocks of unequal query counts, padded to the
+    longest block, and that of the unsharded sum of the same queries."""
+    from quickrank_tpu_torch.learning.mart import reduce_queries
+
+    rng = np.random.default_rng(5)
+    pq = torch.from_numpy(rng.uniform(0, 1, 997).astype(np.float32) ** 3)
+    metric = Ndcg(10)
+    sd = SimpleNamespace(query_mask=torch.ones(997, dtype=torch.bool),
+                         doc_mask=torch.ones(997 * 3, dtype=torch.bool))
+    want = reduce_queries(metric, pq, sd)
+    for cuts in ([], [400], [100, 651]):
+        parts = np.split(np.arange(997), cuts)
+        n = max(len(p) for p in parts)
+        counts = [torch.tensor(np.pad(np.full(len(p), 3), (0, n - len(p)))) for p in parts]
+        values = [torch.nn.functional.pad(pq[p], (0, n - len(p))) for p in parts]
+        group = _Blocks(counts, values)
+        for rank in range(len(parts)):
+            sd_r = SimpleNamespace(queries=BlockOrder.build(group, counts[rank]))
+            assert sd_r.queries.total == 3 * 997
+            got = reduce_queries(metric, values[rank], sd_r, group=group)
+            assert got.numpy().tobytes() == want.numpy().tobytes(), (cuts, rank)
+
+
+def test_scale_counts_real_docs_across_a_power_of_two(folds):
+    """The card's fixed-point scale counts the real docs on one device as in
+    a group: at a doc count whose padded rows cross a power of two (130,500
+    real docs, 131,072 rows) the rows would shift the scale by a bit.  On
+    the CPU ``histogram_scale`` is None (float histograms)."""
+    from quickrank_tpu_torch.ops.histogram import histogram_scale
+
+    real, rows = 130_500, -(-(130_500 + 1) // 1024) * 1024
+    assert (rows, real.bit_length(), rows.bit_length()) == (131_072, 17, 18)
+    group = SimpleNamespace(num_docs=real)
+    assert scale_doc_count(rows, None, real) == scale_doc_count(rows, group) == real
+    assert scale_doc_count(rows) == rows  # no count given: every row is a doc
+    td = TrainData.build(_port_ds(folds[0]), NTHR, device="cpu")
+    assert td.num_docs == folds[0].num_docs < td.padded.num_docs_padded
+    assert histogram_scale(torch.zeros(3, rows), None, real) is None
+
+
 @pytest.mark.parametrize("what", [
-    "Dart", "RandomForest", "LambdaMartSelective", "StochasticNegative", "RankBoost",
-    "CoordinateAscent", "LineSearch", "cluster-on", "MetaCleaver", "Cleaver",
-    "num-feat-shards", "quicklearn-DART"])
+    "RandomForest", "LambdaMartSelective", "StochasticNegative", "RankBoost",
+    "cluster-on", "num-feat-shards"])
 def test_unsharded_modules_refuse_a_group_naming_item_10b(folds, what, tmp_path):
     """What this slice does not shard raises before touching data, naming
     ROADMAP.md §A item 10b: nothing falls back to one device."""
     from quickrank_tpu_torch import driver, learning
-    from quickrank_tpu_torch.optimization import Cleaver
     from quickrank_tpu_torch.parallel import DataGroup
 
     group = DataGroup(rank=0, world_size=2, device=torch.device("cpu"), backend="gloo")
@@ -331,17 +613,8 @@ def test_unsharded_modules_refuse_a_group_naming_item_10b(folds, what, tmp_path)
     with pytest.raises(NotImplementedError, match="item 10b"):
         if what == "cluster-on":
             LambdaMart(ntrees=1, cluster="on").learn(ds, mesh=group, device="cpu")
-        elif what == "MetaCleaver":
-            learning.MetaCleaver(LambdaMart(ntrees=1), Cleaver()).learn(ds, mesh=group,
-                                                                        device="cpu")
-        elif what == "Cleaver":
-            Cleaver().optimize(LambdaMart(ntrees=1), ds, mesh=group, device="cpu")
         elif what == "num-feat-shards":
             driver.run(dict(num_feat_shards=2, train=str(tmp_path / "never-read.svml")))
-        elif what == "quicklearn-DART":
-            # the learner's own refusal, asked before any rank starts
-            driver.run(dict(algo="DART", num_shards=2, device="cpu",
-                            train=str(tmp_path / "never-read.svml")))
         else:
             getattr(learning, what)().learn(ds, mesh=group, device="cpu")
 

@@ -78,3 +78,35 @@ def test_num_shards_needs_a_card_a_rank(svml_dir):
         driver.run(params)
     with pytest.raises(ValueError, match=f"{count} CUDA device"):  # checked before the model
         RowShards(object(), np.zeros((4, 3), np.float32), [f"cuda:{count}"])
+
+
+def test_quicklearn_dart_and_cleaver_query_sharded_on_cpu(svml_dir, tmp_path):
+    """``--algo DART --num-shards 2 --device cpu`` with the optimization
+    phase (``--opt-algo CLEAVER``, ``--train-partial``, ``--opt-model``):
+    two ranks train DART and prune it; rank 0 alone writes the model, the
+    per-tree scores of every train doc, the optimizer and the pruned model,
+    whose test NDCG@10 is within tests/test_sharding.py's 1e-2 of the
+    unsharded run's."""
+    outs = {}
+    for shards in (0, 2):
+        d = tmp_path / f"s{shards}"
+        d.mkdir()
+        extra = ["--algo", "DART", "--rate-drop", "0.5", "--device", "cpu", "--partial", "0",
+                 "--opt-algo", "CLEAVER", "--opt-method", "QUALITY_LOSS",
+                 "--train-partial", str(d / "ptrain.svml"), "--opt-model", str(d / "opt.xml"),
+                 "--opt-algo-model", str(d / "pruned.xml"), "--scores", str(d / "s.txt")]
+        args = vars(build_parser().parse_args(_flags(svml_dir, d / "m.xml", extra, trees=4)))
+        driver.run({**{k: v for k, v in args.items() if v is not None}, "deadline": DEADLINE})
+        outs[shards] = d
+    d = outs[2]
+    assert sorted(p.name for p in d.iterdir()) == ["m.xml", "opt.xml", "pruned.xml",
+                                                   "ptrain.svml", "s.txt"]
+    model = LTRAlgorithm.load(str(d / "m.xml"))
+    pruned = LTRAlgorithm.load(str(d / "pruned.xml"))
+    assert model.NAME == pruned.NAME == "DART"
+    assert 0 < pruned.ensemble.num_trees < model.ensemble.num_trees
+    ptrain, train = read_svml(str(d / "ptrain.svml")), read_svml(str(svml_dir / "train.svml"))
+    assert ptrain.features.shape == (train.num_docs, model.ensemble.num_trees)
+    test = svml_dir / "test.svml"
+    assert _ndcg10(test, d / "s.txt") == pytest.approx(_ndcg10(test, outs[0] / "s.txt"),
+                                                        abs=1e-2)
