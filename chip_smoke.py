@@ -58,7 +58,14 @@ The rest of parallel training (phases 35-37): DART and X-DART, then
 CoordinateAscent, LineSearch and Cleaver, each unsharded, as a one-rank
 group and as two gloo ranks sharing the card, equal bit for bit; and
 quicklearn's DART with the optimization phase under ``--num-shards 1``
-saving the no-flag run's files.  Phase 6 also holds the fixed-order
+saving the no-flag run's files.  The last learners under a group (phases
+38-41): RankBoost, RandomForest, LambdaMART-Selective, Stochastic-Negative,
+LambdaMART with doc subsampling (every draw one draw over the data, shared by
+the ranks) and the node-clustered grower (the row-partition kernel in every
+rank), each unsharded, as a one-rank group and as two gloo ranks sharing the
+card, equal bit for bit; and quicklearn on a loaded model, test scoring and
+Cleaver, under ``--num-shards 1`` writing the no-flag run's files byte for
+byte.  Phase 6 also holds the fixed-order
 per-query sum kernel (``csrc/query_sum.cu``, not a TPU kernel) against its
 plain version and times it beside the float64 sum it replaced.  The
 wrappers' launch counters show that each path ran its kernels; every kernel is timed beside
@@ -108,6 +115,10 @@ DART35_TREES = 12  # phase 35: DART under a group, three ways
 #: group (cut from 19,000 + 2,000, widths kept), and the trees Cleaver prunes
 LINEAR36_QUERIES = (3000, 500)
 CLEAVER36_TREES = 50
+#: phases 38-40 (at phase 36's queries): RankBoost's rounds, the other
+#: learners' trees
+RANKBOOST38_ROUNDS = 20
+PART3_TREES = 4
 CPU_QUERIES = 200  # phases 7, 10, 12, 16, 21 and 24: the card against the CPU
 LINEAR_EPOCHS = 2  # phase 23: CoordinateAscent epochs, LineSearch iterations
 CLEAVER_RATE = 0.5  # phase 25: the share of the DART model's trees pruned
@@ -2378,6 +2389,150 @@ def main() -> int:
               f"saved the no-flag run's DART model, pruned model ({kept} trees kept), "
               f"optimizer model and per-tree scores bit for bit")
 
+    # -- phases 38-40: RankBoost, the samplers and the clustered grower under a group --
+    phase(f"38-40: RankBoost ({RANKBOOST38_ROUNDS} rounds), RandomForest, LambdaMART-Selective, "
+          f"Stochastic-Negative, LambdaMART subsample 0.5 and best@255 cluster=on / off "
+          f"({PART3_TREES} trees each) at {LINEAR36_QUERIES[0]} + {LINEAR36_QUERIES[1]} "
+          f"queries x {N_FEATURES} features on {card}, in two launches: unsharded and a "
+          "1-rank gloo group, then 2 gloo ranks sharing the card")
+    trees_kw = dict(ntrees=PART3_TREES, nleaves=16, nthresholds=255, seed=1, esr=0)
+    part3 = {
+        "RANKBOOST": ("RankBoost", dict(ntrees=RANKBOOST38_ROUNDS, nthresholds=255)),
+        "RANDOMFOREST": ("RandomForest", dict(trees_kw, subsample=0.6, max_features=0.5)),
+        "SELECTIVE-RATIO": ("LambdaMartSelective", dict(
+            trees_kw, sampling_iterations=1, rank_sampling_factor=0.5,
+            random_sampling_factor=0.25, negative_strategy="RATIO")),
+        "STOCHASTIC-NEGATIVE": ("StochasticNegative", dict(trees_kw, subsample=0.3)),
+        "LAMBDAMART-SUBSAMPLE": ("LambdaMart", dict(trees_kw, subsample=0.5)),
+        "CLUSTER-ON": ("LambdaMart", dict(trees_kw, cluster="on")),
+        "CLUSTER-OFF": ("LambdaMart", dict(trees_kw, cluster="off")),
+    }
+    jobs3 = [("train_rank", dict(learner=cls, kwargs=kw, train=train36, valid=valid36))
+             for cls, kw in part3.values()]
+    solo3, grp3, pair3, secs3 = three_ways(jobs3)
+    print(f"  launches: 1 rank {secs3[0]:.1f} s (unsharded and the 1-rank group), 2 ranks "
+          f"{secs3[1]:.1f} s")
+    res3 = {label: (solo3[i], grp3[i], pair3[i]) for i, label in enumerate(part3)}
+    part3_launches = dict.fromkeys(("node_histogram", "histogram", "histogram_to_float",
+                                    "partition_rows"), 0)
+    for solo, grp, pair in res3.values():
+        for r in [grp] + pair:
+            for k in part3_launches:
+                part3_launches[k] += r["launches"][k]
+    part3_s = {}
+
+    def three_times(label, key="iter_seconds", skip=2):
+        solo, grp, pair = res3[label]
+        s = [float(np.median(r["history"][key][skip:])) for r in (solo, grp, pair[0])]
+        part3_s[label] = s
+        return (f"unsharded {s[0]:.4f}, 1-rank group {s[1]:.4f} ({s[1] / s[0]:.2f}x), "
+                f"2 ranks sharing the card {s[2]:.4f}")
+
+    phase(f"38: RankBoost, {RANKBOOST38_ROUNDS} rounds, three ways")
+    solo, grp, pair = res3["RANKBOOST"]
+    hold_three("RankBoost", solo, grp, pair)
+    wr = grp["trees"]
+    require(len(wr["feature"]) > 0 and np.isfinite(grp["history"]["train"]).all(),
+            "RankBoost under a group: no weak ranker or a bad history")
+    require(all(grp["launches"][k] >= RANKBOOST38_ROUNDS for k in
+                ("node_histogram", "histogram_to_float", "query_sum")),
+            f"RankBoost under a group: a kernel was not launched each round: "
+            f"{grp['launches']}")
+    print(f"  2 ranks = 1-rank group = unsharded bit for bit (features, thresholds, alphas, "
+          f"train and valid NDCG@10); {len(wr['feature'])} weak rankers kept, first "
+          f"features {np.asarray(wr['feature'])[:5].tolist()}, train NDCG@10 "
+          f"{grp['history']['train'][-1]:.6f}")
+    print(f"    s/round (median of rounds 2+): {three_times('RANKBOOST', skip=1)}")
+    print(f"    collectives a round (rank 0): 1 rank "
+          f"{collectives(grp, RANKBOOST38_ROUNDS)}; 2 ranks "
+          f"{collectives(pair[0], RANKBOOST38_ROUNDS)}; launches (1-rank group) "
+          f"{ {k: v for k, v in grp['launches'].items() if v} }")
+
+    phase(f"39: RandomForest, Selective (RATIO, random factor 0.25), Stochastic-Negative "
+          f"(0.3) and LambdaMART subsample 0.5, {PART3_TREES} trees each, three ways")
+    for label in ("RANDOMFOREST", "SELECTIVE-RATIO", "STOCHASTIC-NEGATIVE",
+                  "LAMBDAMART-SUBSAMPLE"):
+        solo, grp, pair = res3[label]
+        hold_three(label, solo, grp, pair)
+        require(all(grp["launches"][k] > 0 for k in ("node_histogram", "histogram",
+                                                      "histogram_to_float")),
+                f"{label} under a group: a histogram kernel was not launched: "
+                f"{grp['launches']}")
+        print(f"  {label}: 2 ranks = 1-rank group = unsharded bit for bit (trees, train and "
+              f"valid NDCG@10 {[round(x, 5) for x in grp['history']['train']]})")
+        print(f"    s/tree (median of trees 3+): {three_times(label)}; collectives a tree "
+              f"(rank 0) 1 rank {collectives(grp, PART3_TREES)}, 2 ranks "
+              f"{collectives(pair[0], PART3_TREES)}")
+
+    phase(f"40: LambdaMART best@255 cluster=on, {PART3_TREES} trees, three ways, beside "
+          "cluster=off")
+    solo, grp, pair = res3["CLUSTER-ON"]
+    hold_three("cluster=on", solo, grp, pair)
+    k6 = [r["launches"]["partition_rows"] for r in [grp] + pair]
+    require(all(n > 0 for n in k6), f"cluster=on under a group: K6 launches {k6}")
+    off = res3["CLUSTER-OFF"]
+    hold_three("cluster=off", *off)
+    same_root = (int(grp["trees"]["feature"][0, 0]), int(grp["trees"]["threshold_bin"][0, 0])
+                 ) == (int(off[1]["trees"]["feature"][0, 0]),
+                       int(off[1]["trees"]["threshold_bin"][0, 0]))
+    require(same_root, "cluster=on and cluster=off under a group take other root splits")
+    gap = abs(grp["history"]["train"][-1] - off[1]["history"]["train"][-1])
+    require(gap <= 1e-3, f"cluster=on and off under a group: train NDCG@10 off by {gap}")
+    print(f"  cluster=on: 2 ranks = 1-rank group = unsharded bit for bit (trees, NDCG@10); "
+          f"the same root split as cluster=off, last train NDCG@10 within {gap:.3g}; K6 "
+          f"launches: 1-rank group {k6[0]}, rank 0 {k6[1]}, rank 1 {k6[2]} "
+          f"({k6[0] / PART3_TREES:.1f} a tree)")
+    print(f"    s/tree cluster=on: {three_times('CLUSTER-ON')}")
+    print(f"    s/tree cluster=off: {three_times('CLUSTER-OFF')}")
+    print(f"  launches in the group runs of phases 38-40 (every rank): {part3_launches}")
+    require(all(v > 0 for v in part3_launches.values()),
+            f"a kernel of the group path was not launched: {part3_launches}")
+
+    # -- phase 41: quicklearn --num-shards with a loaded model -------------------
+    phase("41: quicklearn --model-in, scoring only and Cleaver on the loaded model, "
+          "--num-shards 1 against the no-flag run")
+    with tempfile.TemporaryDirectory() as tmp:
+        svml_tr, svml_te = (os.path.join(tmp, f"{k}.svml") for k in ("train", "test"))
+        write_svml(ds34, svml_tr)
+        write_svml(make_ranking_dataset(num_queries=500, num_features=N_FEATURES, seed=41),
+                   svml_te)
+        runs41 = {"plain": [], "shards1": ["--num-shards", "1"]}
+        if torch.cuda.device_count() >= 2:
+            runs41["shards2"] = ["--num-shards", "2"]
+        files = {}
+        for tag, flag in runs41.items():
+            f = files[tag] = {k: os.path.join(tmp, f"{tag}.{k}")
+                              for k in ("scores", "pruned.xml", "opt.xml")}
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["--model-in", model36, "--test", svml_te, "--scores",
+                               f["scores"], "--quiet"] + flag)
+                require(rc == 0, f"quicklearn --model-in --test {' '.join(flag)}: exit {rc}")
+                t1 = time.perf_counter()
+                rc = cli.main(["--model-in", model36, "--train", svml_tr, "--opt-algo",
+                               "CLEAVER", "--opt-method", "QUALITY_LOSS", "--pruning-rate",
+                               "0.5", "--opt-model", f["opt.xml"], "--opt-algo-model",
+                               f["pruned.xml"], "--quiet"] + flag)
+                require(rc == 0, f"quicklearn --model-in --opt-algo {' '.join(flag)}: exit {rc}")
+            print(f"  {tag}: scoring {t1 - t0:.2f} s, Cleaver {time.perf_counter() - t1:.2f} s "
+                  "(process start included)")
+        for tag in runs41:
+            for k in ("scores", "pruned.xml", "opt.xml"):
+                with open(files["plain"][k], "rb") as fa, open(files[tag][k], "rb") as fb:
+                    require(fa.read() == fb.read(),
+                            f"quicklearn {' '.join(runs41[tag])}: {k} differs")
+        kept = LTRAlgorithm.load(files["plain"]["pruned.xml"]).ensemble.num_trees
+        n_te = len(np.loadtxt(files["plain"]["scores"]))
+        print(f"  quicklearn --model-in (phase 36's {CLEAVER36_TREES}-tree model) under "
+              f"--num-shards 1 (one NCCL rank) wrote the no-flag run's scores of {n_te} test "
+              f"docs and its pruned model ({kept} trees kept) and optimizer byte for byte")
+        if "shards2" not in runs41:
+            print(f"  SKIPPED: --num-shards 2 (two NCCL ranks), since this machine has "
+                  f"{torch.cuda.device_count()} CUDA device and NCCL refuses two ranks on "
+                  "one card")
+        else:
+            print("  --num-shards 2 (two NCCL ranks on two cards) wrote the same files")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -2393,20 +2548,23 @@ def main() -> int:
         row("oblivious_score", "oblivious_score.cu", "pallas_oblivious.py:100", k3_launches,
             obl_err, *obl_times[(1000, 4)], obl_bound),
         # launches: the training runs of phase 7, RankBoost's (phase 27) and
-        # the group runs of phase 32 (every rank)
+        # the group runs of phases 32 and 38-40 (every rank)
         row("node_histogram", "histogram.cu", "pallas_histogram.py:183",
             train_launches["node_histogram"] + rb_launches["node_histogram"]
-            + group_launches["node_histogram"],
+            + group_launches["node_histogram"] + part3_launches["node_histogram"],
             hist_err["node_histogram"], *k4_times["256 bins, k=1 (root)"], k4_bound,
             library_ms=k4_library),
         row("histogram", "histogram.cu", "pallas_histogram.py:278",
-            train_launches["histogram"] + group_launches["histogram"], hist_err["histogram"],
+            train_launches["histogram"] + group_launches["histogram"]
+            + part3_launches["histogram"], hist_err["histogram"],
             *k5_times, k5_bound, library_ms=k5_library),
         # the largest byte difference over the three directive sets; no
         # single PyTorch call computes the function (the row scatter alone is
         # printed by phase 13)
+        # (launches: phase 15's run and phase 40's group runs, every rank)
         row("partition_rows", "partition_rows.cu", "pallas_partition.py:236",
-            on_counts["partition_rows"], k6_err, k6_times[0], k6_times[1], k6_times[3]),
+            on_counts["partition_rows"] + part3_launches["partition_rows"], k6_err,
+            k6_times[0], k6_times[1], k6_times[3]),
         # K1's partial entry (per-tree columns, no sum): its launches on
         # Cleaver's extraction and its hold and times on one of that
         # extraction's blocks (phase 25)
@@ -2417,8 +2575,8 @@ def main() -> int:
         # root pass (phase 31)
         row("histogram_to_float", "histogram.cu", "pallas_histogram.py:183",
             train_launches["histogram_to_float"] + rb_launches["histogram_to_float"]
-            + group_launches["histogram_to_float"], conv_err, conv_ms, conv_plain_ms,
-            conv_bound),
+            + group_launches["histogram_to_float"] + part3_launches["histogram_to_float"],
+            conv_err, conv_ms, conv_plain_ms, conv_bound),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
@@ -2438,11 +2596,15 @@ def main() -> int:
         "replaces": None, "shape": q_label, "launches": qsum_launches, "max_abs_err": 0.0,
         "ms": q_t[0], "plain_ms": q_t[1], "float64_sum_ms": q_t[2], "bound_ms": q_t[4][0],
         "bound_by": q_t[4][1], "library_ms": q_t[3]}}))
-    print(f"  under a group (phases 35-36; unsharded / 1-rank gloo group / 2 gloo ranks): "
+    print(f"  under a group (phases 35-36, 38-40; unsharded / 1-rank gloo group / 2 gloo "
+          f"ranks): "
           + "; ".join(f"DART {k} {' / '.join(f'{x:.4f}' for x in v)} s/iteration"
                       for k, v in dart35_s.items())
           + "; " + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} s"
-                             for k, v in linear36.items()))
+                             for k, v in linear36.items())
+          + "; " + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} s/"
+                             + ("round" if k == "RANKBOOST" else "tree")
+                             for k, v in part3_s.items()))
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,15 @@ on ``params["device"]`` (the CUDA card unless it says "cpu").  ``--detailed``
 writes the test set's per-tree scores as an SVML file; ``--trace DIR``
 captures a ``torch.profiler`` trace of the training phase into DIR.
 
-``--num-shards N`` trains query-sharded: the pipeline runs in N spawned
-ranks (``parallel/launch.py``), one a device (NCCL, a card a rank; on
-``--device cpu`` gloo ranks on the CPU), each training on its block of the
-queries; every rank holds the same model, and rank 0 alone prints, writes
-the model and scores ``--test``.  What is not ported (the 2-D mesh, the
-learners and phases not yet sharded, the ``stablehlo`` generator) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``--num-shards N`` runs query-sharded: the pipeline runs in N spawned ranks
+(``parallel/launch.py``), one a device (NCCL, a card a rank; on ``--device
+cpu`` gloo ranks on the CPU), each training and optimizing on its block of
+the queries; every rank holds the same model.  ``--test`` scoring fans the
+doc rows out over the ranks' devices (JAX driver.py:337-341) and gathers the
+scores, which equal one device's bit for bit; rank 0 alone prints, writes
+the files and evaluates.  What is not ported (the 2-D data x feature mesh,
+the ``stablehlo`` generator) raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -43,17 +45,18 @@ from quickrank_tpu_torch.data.dataset import (
 from quickrank_tpu_torch.data.svml import read_svml, write_svml
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_factory
-from quickrank_tpu_torch.learning.mart import SHARDING_ITEM
+from quickrank_tpu_torch.learning.mart import MESH_2D_ITEM
 from quickrank_tpu_torch.metrics.metrics import metric_factory
 from quickrank_tpu_torch.optimization.cleaver import Cleaver
 from quickrank_tpu_torch.optimization.factory import optimization_factory
+from quickrank_tpu_torch.parallel.mesh import score_rows_group
 from quickrank_tpu_torch.utils.profiling import phase_timer, trace
 
 _EXPORT_ITEM = "§A item 9 (CLIs and export)"
 #: what is not ported: (parameter, the value refused or None for any) ->
 #: ROADMAP.md item
 UNPORTED = {
-    ("num_feat_shards", None): SHARDING_ITEM,
+    ("num_feat_shards", None): MESH_2D_ITEM,
     ("generator", "stablehlo"): _EXPORT_ITEM,
 }
 
@@ -144,19 +147,6 @@ def _learner(p: dict) -> LTRAlgorithm:
         restart_train=p.get("restart_train", False), **rest)
 
 
-def _refuse_unsharded(p: dict, shards: int) -> None:
-    """What --num-shards does not cover yet raises before any data is read;
-    the learner says what of it does not train under a group."""
-    if p.get("model_in") and not p.get("restart_train"):
-        what = "scoring a loaded model without training"
-    else:
-        what = _learner(p).group_refusal()
-    if what:
-        raise NotImplementedError(
-            f"--num-shards {shards} with {what} is not ported to quickrank_tpu_torch "
-            f"yet: ROADMAP.md {SHARDING_ITEM}")
-
-
 def run(params: dict) -> dict:
     """The full pipeline from a flat parameter dict.  Every phase is
     wall-clocked into ``results["timings"]`` (the reference's phase prints,
@@ -168,7 +158,6 @@ def run(params: dict) -> dict:
     shards = int(p.get("num_shards") or 0)
     if not shards:
         return run_rank(p, None)
-    _refuse_unsharded(p, shards)
     device = str(p.get("device") or "cuda")
     if device != "cpu" and torch.cuda.device_count() < shards:
         raise ValueError(
@@ -326,15 +315,18 @@ def run_rank(params: dict, group) -> dict:
                 print(f"# optimized model saved to {out}")
 
     # -- testing phase (driver.cc:326-385) -----------------------------------
-    if test is not None and lead:
+    if test is not None:
         with timed("test"):
-            scores = algo.score_dataset(test, device=device)
-            padded = shard_and_pad(test)
-            # float32 as the JAX package evaluates them (linear and RankBoost
-            # scores are float64)
-            m = test_metric.evaluate_dataset(
-                padded, pack_doc_values(padded, torch.from_numpy(scores).float()))
-        results["test_metric"] = m
+            # under a group every rank scores its block of the doc rows
+            scores = (algo.score_dataset(test, device=device) if group is None
+                      else score_rows_group(algo, test.features, group))
+            if lead:
+                padded = shard_and_pad(test)
+                # float32 as the JAX package evaluates them (linear and
+                # RankBoost scores are float64)
+                results["test_metric"] = m = test_metric.evaluate_dataset(
+                    padded, pack_doc_values(padded, torch.from_numpy(scores).float()))
+    if test is not None and lead:
         if verbose:
             print(f"# {test_metric!r} on test data: {m:.4f}")
         if p.get("scores"):

@@ -50,8 +50,8 @@ reduce_queries` of the ranks' per-query values gathered in global order; a
 new tree's contribution (the CONTR samplers' and normalizations' input) is
 the mean |output| over the docs of every rank, gathered into global doc
 order and summed as one rank sums them.  So every decision is one rank's,
-bit for bit.  ``subsample`` draws per rank, as Mart's does.  Rank 0 alone
-prints and saves.
+bit for bit.  ``subsample`` is one draw shared by the ranks, as Mart's is.
+Rank 0 alone prints and saves.
 """
 
 from __future__ import annotations
@@ -74,10 +74,10 @@ from quickrank_tpu_torch.learning.mart import (
     per_query,
     rebin_ensemble,
     reduce_queries,
+    refuse_mesh,
     rescore_binned,
 )
 from quickrank_tpu_torch.metrics.metrics import Metric
-from quickrank_tpu_torch.parallel.mesh import BlockOrder
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import fma_f32, tree_delta_binned
@@ -220,8 +220,7 @@ class Dart(LambdaMart):
         |d_tr| over the real docs, :func:`mean_over_docs`; 0 when
         :meth:`_uses_contributions` is false)."""
         sd, group = tr.step, tr.group
-        rank = group.rank if group is not None else None
-        smask = self._sample_mask(sd, self._generator(m, 0, rank), sd.doc_mask)
+        smask = self._sample_mask(tr, m, sd.doc_mask)
         grad, w = self._gradients(sd, scores_tr, smask, full_mask=self.subsample == 1.0)
         w = w if self._newton else None
         tree, node, leaves_done = self._fit_and_assign(
@@ -275,7 +274,7 @@ class Dart(LambdaMart):
         rank trains on its block of ``train`` (or on ``train``, this
         process's ``TrainData``) on the group's device, and every rank
         returns the same model."""
-        self._refuse_group(mesh)
+        refuse_mesh(mesh)
         metric = metric or self.default_metric()
         t0 = time.time()
         tr = self._train_data(train, device, mesh)
@@ -291,7 +290,7 @@ class Dart(LambdaMart):
         n_real = tr.num_docs
         # under a group, where every rank's real docs sit in global order (the
         # contributions' sum); a gather of the doc mask, once
-        docs = (BlockOrder.build(group, tr.step.doc_mask)
+        docs = (tr.step.doc_order()
                 if group is not None and self._uses_contributions() else None)
         on_card = device.type == "cuda"
 

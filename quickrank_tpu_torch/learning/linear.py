@@ -50,7 +50,7 @@ import torch
 
 from quickrank_tpu_torch.data.dataset import BlockDataset, Dataset, rank_block, shard_and_pad
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
-from quickrank_tpu_torch.learning.mart import SHARDING_ITEM
+from quickrank_tpu_torch.learning.mart import refuse_mesh
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_query_sum import pairwise_sum
@@ -65,15 +65,6 @@ CANDIDATE_BATCH_BYTES = 2 << 30
 #: gathered scores, labels and mask, the sort's keys, values and int64
 #: order, the sorted labels, gains and discounts, and the ideal sort
 _CELL_BYTES = 96
-
-def refuse_mesh(mesh) -> None:
-    """Raise for a ``mesh`` that is not a ``parallel.DataGroup`` (a 1-D
-    query-sharded group), naming ROADMAP.md's item."""
-    if mesh is not None and not isinstance(mesh, DataGroup):
-        raise NotImplementedError(
-            f"the linear rankers, Cleaver and MetaCleaver take a parallel.DataGroup (a "
-            f"1-D query-sharded group) as mesh, got {type(mesh).__name__}; other meshes, "
-            f"such as the 2-D data x feature mesh, are ROADMAP.md {SHARDING_ITEM} part 4")
 
 
 class Fold:
@@ -241,10 +232,6 @@ class _LinearRanker(LTRAlgorithm):
         if self.best_weights is None:
             raise RuntimeError(f"{self.NAME}: no trained model")
         return self.best_weights
-
-    def group_refusal(self):
-        """Nothing: both rankers train under a query-sharded group."""
-        return None
 
     def scorer_path(self) -> str:
         return "linear"

@@ -44,6 +44,18 @@ doubles).
 Host traffic a round: one transfer of (f*, t*, best r, S) and one of the
 train and valid metrics (``HOST_SYNCS`` counts them).
 
+Query-sharded training (``learn(mesh=group)``, a ``parallel.DataGroup``; JAX
+rankboost.py:151-230): every rank runs the rounds on its block of the
+queries.  ``S`` is a sum of per-query sums (``metrics/core.py::query_sum``,
+a fixed order on the card) gathered in global query order and summed as one
+rank sums them; the potential histogram is K4's int64 sums under one scale
+a round (the ranks' max bits and the run's real docs), reduced over the
+ranks before the conversion; the train metric is the gathered per-query
+reduction.  So every rank picks one rank's weak ranker and alpha, bit for
+bit on the card (on the CPU the float histograms of two ranks add in
+another order than one's).  The validation fold stays whole on every rank.
+Rank 0 alone prints.
+
 The trained model scores ``sum_t alpha_t [x[f_t] > theta_t]``: a column
 gather, a compare and a float64 matrix-vector product (the JAX package's
 numpy expression on the CPU, bit for bit; ``torch.matmul`` on the card).
@@ -65,8 +77,10 @@ from quickrank_tpu_torch.data.dataset import (
     shard_and_pad,
 )
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
-from quickrank_tpu_torch.learning.mart import StepData, TrainData, eval_metric, refuse_group
+from quickrank_tpu_torch.learning.mart import StepData, TrainData, eval_metric, refuse_mesh
+from quickrank_tpu_torch.metrics.core import query_sum
 from quickrank_tpu_torch.ops.histogram import (
+    histogram_scale,
     masked_histogram_scatter,
     masked_histogram_t,
     prefix_sum,
@@ -93,11 +107,15 @@ def _scan(x: torch.Tensor, dim: int) -> torch.Tensor:
     return prefix_sum(x, dim)
 
 
-def potentials(s_flat: torch.Tensor, sd: StepData, levels: tuple):
+def potentials(s_flat: torch.Tensor, sd: StepData, levels: tuple, group=None):
     """``(pi, S)``: the flat ``[N]`` per-doc potential of the implicit
     pair-weight matrix ``D(i, j) = exp(s_i - s_j) * pair_mask / S`` and the
     pair-exponential sum ``S`` (0-d), in O(Q * Dm * len(levels)) work
-    (JAX rankboost.py:86-119).  ``levels`` are the sorted distinct labels."""
+    (JAX rankboost.py:86-119).  ``levels`` are the sorted distinct labels.
+    ``S`` is the sum of the per-query sums, under ``group`` over every
+    rank's real queries gathered in global order (``sd.queries``) as
+    ``learning/mart.py::reduce_queries`` sums a metric, so that it is one
+    rank's value bit for bit (JAX psums the ranks' float sums)."""
     mask = sd.slot_mask
     sp = gather_padded(s_flat, sd.pad_index, mask)
     lp = sd.labels2d
@@ -124,7 +142,8 @@ def potentials(s_flat: torch.Tensor, sd: StepData, levels: tuple):
         col = col + torch.where(lp > lev, pre, zero)
     rowsum = u * row  # sum over j > i with l_j > l_i of exp(s_i - s_j)
     colsum = v * col  # sum over j < i with l_j < l_i of exp(s_j - s_i)
-    S = rowsum.sum()
+    per_q = query_sum(rowsum)
+    S = torch.sum(sd.queries.gather(per_q) if group is not None else per_q)
     # no label-discordant pair anywhere: zero potentials (and alpha 0), as
     # the explicit D would give; an unguarded 0/0 would poison the model
     pi_p = torch.where(S > 0.0, (colsum - rowsum) / torch.clamp(S, min=1e-30), zero)
@@ -133,16 +152,24 @@ def potentials(s_flat: torch.Tensor, sd: StepData, levels: tuple):
 
 
 def potential_histogram(binned: torch.Tensor, pi: torch.Tensor, doc_mask: torch.Tensor,
-                        num_bins: int, f_used: int = 0) -> torch.Tensor:
+                        num_bins: int, f_used: int = 0, group=None,
+                        num_docs: int = 0) -> torch.Tensor:
     """``hist[f, b] = sum of pi over the docs in doc_mask with bin b in
     feature f``, float32 ``[F, B]`` over the first ``f_used`` columns (0 =
-    all): K4 with the one channel ``pi`` on the card, the scatter-add in
-    dataset order on the CPU (JAX rankboost.py:121-125)."""
+    all): K4 with the one channel ``pi`` on the card, under the scale of
+    ``pi``'s max bits and ``num_docs`` real docs (0: every row), the
+    scatter-add in dataset order on the CPU (JAX rankboost.py:121-125).
+    Under ``group`` the histogram is every rank's docs': the card's int64
+    sums (under the ranks' common scale) or the CPU's float sums are added
+    over the ranks."""
     if binned.device.type == "cuda":
-        return masked_histogram_t(binned, pi[None, :].contiguous(), doc_mask, num_bins,
-                                  f_used=f_used)[:, :, 0]
+        values_t = pi[None, :].contiguous()
+        return masked_histogram_t(binned, values_t, doc_mask, num_bins, f_used=f_used,
+                                  group=group,
+                                  scale=histogram_scale(values_t, group, num_docs))[:, :, 0]
     cols = binned[:, :f_used] if f_used else binned
-    return masked_histogram_scatter(cols, pi[:, None], doc_mask, num_bins)[:, :, 0]
+    hist = masked_histogram_scatter(cols, pi[:, None], doc_mask, num_bins)[:, :, 0]
+    return group.all_reduce_sum(hist) if group is not None else hist
 
 
 def best_weak_ranker(hist: torch.Tensor):
@@ -157,12 +184,13 @@ def best_weak_ranker(hist: torch.Tensor):
 
 
 def pair_potentials(s_flat: torch.Tensor, sd: StepData, levels: tuple, num_bins: int,
-                    f_used: int = 0):
+                    f_used: int = 0, group=None, num_docs: int = 0):
     """``(f_star, t_star, best_r, S, pi)``, all on the device: the potentials
     of the scores ``s_flat`` and the weak ranker that maximizes ``r``
-    (JAX rankboost.py:71-131)."""
-    pi, S = potentials(s_flat, sd, levels)
-    hist = potential_histogram(sd.binned, pi, sd.doc_mask, num_bins, f_used)
+    (JAX rankboost.py:71-131), over every rank's docs under ``group``."""
+    pi, S = potentials(s_flat, sd, levels, group)
+    hist = potential_histogram(sd.binned, pi, sd.doc_mask, num_bins, f_used, group,
+                               num_docs)
     best, best_r = best_weak_ranker(hist)
     return best // num_bins, best % num_bins, best_r, S, pi
 
@@ -192,11 +220,13 @@ class RankBoost(LTRAlgorithm):
     def learn(self, train: Dataset, valid: Optional[Dataset] = None, metric=None,
               verbose: bool = True, device=None, mesh=None) -> dict:
         """Train on ``device`` (the CUDA card by default; "cpu" runs the plain
-        versions).  Returns the history: train and valid metric per round,
+        versions), or with ``mesh``, a ``parallel.DataGroup``, on this rank's
+        block of ``train`` on the group's device (every rank returns the
+        same model).  Returns the history: train and valid metric per round,
         ``best_T`` and each round's wall seconds (``iter_seconds``, ended by
         the round's metric read)."""
         global HOST_SYNCS
-        refuse_group(self.NAME, mesh)
+        refuse_mesh(mesh, "RankBoost.learn(mesh=...)")
         metric = metric or self.default_metric()
         levels = [float(x) for x in np.unique(train.labels)]
         if len(levels) > _MAX_LABEL_LEVELS:
@@ -206,9 +236,10 @@ class RankBoost(LTRAlgorithm):
                 "Quantize the labels first."
             )
         levels = tuple(levels)
-        device = resolve_device(device)
-        tr = TrainData.build(train, self.nthresholds, device=device)
-        sd = tr.step
+        tr = TrainData.build(train, self.nthresholds, device=device, group=mesh)
+        sd, group = tr.step, tr.group
+        device = sd.binned.device
+        verbose = verbose and (group is None or group.rank == 0)
         B = tr.num_bins
         f_used = tr.num_real_features
         if valid is not None:
@@ -228,7 +259,8 @@ class RankBoost(LTRAlgorithm):
             print(f"# {self.NAME}: T={self.T}")
         for t in range(self.T):
             t_iter = time.perf_counter()
-            f_star, t_star, best_r, S, _ = pair_potentials(scores, sd, levels, B, f_used)
+            f_star, t_star, best_r, S, _ = pair_potentials(scores, sd, levels, B, f_used,
+                                                           group, tr.num_docs)
             # one transfer: the weak ranker, best r and S (exact in float64)
             f_i, t_i, r_best, S = torch.stack(
                 [f_star.double(), t_star.double(), best_r.double(), S.double()]).tolist()
@@ -249,7 +281,7 @@ class RankBoost(LTRAlgorithm):
             h = (sd.binned[:, f_i].to(torch.int32) > t_i).to(torch.float32) \
                 * sd.doc_mask.to(torch.float32)
             scores = scores + np.float32(alpha) * h
-            metrics = [eval_metric(metric, sd, scores)]
+            metrics = [eval_metric(metric, sd, scores, group)]
             if valid is not None:
                 # the validation fold in float64 with the float64 alpha, as
                 # the JAX package scores it on the host
@@ -284,6 +316,7 @@ class RankBoost(LTRAlgorithm):
         self.history = {"train": hist_tr, "valid": hist_va, "best_T": best_T,
                         "iter_seconds": iter_seconds}
         #: the train fold's scores after the last round, flat padded order
+        #: (this rank's block under a group)
         self.train_scores = scores
         return self.history
 

@@ -19,8 +19,13 @@ The reference's per-query sorts are batched stable rankings over the padded
 ``[Q, D]`` view.  Counts are float32 products rounded half to even, as
 ``jnp.round`` rounds.  The random extras rank the remaining negatives by
 keys from the iteration's ``torch.Generator`` (the learner's stream 2) in
-place of ``jax.random``; with ``random_sampling_factor`` 0 there is no draw
-and the masks are the JAX package's.
+place of ``jax.random``: one draw over the data's ``[queries, longest
+query]`` view in global query order (``StepData.query_keys``), so a rank of a
+query-sharded group keeps its queries' rows of the one rank's draw.  With
+``random_sampling_factor`` 0 there is no draw and the masks are the JAX
+package's.  Everything else is per query; the adaptive factor reads the
+train or valid metric, which a group reduces to one rank's value, so every
+rank modulates alike.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ def select_presence(scores_flat: torch.Tensor, sd: StepData, num_docs_padded: in
     top_kept = neg & (neg_rank < n_top)
     # random extras among the remaining negatives
     rest = neg & ~top_kept
-    r = torch.rand(sm.shape, generator=generator).to(sm.device)
+    r = sd.query_keys(generator)
     rrank = inverse_permutation(torch.argsort(torch.where(rest, r, torch.inf), dim=-1,
                                               stable=True))
     rand_kept = rest & (rrank < n_rand)
@@ -91,7 +96,6 @@ def select_presence(scores_flat: torch.Tensor, sd: StepData, num_docs_padded: in
 
 class LambdaMartSelective(LambdaMart):
     NAME = "LAMBDAMART-SELECTIVE"
-    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(self, *args, sampling_iterations: int = 1, rank_sampling_factor: float = 1.0,
                  random_sampling_factor: float = 0.0, normalization_factor: float = 100,

@@ -8,7 +8,10 @@ computed among the kept docs only (LambdaMart's query cleaning).
 The reference's per-query sort and shuffle is a batched ranking by a random
 key over the padded ``[Q, D]`` view.  The keys come from the iteration's
 ``torch.Generator`` (the learner's stream 2), so they cannot reproduce
-``jax.random``'s; the rule they feed is the JAX package's.
+``jax.random``'s; the rule they feed is the JAX package's.  They are one
+draw over the data's ``[queries, longest query]`` view in global query
+order (``StepData.query_keys``), so a rank of a query-sharded group keeps
+its queries' rows of the one rank's draw, and everything else is per query.
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ def sample_presence(sd: StepData, num_docs_padded: int, frac: float,
     labels = sd.labels2d
     pos = (labels > 0) & mask
     neg = (labels <= 0) & mask
-    r = torch.rand(mask.shape, generator=generator).to(mask.device)
-    keyed = torch.where(neg, r, torch.inf)
+    keyed = torch.where(neg, sd.query_keys(generator), torch.inf)
     # rank of each negative inside its query, by its random key
     rank = inverse_permutation(torch.argsort(keyed, dim=-1, stable=True))
     nneg = neg.sum(dim=-1, keepdim=True)
@@ -51,7 +53,6 @@ def sample_presence(sd: StepData, num_docs_padded: int, frac: float,
 
 class StochasticNegative(LambdaMart):
     NAME = "STOCHASTIC-NEGATIVE"
-    _shardable = False  # ROADMAP.md §A item 10b
 
     def __init__(self, *args, subsample: float = 0.5, **kw):
         super().__init__(*args, subsample=1.0, **kw)

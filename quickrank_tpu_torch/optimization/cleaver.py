@@ -41,7 +41,8 @@ import torch
 
 from quickrank_tpu_torch.data.dataset import Dataset, rank_block
 from quickrank_tpu_torch.learning.base import resolve_device
-from quickrank_tpu_torch.learning.linear import Fold, LineSearch, refuse_mesh
+from quickrank_tpu_torch.learning.linear import Fold, LineSearch
+from quickrank_tpu_torch.learning.mart import refuse_mesh
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.scoring import fma_f32
 
@@ -201,7 +202,7 @@ class Cleaver:
         selection and each line search."""
         import time
 
-        refuse_mesh(mesh)
+        refuse_mesh(mesh, "Cleaver.optimize(mesh=...)")
         device = mesh.device if mesh is not None else resolve_device(device)
         verbose = verbose and (mesh is None or mesh.rank == 0)
         metric = metric or algo.default_metric()

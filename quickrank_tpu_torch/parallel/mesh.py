@@ -128,7 +128,10 @@ class BlockOrder:
     contiguous queries to the ranks in order, real entries first in each
     block).  ``index`` points into the flattened ``[world_size * n]``
     gather of a per-entry ``[..., n]`` tensor; ``total`` is the sum of the
-    per-entry counts it was built from (the real docs, for queries).
+    per-entry counts it was built from (the real docs, for queries);
+    ``first`` is the global position of this rank's first real entry (the
+    real entries of the ranks before it) and ``before`` the sum of their
+    counts (for queries: the global index of this rank's first real doc).
 
     :meth:`gather` is the group's order-free reduction: every rank receives
     the same ``[..., count]`` tensor, the one a single rank holds over all
@@ -138,14 +141,19 @@ class BlockOrder:
     group: DataGroup
     index: torch.Tensor
     total: int
+    first: int = 0
+    before: int = 0
 
     @staticmethod
     def build(group: DataGroup, counts: torch.Tensor) -> "BlockOrder":
         """From this rank's per-entry counts ``[n]`` (0 on padding entries:
         ``nvalid`` for queries, ``doc_mask`` for docs), with one gather."""
-        every = group.all_gather(counts.to(torch.int64)).reshape(-1)
-        index = torch.nonzero(every > 0).squeeze(1)
-        return BlockOrder(group, index.to(counts.device), int(every.sum()))
+        every = group.all_gather(counts.to(torch.int64))
+        earlier = every[:group.rank]
+        flat = every.reshape(-1)
+        index = torch.nonzero(flat > 0).squeeze(1)
+        return BlockOrder(group, index.to(counts.device), int(flat.sum()),
+                          int((earlier > 0).sum()), int(earlier.sum()))
 
     @property
     def count(self) -> int:
@@ -213,6 +221,21 @@ def leave(group: Optional[DataGroup]) -> None:
         dist.destroy_process_group()
 
 
+def row_block(feats: np.ndarray, parts: int, i: int):
+    """Block ``i`` of ``feats``' doc rows cut into ``parts`` contiguous
+    blocks of equal size (zero rows pad the last), as a one-query
+    ``Dataset`` for a model's scorer."""
+    from quickrank_tpu_torch.data.dataset import Dataset
+
+    n = feats.shape[0]
+    per = -(-n // parts)
+    rows = np.zeros((per, feats.shape[1]), np.float32)
+    mine = feats[i * per:(i + 1) * per]
+    rows[:mine.shape[0]] = mine
+    return Dataset(rows, np.zeros(per, np.float32), np.array([0, per]),
+                   np.zeros(1, np.int64))
+
+
 class RowShards:
     """Data-parallel batch scoring in one process (JAX mesh.py:48
     ``score_rows_sharded``): the doc rows of ``feats`` are cut into
@@ -223,8 +246,6 @@ class RowShards:
     ``torch.cuda.device_count()`` raises, naming the count."""
 
     def __init__(self, model, feats: np.ndarray, devices: Sequence):
-        from quickrank_tpu_torch.data.dataset import Dataset
-
         self.devices = [torch.device(d) for d in devices]
         count = torch.cuda.device_count()
         for d in self.devices:
@@ -233,17 +254,9 @@ class RowShards:
                     f"scoring over {len(self.devices)} devices needs {d}, but "
                     f"{count} CUDA device(s) are visible"
                 )
-        feats = np.ascontiguousarray(feats, np.float32)
         self.n = feats.shape[0]
-        per = -(-self.n // len(self.devices))
-        padded = np.zeros((per * len(self.devices), feats.shape[1]), np.float32)
-        padded[: self.n] = feats
-        self.parts = []
-        for i, d in enumerate(self.devices):
-            rows = padded[i * per:(i + 1) * per]
-            block = Dataset(rows, np.zeros(per, np.float32), np.array([0, per]),
-                            np.zeros(1, np.int64))
-            self.parts.append(model.device_scorer(block, d))
+        self.parts = [model.device_scorer(row_block(feats, len(self.devices), i), d)
+                      for i, d in enumerate(self.devices)]
 
     def launch(self) -> list:
         """Score every block on its device; the outputs stay there."""
@@ -264,3 +277,14 @@ def score_rows_sharded(model, feats: np.ndarray, devices: Sequence) -> np.ndarra
     (:class:`RowShards`)."""
     shards = RowShards(model, feats, devices)
     return shards.gather(shards.launch())
+
+
+def score_rows_group(model, feats: np.ndarray, group: DataGroup) -> np.ndarray:
+    """Scores of ``feats``' rows under a query-sharded group (JAX driver.py:
+    337-341): every rank scores its :func:`row_block` on its own device, and
+    one gather gives every rank all the scores in row order.  Scoring has no
+    cross-doc coupling, so they are one device's scores bit for bit."""
+    n = feats.shape[0]
+    block = row_block(feats, group.world_size, group.rank)
+    mine = torch.from_numpy(np.ascontiguousarray(model.score_dataset(block, group.device)))
+    return group.all_gather(mine).reshape(-1)[:n].numpy()

@@ -7,6 +7,8 @@ rank of a group and returns what the launcher gathers.
     the parallel tests): the Mart family and DART on a shared ``TrainData``,
     the linear rankers and MetaCleaver on the datasets;
   * :func:`optimize_rank`: Cleaver on a saved model;
+  * :func:`sample_rank`: doc subsampling's masks, the one draw of the
+    run (held against the unsharded masks);
   * :func:`grow_rank`: one tree a given (gradient, weight) pair through a
     learner's grower, with no boosting loop around it: the harness that
     holds the sharded growers against a reference given the same gradients;
@@ -49,8 +51,20 @@ def load_dataset(src) -> Optional[Dataset]:
 
 def ensemble_arrays(model) -> dict:
     """The live trees' fields as host numpy arrays (comparable across ranks
-    and runs)."""
+    and runs); a RankBoost model's weak rankers."""
+    if hasattr(model, "features_"):
+        return {"feature": model.features_, "theta": model.thetas_, "alpha": model.alphas_}
     return model.ensemble.live().numpy()
+
+
+def solo_group(group: DataGroup) -> DataGroup:
+    """A one-rank group of this rank alone, in the launch of ``group``: a
+    group's run against the unsharded one without another launch.  Every
+    rank makes every rank's (``torch.distributed.new_group`` is collective)."""
+    import torch.distributed as dist
+
+    subs = [dist.new_group([r], backend=group.backend) for r in range(group.world_size)]
+    return dataclasses.replace(group, rank=0, world_size=1, group=subs[group.rank])
 
 
 def _cleaver(kwargs: dict):
@@ -78,10 +92,15 @@ def _learner(spec: dict):
 
 def _reset_counters():
     """Zero the collectives and the kernels' launch counters."""
-    from quickrank_tpu_torch.ops import kernel_histogram, kernel_qs, kernel_query_sum
+    from quickrank_tpu_torch.ops import (
+        kernel_histogram,
+        kernel_partition,
+        kernel_qs,
+        kernel_query_sum,
+    )
     from quickrank_tpu_torch.parallel import mesh
 
-    for counter in (mesh.COLLECTIVES, kernel_histogram.LAUNCHES):
+    for counter in (mesh.COLLECTIVES, kernel_histogram.LAUNCHES, kernel_partition.LAUNCHES):
         for k in counter:
             counter[k] = type(counter[k])(0)
     kernel_query_sum.LAUNCHES = kernel_qs.LAUNCHES = kernel_qs.PARTIAL_LAUNCHES = 0
@@ -89,11 +108,17 @@ def _reset_counters():
 
 def _counters() -> dict:
     """The collectives and the kernels' launches since :func:`_reset_counters`."""
-    from quickrank_tpu_torch.ops import kernel_histogram, kernel_qs, kernel_query_sum
+    from quickrank_tpu_torch.ops import (
+        kernel_histogram,
+        kernel_partition,
+        kernel_qs,
+        kernel_query_sum,
+    )
     from quickrank_tpu_torch.parallel import mesh
 
     return {"collectives": dict(mesh.COLLECTIVES),
-            "launches": {**kernel_histogram.LAUNCHES, "query_sum": kernel_query_sum.LAUNCHES,
+            "launches": {**kernel_histogram.LAUNCHES, **kernel_partition.LAUNCHES,
+                         "query_sum": kernel_query_sum.LAUNCHES,
                          "qs_score": kernel_qs.LAUNCHES,
                          "qs_partial": kernel_qs.PARTIAL_LAUNCHES}}
 
@@ -104,7 +129,7 @@ def _data(spec: dict, group: DataGroup, nthresholds: int, cache: Optional[dict])
     from quickrank_tpu_torch.learning.mart import TrainData
 
     cache = {} if cache is None else cache
-    key = (spec["train"], nthresholds)
+    key = (spec["train"], nthresholds, group.world_size)
     if key not in cache:
         cache[key] = TrainData.build(load_dataset(spec["train"]), nthresholds, group=group)
     vkey = ("valid", spec.get("valid"))
@@ -118,15 +143,19 @@ def train_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> di
     ``spec["train"]`` (validated on ``spec.get("valid")``) for
     ``spec.get("metric", "NDCG@10")``; with ``spec["grouped"] = False`` the
     same learner trains on the block alone, with no collective, on the
-    rank's device (a one-rank launch: the unsharded run).  Returns the
-    history, the model (trees, or the weights of a linear ranker), the
-    histogram kernels' launches and the collectives issued (calls, bytes,
+    rank's device (a one-rank launch: the unsharded run); with
+    ``spec["solo"]`` it trains on all of ``spec["train"]`` in a one-rank
+    group of this rank alone (:func:`solo_group`).  Returns the history,
+    the model (trees, weak rankers, or the weights of a linear ranker), the
+    kernels' launches and the collectives issued (calls, bytes,
     seconds)."""
     from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.metrics.metrics import metric_factory
 
     model = _learner(spec)
     grouped = spec.get("grouped", True)
+    if spec.get("solo"):
+        group = solo_group(group)
     if isinstance(model, Mart):
         tr, valid = _data(spec, group, model.nthresholds, cache)
         if not grouped:
@@ -219,6 +248,29 @@ def multihost_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -
                        mesh=group)
     return {"rank": group.rank, "history": {k: hist[k] for k in ("train", "valid")},
             "trees": ensemble_arrays(model), "local_docs": local.num_docs}
+
+
+def sample_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> list:
+    """Doc subsampling's masks of ``spec["kwargs"]`` (a ``Mart``'s, its
+    ``subsample`` among them) on this rank's block of ``spec["train"]``
+    (``spec["solo"]``: on all of it, in a one-rank group) for iterations
+    ``spec["iterations"]``, over the real docs and over a narrower pool
+    (every positive and every third doc, as a presence hook narrows it):
+    each mask as the global doc indices it keeps."""
+    from quickrank_tpu_torch.learning.mart import Mart
+
+    if spec.get("solo"):
+        group = solo_group(group)
+    model = Mart(**spec["kwargs"])
+    tr, _ = _data(spec, group, model.nthresholds, cache)
+    sd = tr.step
+    narrow = sd.doc_mask & ((sd.labels > 0) | (sd.doc_ids % 3 == 0))
+    out = []
+    for m in spec["iterations"]:
+        for pool, narrowed in ((sd.doc_mask, False), (narrow, True)):
+            mask = model._sample_mask(tr, m, pool, narrowed=narrowed)
+            out.append(sd.doc_ids[mask].cpu().numpy())
+    return out
 
 
 def batch_rank(group: DataGroup, jobs: list) -> list:

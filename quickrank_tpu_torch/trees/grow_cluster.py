@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.histogram import masked_histogram_t
+from quickrank_tpu_torch.ops.histogram import histogram_scale, masked_histogram_t
 from quickrank_tpu_torch.ops.kernel_partition import (
     MODE_COPY,
     MODE_DEAD,
@@ -105,13 +105,17 @@ def _align8(x):
 def fit_tree_clustered(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
                        cfg: GrowConfig,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None, group=None):
     """Drop-in for ``trees/grow.py::fit_tree`` on the clustered work buffer.
 
     Requires u8 bins, ``N % 1024 == 0``, ``cfg.num_real_features`` set with at
     least 8 pad columns past the real features, and no collapse factor.
-    Feature sampling draws as ``fit_tree`` does (over all ``W`` columns), so
-    the same generator gives the same tree."""
+    Feature sampling draws as ``fit_tree`` does (over all ``W`` columns), and
+    the card's histograms take one fixed-point scale a tree, the root's, as
+    ``fit_tree`` takes it, so the same generator gives the same tree.  With
+    ``group`` the docs are this rank's shard: every split's histogram is
+    reduced over the ranks (JAX grow_cluster.py:174-183), so every rank takes
+    the same split, and each repartitions its own work buffer."""
     N, W = binned.shape
     dev = binned.device
     B = cfg.num_bins
@@ -139,11 +143,14 @@ def fit_tree_clustered(binned: torch.Tensor, grad: torch.Tensor,
     pos_col = W + _POS
     tiles = torch.arange(T_w, device=dev)
 
-    def hist_of(rows, chan_t, mask):
-        return masked_histogram_t(rows, chan_t, mask, B, f_used=F_real)
-
     rows = work[:N]
     chan_t, pos, live = _channels(rows)
+    scale = histogram_scale(chan_t, group, cfg.num_docs)
+
+    def hist_of(rows, chan_t, mask):
+        return masked_histogram_t(rows, chan_t, mask, B, f_used=F_real, group=group,
+                                  scale=scale)
+
     hist = torch.zeros((max_nodes, F_real, B, 3), dtype=torch.float32, device=dev)
     hist[0] = hist_of(rows, chan_t, (pos == 0) & live)
     deviance = torch.zeros(max_nodes, dtype=torch.float32, device=dev)

@@ -22,7 +22,7 @@ comparison bits (src/io/generate_oblivious.cc:306-312).
 
 Under a query-sharded group (``parallel/mesh.py``) each level's histograms
 and the leaf sums are reduced over the ranks (JAX oblivious.py:126-127,
-208-209); sharding the feature axis is ROADMAP.md §A item 10b.
+208-209); sharding the feature axis is ROADMAP.md §A item 10b part 4.
 """
 
 from __future__ import annotations

@@ -24,7 +24,16 @@ best-k, level-wise and oblivious LambdaMART at 60 queries:
     the linear rankers and Cleaver bit for bit (every metric is reduced in
     one global query order), DART and MetaCleaver within
     ``tests/test_sharding.py``'s tolerances (their trees come from the CPU's
-    float histograms, which two shards sum in another order than one).
+    float histograms, which two shards sum in another order than one);
+  * RankBoost, RandomForest and LambdaMART with doc subsampling,
+    LambdaMART-Selective and Stochastic-Negative with random draws, and the
+    node-clustered grower, each also as a one-rank group of each rank alone
+    (``parallel/workers.py::solo_group``), which must be the single-device
+    run bit for bit, and against JAX's ``make_mesh(2)`` run within
+    ``tests/test_rankboost.py``'s, ``tests/test_sharding.py``'s and
+    ``tests/test_cluster.py``'s tolerances;
+  * doc subsampling's masks, one draw shared by the ranks: two ranks' and
+    a one-rank group's are the single-device masks.
 
 Every rank must return the same model, byte for byte.  A rank that raises
 fails its launch within the launch's deadline.  The histogram kernels' group
@@ -66,7 +75,12 @@ from quickrank_tpu_torch.ops.histogram import scale_doc_count
 from quickrank_tpu_torch.parallel import multihost
 from quickrank_tpu_torch.parallel.mesh import BlockOrder
 from quickrank_tpu_torch.parallel.launch import run_ranks
-from quickrank_tpu_torch.parallel.workers import batch_rank, fail_rank, save_dataset
+from quickrank_tpu_torch.parallel.workers import (
+    batch_rank,
+    ensemble_arrays,
+    fail_rank,
+    save_dataset,
+)
 
 SHARDS = 2
 TREES = 3
@@ -116,7 +130,29 @@ LEARNERS = {
                                                   seed=1)),
         cleaver=dict(pruning_method="QUALITY_LOSS", line_search=None),
         final_ntrees=8, ntrees_per_iter=4)),
+    # ROADMAP §A 10b part 3: every draw is one draw over the data, shared by
+    # the ranks (Selective with subsample < 1 gathers its narrowed pool; its
+    # adaptive factors read the reduced metrics)
+    "rankboost": ("RankBoost", dict(ntrees=12, nthresholds=NTHR)),
+    "randomforest": ("RandomForest", dict(ntrees=3, nleaves=8, nthresholds=NTHR,
+                                          subsample=0.6, max_features=0.5, seed=1)),
+    "selective": ("LambdaMartSelective", dict(
+        ntrees=4, nleaves=8, nthresholds=NTHR, seed=2, subsample=0.7, sampling_iterations=1,
+        rank_sampling_factor=0.5, random_sampling_factor=0.25, negative_strategy="RATIO",
+        adaptive_strategy="MIX", normalization_factor=2)),
+    "stochasticnegative": ("StochasticNegative", dict(ntrees=4, nleaves=8, nthresholds=NTHR,
+                                                      subsample=0.5, seed=2)),
+    "lambdamart-subsample": ("LambdaMart", dict(ntrees=3, nleaves=8, nthresholds=NTHR,
+                                                subsample=0.5, seed=1)),
+    "cluster-on": ("LambdaMart", dict(ntrees=4, nleaves=6, nthresholds=NTHR, seed=1,
+                                      cluster="on")),
 }
+#: the learners of 10b part 3, which also run as a one-rank group
+PART3 = ("rankboost", "randomforest", "selective", "stochasticnegative",
+         "lambdamart-subsample", "cluster-on")
+#: doc subsampling's masks: iterations drawn in the launch
+SAMPLE_ITERATIONS = (0, 1)
+SUBSAMPLES = (0.5, 1000.0)
 
 
 def _build(pkg, opt, name):
@@ -257,13 +293,24 @@ def port_ranks(folds, given, cleaver_model, tmp_path_factory):
         else:
             jobs.append(("train_rank", dict(learner=cls, kwargs=kw, train=train,
                                             valid=valid)))
+    n_learners = len(jobs)
+    jobs += [("train_rank", dict(learner=LEARNERS[name][0], kwargs=LEARNERS[name][1],
+                                 train=train, valid=valid, solo=True)) for name in PART3]
+    n_solo = len(jobs)
+    jobs += [("sample_rank", dict(kwargs=dict(nthresholds=NTHR, subsample=sub, seed=3),
+                                  train=train, iterations=SAMPLE_ITERATIONS, solo=solo))
+             for sub in SUBSAMPLES for solo in (False, True)]
     t0 = time.monotonic()
     out = run_ranks(batch_rank, SHARDS, args=(jobs,), device="cpu", deadline=DEADLINE)
     assert time.monotonic() - t0 < DEADLINE
     by_growth = {g: ([r[2 * i] for r in out], [r[2 * i + 1] for r in out])
                  for i, g in enumerate(GROWERS)}
     learners = {name: [r[n_growth + i] for r in out] for i, name in enumerate(LEARNERS)}
-    return by_growth, [r[n_growth - 2] for r in out], [r[n_growth - 1] for r in out], learners
+    solo = {name: [r[n_learners + i] for r in out] for i, name in enumerate(PART3)}
+    masks = {(sub, solo_): [r[n_solo + 2 * i + j] for r in out]
+             for i, sub in enumerate(SUBSAMPLES) for j, solo_ in enumerate((False, True))}
+    return (by_growth, [r[n_growth - 2] for r in out], [r[n_growth - 1] for r in out],
+            learners, solo, masks)
 
 
 @pytest.fixture(scope="module")
@@ -422,6 +469,8 @@ def _learner_run(pkg, opt, name, folds, model_path, **learn):
     out = {"history": hist}
     if hasattr(obj, "best_weights"):
         out["weights"] = np.asarray(obj.get_weights())
+    elif pkg is PL and name in PART3:
+        out["trees"] = ensemble_arrays(obj)
     return out, obj
 
 
@@ -481,9 +530,29 @@ def test_learner_matches_jax_sharded_run(port_ranks, jax_learner_runs, name):
     NDCG@10 within 1e-3; the linear rankers within 2e-3, weights within
     1e-4; Cleaver the same pruned set, weights within 1e-4; MetaCleaver
     (over MART, whose gradients both packages compute alike) the same
-    sizes, NDCG@10 within 1e-5 and the same weights."""
+    sizes, NDCG@10 within 1e-5 and the same weights.  RankBoost as
+    ``tests/test_rankboost.py`` holds its sharded run: the same features,
+    thresholds within 1e-6 and alphas within 1e-3 relative; the clustered
+    grower the last train NDCG@10 within ``tests/test_cluster.py``'s 2e-3.
+    The learners with random draws (``torch.Generator`` against
+    ``jax.random``) run finite (``tests/test_sharding.py``'s sampling
+    learners) and learn."""
     got = port_ranks[3][name][0]
     want, jmodel = jax_learner_runs[name]
+    if name == "rankboost":
+        np.testing.assert_array_equal(got["trees"]["feature"], jmodel.features_)
+        np.testing.assert_allclose(got["trees"]["theta"], jmodel.thetas_, rtol=1e-6)
+        np.testing.assert_allclose(got["trees"]["alpha"], jmodel.alphas_, rtol=1e-3)
+        return
+    if name == "cluster-on":
+        assert abs(got["history"]["train"][-1] - want["history"]["train"][-1]) < 2e-3
+        assert len(got["trees"]["weight"]) == int(jmodel.ensemble.num_trees)
+        return
+    if name in PART3:
+        for h in (got["history"], want["history"]):
+            assert np.isfinite(h["train"]).all() and np.isfinite(h["valid"]).all()
+            assert max(h["train"]) > h["train"][0] or max(h["valid"]) > h["valid"][0]
+        return
     if name == "cleaver":
         assert got["info"]["pruned"] == want["info"]["pruned"]
         np.testing.assert_allclose(got["weights"], want["weights"], atol=1e-4)
@@ -521,6 +590,20 @@ def test_learner_two_ranks_match_one(port_ranks, port_unsharded, name):
     bit, ``chip_smoke.py`` phases 35-36)."""
     got = port_ranks[3][name][0]
     want, _ = port_unsharded[name]
+    if name == "rankboost":
+        # the float potential histograms of two ranks add in another order:
+        # tests/test_rankboost.py's sharded tolerances
+        np.testing.assert_array_equal(got["trees"]["feature"], want["trees"]["feature"])
+        np.testing.assert_array_equal(got["trees"]["theta"], want["trees"]["theta"])
+        np.testing.assert_allclose(got["trees"]["alpha"], want["trees"]["alpha"], rtol=1e-3)
+        return
+    if name in PART3:
+        # tests/test_sharding.py's and tests/test_cluster.py's tolerances
+        g, w = got["history"], want["history"]
+        np.testing.assert_allclose(g["train"], w["train"], atol=1e-2)
+        np.testing.assert_allclose(g["valid"], w["valid"], atol=1e-2)
+        assert abs(g["train"][-1] - w["train"][-1]) < (2e-3 if name == "cluster-on" else 6e-3)
+        return
     if name == "cleaver":
         assert got["info"]["pruned"] == want["info"]["pruned"]
         assert got["info"]["metric_after"] == want["info"]["metric_after"]
@@ -543,14 +626,57 @@ def test_learner_two_ranks_match_one(port_ranks, port_unsharded, name):
     assert np.asarray(got["weights"]).tobytes() == np.asarray(want["weights"]).tobytes()
 
 
-class _Blocks:
-    """A stand-in for a group's ranks in one process: ``all_gather`` returns
-    what every rank sends (``parallel.mesh.DataGroup``'s contract), the
-    per-query doc counts (int64) or the per-query values, each block padded
-    to the longest."""
+@pytest.mark.parametrize("name", PART3)
+def test_learner_one_rank_group_is_the_unsharded_run(port_ranks, port_unsharded, name):
+    """A one-rank group (each rank alone, inside the launch) trains the
+    single-device model bit for bit: the same draws (one draw over the data,
+    whatever the layout), the same histograms (a float sum over one rank is
+    the rank's histogram) and the same metrics (the gathered per-query
+    reduction of one block is the single-device sum)."""
+    want, _ = port_unsharded[name]
+    for got in port_ranks[4][name]:
+        assert _model_bytes(got) == _model_bytes(want)
+        for k in ("train", "valid"):
+            assert got["history"][k] == want["history"][k], k
 
-    def __init__(self, counts, values):
-        self.counts, self.values = counts, values
+
+@pytest.mark.parametrize("subsample", SUBSAMPLES)
+def test_doc_subsampling_is_one_draw_over_the_data(port_ranks, folds, subsample):
+    """Doc subsampling (a share, and a count above 1) keeps the same docs
+    unsharded, in a one-rank group and over two ranks, each rank its
+    block's slice of one draw: over the real docs and over a narrower pool
+    (gathered in global doc order before the cut)."""
+    tr = TrainData.build(_port_ds(folds[0]), NTHR, device="cpu")
+    sd = tr.step
+    model = PL.Mart(nthresholds=NTHR, subsample=subsample, seed=3)
+    narrow = sd.doc_mask & ((sd.labels > 0) | (sd.doc_ids % 3 == 0))
+    want = [sd.doc_ids[model._sample_mask(tr, m, pool, narrowed=nar)].numpy()
+            for m in SAMPLE_ITERATIONS for pool, nar in ((sd.doc_mask, False), (narrow, True))]
+
+    def count(n):
+        if subsample > 1:
+            return min(int(subsample), n)
+        return min(max(int(np.float32(subsample) * np.float32(n)), 1), n)
+
+    assert len(want[0]) == count(folds[0].num_docs)
+    assert len(want[1]) == count(int(narrow.sum()))
+    assert np.isin(want[1], sd.doc_ids[narrow].numpy()).all()
+    assert not np.array_equal(want[0], want[2])  # iterations draw apart
+    pair, solo = port_ranks[5][(subsample, False)], port_ranks[5][(subsample, True)]
+    for i, w in enumerate(want):
+        for r in range(SHARDS):
+            np.testing.assert_array_equal(solo[r][i], w)
+        np.testing.assert_array_equal(np.concatenate([pair[r][i] for r in range(SHARDS)]), w)
+
+
+class _Blocks:
+    """A stand-in for rank ``rank`` of a group's ranks in one process:
+    ``all_gather`` returns what every rank sends (``parallel.mesh.DataGroup``'s
+    contract), the per-query doc counts (int64) or the per-query values, each
+    block padded to the longest."""
+
+    def __init__(self, counts, values, rank=0):
+        self.counts, self.values, self.rank = counts, values, rank
 
     def all_gather(self, t):
         return torch.stack(self.counts if t.dtype == torch.int64 else self.values)
@@ -560,7 +686,8 @@ def test_gathered_query_reduction_is_one_bit_pattern():
     """The metric reduction of a group (``BlockOrder``: every rank's real
     queries gathered in global order, then one rank's sum) gives one bit
     pattern over 1, 2 and 3 blocks of unequal query counts, padded to the
-    longest block, and that of the unsharded sum of the same queries."""
+    longest block, and that of the unsharded sum of the same queries; each
+    rank's order knows where its block starts (queries and docs before it)."""
     from quickrank_tpu_torch.learning.mart import reduce_queries
 
     rng = np.random.default_rng(5)
@@ -574,10 +701,12 @@ def test_gathered_query_reduction_is_one_bit_pattern():
         n = max(len(p) for p in parts)
         counts = [torch.tensor(np.pad(np.full(len(p), 3), (0, n - len(p)))) for p in parts]
         values = [torch.nn.functional.pad(pq[p], (0, n - len(p))) for p in parts]
-        group = _Blocks(counts, values)
         for rank in range(len(parts)):
+            group = _Blocks(counts, values, rank)
             sd_r = SimpleNamespace(queries=BlockOrder.build(group, counts[rank]))
             assert sd_r.queries.total == 3 * 997
+            first = sum(len(p) for p in parts[:rank])
+            assert (sd_r.queries.first, sd_r.queries.before) == (first, 3 * first)
             got = reduce_queries(metric, values[rank], sd_r, group=group)
             assert got.numpy().tobytes() == want.numpy().tobytes(), (cuts, rank)
 
@@ -599,24 +728,24 @@ def test_scale_counts_real_docs_across_a_power_of_two(folds):
     assert histogram_scale(torch.zeros(3, rows), None, real) is None
 
 
-@pytest.mark.parametrize("what", [
-    "RandomForest", "LambdaMartSelective", "StochasticNegative", "RankBoost",
-    "cluster-on", "num-feat-shards"])
+@pytest.mark.parametrize("what", ["num-feat-shards"])
 def test_unsharded_modules_refuse_a_group_naming_item_10b(folds, what, tmp_path):
-    """What this slice does not shard raises before touching data, naming
-    ROADMAP.md §A item 10b: nothing falls back to one device."""
-    from quickrank_tpu_torch import driver, learning
-    from quickrank_tpu_torch.parallel import DataGroup
+    """The 2-D data x feature mesh, all that is not sharded, raises before
+    touching data, naming ROADMAP.md §A item 10b part 4: nothing falls back
+    to one device."""
+    from quickrank_tpu_torch import driver
 
-    group = DataGroup(rank=0, world_size=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(NotImplementedError, match="item 10b part 4"):
+        driver.run(dict(num_feat_shards=2, train=str(tmp_path / "never-read.svml")))
+
+
+@pytest.mark.parametrize("name", ["LambdaMart", "RankBoost", "CoordinateAscent"])
+def test_a_mesh_that_is_not_a_group_raises_naming_item_10b_part_4(folds, name):
+    """``learn(mesh=...)`` takes a ``DataGroup``; any other mesh (a 2-D one)
+    raises before touching data, naming ROADMAP.md §A item 10b part 4."""
     ds = _port_ds(folds[0])
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        if what == "cluster-on":
-            LambdaMart(ntrees=1, cluster="on").learn(ds, mesh=group, device="cpu")
-        elif what == "num-feat-shards":
-            driver.run(dict(num_feat_shards=2, train=str(tmp_path / "never-read.svml")))
-        else:
-            getattr(learning, what)().learn(ds, mesh=group, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10b part 4"):
+        getattr(PL, name)().learn(ds, mesh=("data", "feature"), device="cpu")
 
 
 def test_a_failing_rank_fails_the_launch_within_its_deadline():

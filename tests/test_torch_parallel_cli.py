@@ -1,6 +1,7 @@
 """``--num-shards`` in the port's two CLIs, on the CPU: quicklearn trains in
-two spawned gloo ranks (rank 0 writes the model and the test scores), and
-quickscore fans the doc rows out over several blocks in one process."""
+two spawned gloo ranks (rank 0 writes the model and the test scores), scores
+a loaded model's test set over the ranks, and quickscore fans the doc rows
+out over several blocks in one process."""
 
 import numpy as np
 import pytest
@@ -110,3 +111,44 @@ def test_quicklearn_dart_and_cleaver_query_sharded_on_cpu(svml_dir, tmp_path):
     test = svml_dir / "test.svml"
     assert _ndcg10(test, d / "s.txt") == pytest.approx(_ndcg10(test, outs[0] / "s.txt"),
                                                         abs=1e-2)
+
+
+def test_scoring_only_run_fans_test_scoring_over_the_ranks(svml_dir, tmp_path):
+    """``--model-in m.xml --test te.svml --scores s.txt --num-shards 2``: no
+    training; each rank scores its block of the test rows and rank 0 writes
+    the scores file, byte for byte the one of the same command without the
+    flag (scoring has no coupling between docs)."""
+    model = tmp_path / "m.xml"
+    assert port_main(_flags(svml_dir, model, ["--algo", "LAMBDAMART", "--device", "cpu",
+                                              "--partial", "0"], folds=("train",))) == 0
+    files = []
+    for shards in (0, 2):
+        files.append(tmp_path / f"s{shards}.txt")
+        params = dict(model_in=str(model), test=str(svml_dir / "test.svml"),
+                      scores=str(files[-1]), device="cpu", quiet=True, deadline=DEADLINE)
+        if shards:
+            params["num_shards"] = shards
+        driver.run(params)
+    assert files[0].read_bytes() == files[1].read_bytes()
+    assert np.loadtxt(files[1]).shape == (read_svml(str(svml_dir / "test.svml")).num_docs,)
+
+
+def test_quicklearn_rankboost_query_sharded_on_cpu(svml_dir, tmp_path):
+    """``--algo RANKBOOST --num-shards 2 --device cpu``: two ranks train the
+    weak rankers and rank 0 saves them; the first weak rankers are the
+    unsharded run's and the test NDCG@10 within tests/test_sharding.py's
+    1e-2 of it (the CPU's float potential histograms add in another order
+    over two ranks)."""
+    runs = {}
+    for shards in (0, 2):
+        out, scores = tmp_path / f"rb{shards}.xml", tmp_path / f"s{shards}.txt"
+        extra = ["--algo", "RANKBOOST", "--device", "cpu", "--scores", str(scores),
+                 "--partial", "0"] + (["--num-shards", str(shards)] if shards else [])
+        args = vars(build_parser().parse_args(_flags(svml_dir, out, extra, trees=8)))
+        driver.run({**{k: v for k, v in args.items() if v is not None}, "deadline": DEADLINE})
+        runs[shards] = (LTRAlgorithm.load(str(out)), scores)
+    (one, s_one), (two, s_two) = runs[0], runs[2]
+    assert two.NAME == "RANKBOOST" and 0 < two.best_T <= 8
+    np.testing.assert_array_equal(two.features_[:3], one.features_[:3])
+    test = svml_dir / "test.svml"
+    assert _ndcg10(test, s_two) == pytest.approx(_ndcg10(test, s_one), abs=1e-2)

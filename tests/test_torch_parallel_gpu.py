@@ -1,7 +1,7 @@
 """The histogram kernels under a given scale, as query sharding calls them
 (``ops/kernel_histogram.py``: ``node_histogram_int``, ``histogram_int``,
 ``to_float``): their plain version on the CPU, and on the card (``gpu``: ``chip_smoke.py`` phase 31 and phase
-32's best-first case at a small size); the per-query sum kernel
+32's best-first case at a small size, phase 38's RankBoost too); the per-query sum kernel
 (``ops/kernel_query_sum.py``) against its plain version, and a query's
 lambdas in two batches.  No JAX here, so the ``gpu`` tests run
 on a host without it: ``python -m pytest tests/test_torch_parallel_gpu.py -m gpu
@@ -106,6 +106,28 @@ def test_two_gloo_ranks_on_one_card_equal_one_rank(tmp_path):
     for k, v in one["trees"].items():
         assert np.array_equal(v, two["trees"][k]), k
     assert two["history"]["train"] == one["history"]["train"]
+
+
+@pytest.mark.gpu
+def test_rankboost_two_gloo_ranks_on_one_card_equal_one_rank(tmp_path):
+    """``chip_smoke.py`` phase 38 at 400 queries: RankBoost in two gloo
+    ranks sharing the card picks the one-rank group's weak rankers, and the
+    same alphas and train NDCG@10, bit for bit (S is a gathered sum of
+    fixed-order per-query sums, the potential histogram K4's int64 sums
+    under one scale a round)."""
+    _card()
+    from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
+
+    train = save_dataset(make_ranking_dataset(num_queries=400, seed=3),
+                         str(tmp_path / "train.npz"))
+    spec = dict(learner="RankBoost", kwargs=dict(ntrees=10), train=train)
+    runs = {n: run_ranks(batch_rank, n, args=([("train_rank", spec)],), device="cuda",
+                         backend="gloo", deadline=DEADLINE) for n in (1, 2)}
+    one = runs[1][0][0]
+    for two in (r[0] for r in runs[2]):
+        for k, v in one["trees"].items():
+            assert np.asarray(v).tobytes() == np.asarray(two["trees"][k]).tobytes(), k
+        assert two["history"]["train"] == one["history"]["train"]
 
 
 @pytest.mark.gpu

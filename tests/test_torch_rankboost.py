@@ -182,19 +182,22 @@ def test_cleaver_prunes_a_rankboost_model_as_jax(runs, folds, tmp_path):
 
 def test_card_arithmetic_gives_the_same_outcome(folds, monkeypatch):
     """The card's path, emulated on the CPU: every scan one ``torch.cumsum``
-    and the potential histogram K4's fixed-point sums
-    (``node_histogram_fixed``, which the kernel equals bit for bit).  The
+    and the potential histogram K4's fixed-point sums under the run's scale
+    (``node_histogram_fixed_int``, which the kernel equals bit for bit).  The
     first five weak rankers are the CPU path's and the train NDCG@10 within
     1e-3 (``chip_smoke.py`` phase 28 holds the card itself so)."""
     train = _port_ds(folds[0])
     cpu = RankBoost(ntrees=8, nthresholds=32)
     hc = cpu.learn(train, None, Ndcg(10), verbose=False, device="cpu")
 
-    def fixed(binned, pi, doc_mask, num_bins, f_used=0):
+    def fixed(binned, pi, doc_mask, num_bins, f_used=0, group=None, num_docs=0):
+        # the card's scale: pi's max bits and the run's real docs
         vt = torch.where(doc_mask, pi, 0.0)[None, :].contiguous()
         pos = torch.where(doc_mask, 0, 1).to(torch.int32)
-        return kernel_histogram.node_histogram_fixed(binned, vt, pos, num_bins, 0, 1,
-                                                     f_used)[:, :, 0]
+        bits = kernel_histogram.channel_max_bits(vt)
+        acc = kernel_histogram.node_histogram_fixed_int(binned, vt, pos, num_bins, 0, 1, bits,
+                                                        num_docs, f_used)
+        return kernel_histogram.fixed_to_float(acc, bits, num_docs)[:, :, 0]
 
     monkeypatch.setattr(rankboost, "_scan", torch.cumsum)
     monkeypatch.setattr(rankboost, "potential_histogram", fixed)
