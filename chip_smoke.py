@@ -65,7 +65,16 @@ the ranks) and the node-clustered grower (the row-partition kernel in every
 rank), each unsharded, as a one-rank group and as two gloo ranks sharing the
 card, equal bit for bit; and quicklearn on a loaded model, test scoring and
 Cleaver, under ``--num-shards 1`` writing the no-flag run's files byte for
-byte.  Phase 6 also holds the fixed-order
+byte.  More than 255 thresholds (phases 42-45), on the u16 bin wire: the
+histogram kernels on the 2.56M-doc matrix at 1,024, 4,096 and 16,384 bins
+(the last past one block's shared memory, in tiles of the bin axis) bit for
+bit against their fixed-point reference, and u8, u16 and int32 wires of the
+same ids giving the same sums; LambdaMART best@1023 at full width beside
+best@255, its carried scores against the saved model's kernel scores, and
+the QuickScorer kernel's u16 entry on the wire; best@4095, bestk@1023,
+level@1023, oblivious@1023, DART, a warm start and RankBoost, each against
+the CPU; and best@1023 unsharded, as a one-rank group and as two gloo ranks,
+equal bit for bit.  Phase 6 also holds the fixed-order
 per-query sum kernel (``csrc/query_sum.cu``, not a TPU kernel) against its
 plain version and times it beside the float64 sum it replaced.  The
 wrappers' launch counters show that each path ran its kernels; every kernel is timed beside
@@ -2355,7 +2364,7 @@ def main() -> int:
               f"({s[1] / s[0]:.2f}x), 2 ranks sharing the card {s[2]:.4f}; collectives "
               f"{unit} (rank 0): 1 rank {collectives(grp36[i], per)}; 2 ranks "
               f"{collectives(pair36[i][0], per)}")
-    del ds36, lm36
+    del lm36  # ds36 serves phases 44 and 45 too
 
     # -- phase 37: quicklearn --num-shards 1 with DART and the optimization phase --
     phase("37: quicklearn --algo DART with --opt-algo CLEAVER, --num-shards 1 against the "
@@ -2391,7 +2400,8 @@ def main() -> int:
 
     # -- phases 38-40: RankBoost, the samplers and the clustered grower under a group --
     phase(f"38-40: RankBoost ({RANKBOOST38_ROUNDS} rounds), RandomForest, LambdaMART-Selective, "
-          f"Stochastic-Negative, LambdaMART subsample 0.5 and best@255 cluster=on / off "
+          f"Stochastic-Negative, LambdaMART subsample 0.5, best@255 cluster=on / off and "
+          f"best@1023 (phase 45) "
           f"({PART3_TREES} trees each) at {LINEAR36_QUERIES[0]} + {LINEAR36_QUERIES[1]} "
           f"queries x {N_FEATURES} features on {card}, in two launches: unsharded and a "
           "1-rank gloo group, then 2 gloo ranks sharing the card")
@@ -2406,6 +2416,8 @@ def main() -> int:
         "LAMBDAMART-SUBSAMPLE": ("LambdaMart", dict(trees_kw, subsample=0.5)),
         "CLUSTER-ON": ("LambdaMart", dict(trees_kw, cluster="on")),
         "CLUSTER-OFF": ("LambdaMart", dict(trees_kw, cluster="off")),
+        # phase 45's runs (more than 255 thresholds), in this launch
+        "BEST@1023": ("LambdaMart", dict(trees_kw, nthresholds=1023)),
     }
     jobs3 = [("train_rank", dict(learner=cls, kwargs=kw, train=train36, valid=valid36))
              for cls, kw in part3.values()]
@@ -2415,7 +2427,9 @@ def main() -> int:
     res3 = {label: (solo3[i], grp3[i], pair3[i]) for i, label in enumerate(part3)}
     part3_launches = dict.fromkeys(("node_histogram", "histogram", "histogram_to_float",
                                     "partition_rows"), 0)
-    for solo, grp, pair in res3.values():
+    for label, (solo, grp, pair) in res3.items():
+        if label == "BEST@1023":
+            continue
         for r in [grp] + pair:
             for k in part3_launches:
                 part3_launches[k] += r["launches"][k]
@@ -2533,6 +2547,289 @@ def main() -> int:
         else:
             print("  --num-shards 2 (two NCCL ranks on two cards) wrote the same files")
 
+    # -- phases 42-45: more than 255 thresholds, the u16 bin wire ---------------
+    from quickrank_tpu_torch.learning import Dart, RankBoost
+    from quickrank_tpu_torch.learning.mart import rescore_binned
+    from quickrank_tpu_torch.ops import binning
+
+    phase(f"42: K4 and K5 on the u16 bin wire of {train_ds.num_docs} docs x {N_FEATURES} "
+          f"features at 1,023, 4,095 and 16,383 thresholds (the last past shared memory), "
+          f"against node_histogram_fixed; u8, u16 and int32 wires of the same ids")
+    gen = torch.Generator(device="cpu").manual_seed(5)  # phase 5's draws
+    wide42 = {}
+    td1023 = None
+    for nthr in (1023, 4095, 16383):
+        t0 = time.perf_counter()
+        tdw = TrainData.build(train_ds, nthr, device=dev)
+        bw, B = tdw.step.binned, tdw.num_bins
+        N, W = bw.shape
+        require(bw.dtype == torch.uint16, f"{nthr} thresholds: the wire is {bw.dtype}")
+        if nthr == 1023:
+            td1023 = tdw
+            g = torch.randn(N, generator=gen).to(dev)
+            vt = doc_channels(g, tdw.step.doc_mask).T.contiguous()
+            pos_root = torch.where(tdw.step.doc_mask, 0, 1).to(torch.int32)
+            pos4 = torch.randint(0, 4, (N,), generator=gen, dtype=torch.int32).to(dev)
+            vals = torch.stack([g, torch.rand(N, generator=gen).to(dev)], dim=-1).contiguous()
+            n_root = int(tdw.step.doc_mask.sum())
+            rows = tdw.step.doc_mask.nonzero()[:, 0]
+        bits = kernel_histogram.channel_max_bits(vt)
+        past = kernel_histogram.past_shared_memory(3, B)
+        for k, pos in ((1, pos_root), (4, pos4)):
+            acc = kernel_histogram.node_histogram_int(bw, vt, pos, B, 0, k, bits, N)
+            require(torch.equal(acc, kernel_histogram.node_histogram_fixed_int(
+                bw, vt, pos, B, 0, k, bits, N)),
+                f"K4 u16 {B} bins, k={k}: int64 sums differ from node_histogram_fixed_int")
+            got = kernel_histogram.node_histogram(bw, vt, pos, B, 0, k)
+            require(torch.equal(got, kernel_histogram.node_histogram_fixed(bw, vt, pos, B, 0, k)),
+                    f"K4 u16 {B} bins, k={k}: differs from node_histogram_fixed")
+        k5 = kernel_histogram.histogram(bw, vals, B)
+        require(torch.equal(k5, kernel_histogram.node_histogram_fixed(
+            bw, vals.T.contiguous(), None, B, 0, 1)), f"K5 u16 {B} bins: differs from "
+            "node_histogram_fixed")
+        got = kernel_histogram.node_histogram(bw, vt, pos_root, B, 0, 1)
+        plain = kernel_histogram.node_histogram_plain(bw, vt, pos_root, B, 0, 1)
+        v64 = vt.double()
+        exact, mass, terms = (kernel_histogram.node_histogram_plain(bw, x, pos_root, B, 0, 1)
+                              for x in (v64, v64.abs(), torch.ones_like(v64)))
+        err = check_histogram(f"K4 u16 root, {B} bins", got, plain, exact, mass, terms,
+                              slice(0, None, 3), kernel_histogram.rounding_error(vt))
+        del plain, exact, mass, terms
+        reps = 5 if past else 20
+        ms = time_ms(lambda: kernel_histogram.node_histogram(bw, vt, pos_root, B, 0, 1),
+                     reps=reps)
+        ms4 = time_ms(lambda: kernel_histogram.node_histogram(bw, vt, pos4, B, 0, 4), reps=reps)
+        plain_ms = time_ms(lambda: kernel_histogram.node_histogram_plain(
+            bw, vt, pos_root, B, 0, 1), reps=2)
+        k5_ms = time_ms(lambda: kernel_histogram.histogram(bw, vals, B), reps=reps)
+        # the one library call: index_add_ with the flat (feature, bin) index of
+        # every (doc, feature) of the root given; timed, never used
+        flat = (torch.arange(W, device=dev)[None, :] * B
+                + binning.bin_rows(bw, rows).long()).reshape(-1)
+        vals4 = vt[:, rows].T[:, None, :].expand(-1, W, -1).reshape(-1, 3)
+        lib_ms = time_ms(lambda: torch.zeros((W * B, 3), device=dev).index_add_(0, flat, vals4),
+                         reps=3)
+        del flat, vals4
+        # K5's over every row and column, the same way
+        k5_plain_ms = time_ms(lambda: kernel_histogram.histogram_plain(bw, vals, B), reps=2)
+        flat = (torch.arange(W, device=dev)[None, :] * B + binning.widen(bw).long()).reshape(-1)
+        vals5 = vals[:, None, :].expand(-1, W, -1).reshape(-1, 2)
+        k5_lib_ms = time_ms(lambda: torch.zeros((W * B, 2), device=dev).index_add_(
+            0, flat, vals5), reps=3)
+        del flat, vals5
+        bnd = bound_ms(n_root * W * 2 + nbytes_of(vt, pos_root) + W * B * 3 * 8,
+                       n_root * W * 3)
+        k5_bnd = bound_ms(N * W * 2 + nbytes_of(vals) + W * B * 2 * 8, N * W * 2)
+        wide42[B] = dict(ms=ms, ms4=ms4, plain_ms=plain_ms, lib_ms=lib_ms, bound=bnd,
+                         err=err, k5_ms=k5_ms, k5_bound=k5_bnd, past=past)
+        print(f"  {B} bins (binning {time.perf_counter() - t0:.1f} s; past shared memory: "
+              f"{past}): K4 and K5 bitwise node_histogram_fixed (k = 1 and 4); on {card}: K4 "
+              f"root {ms:.4f} ms, k=4 {ms4:.4f}, plain {plain_ms:.4f}, index_add_ "
+              f"{lib_ms:.4f}, bound {bnd[0]:.4f} by {bnd[1]}; K5 (C=2, all docs) {k5_ms:.4f} "
+              f"ms, plain {k5_plain_ms:.4f}, index_add_ {k5_lib_ms:.4f}, bound "
+              f"{k5_bnd[0]:.4f} by {k5_bnd[1]}")
+        if nthr != 1023:
+            del tdw, bw
+    # the same ids (< 256) as a u8, a u16 and an int32 wire: one int64 sum
+    ids = (binning.widen(td1023.step.binned) // 4).contiguous()
+    bits = kernel_histogram.channel_max_bits(vt)
+    sums = [kernel_histogram.node_histogram_int(w_, vt, pos4, 256, 0, 4, bits, N)
+            for w_ in (ids.to(torch.uint8), ids.to(torch.int16).view(torch.uint16), ids)]
+    require(torch.equal(sums[0], sums[1]) and torch.equal(sums[0], sums[2]),
+            "the u8, u16 and int32 wires of the same ids give other int64 sums")
+    print("  the same ids as u8, u16 and int32 wires: the same int64 sums (k = 4)")
+    del ids, sums, g, vt, pos_root, pos4, vals, rows, got, k5, acc
+    torch.cuda.empty_cache()
+
+    # the wide-bin path's histogram launches: counted from here to the end of
+    # phase 45 (no launch in between compares a histogram kernel)
+    for name in kernel_histogram.LAUNCHES:
+        kernel_histogram.LAUNCHES[name] = 0
+    phase(f"43: LambdaMART best@1023, 4 trees at {train_ds.num_queries} + "
+          f"{valid_ds.num_queries} queries on {card}, beside phase 6's best@255")
+    k4_events = []
+    k4_int = kernel_histogram.node_histogram_int
+
+    def k4_timed(*a, **kw):
+        """K4's int64 sums between CUDA events (its device time a tree)."""
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k4_int(*a, **kw)
+        ev[1].record()
+        k4_events.append(ev)
+        return out
+
+    kernel_histogram.node_histogram_int = k4_timed
+    try:
+        lm43 = LambdaMart(ntrees=4, nleaves=16, nthresholds=1023, seed=1, esr=100)
+        grow.HOST_SYNCS = 0
+        h43 = lm43.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+    finally:
+        kernel_histogram.node_histogram_int = k4_int
+    torch.cuda.synchronize()
+    best1023_s = report_run("best@1023", lm43, h43)
+    k4_tree_ms = sum(a.elapsed_time(b) for a, b in k4_events) / len(h43["iter_seconds"])
+    print(f"    train NDCG@10 {[round(x, 5) for x in h43['train']]}, valid "
+          f"{[round(x, 5) for x in h43['valid']]}; s/tree {best1023_s:.4f} against phase 6's "
+          f"best@255 {train_runs['best'][1]:.4f} ({best1023_s / train_runs['best'][1]:.2f}x); "
+          f"K4 {k4_tree_ms:.4f} device ms a tree ({len(k4_events)} passes)")
+    require(h43["train"][-1] > h43["train"][0], "best@1023: train NDCG@10 did not rise")
+    require(int(lm43.ensemble.threshold_bin.max()) > 255, "best@1023: no split past bin 255")
+    carried = lm43.train_scores[: train_ds.num_docs].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm43.save(os.path.join(tmp, "m.xml"))
+        model = LTRAlgorithm.load(os.path.join(tmp, "m.xml"))
+        require(model.scorer_path() == "qs", "best@1023: not on the QuickScorer path")
+        check_bitwise("best@1023 carried scores vs K1 of the saved model",
+                      model.score_dataset(train_ds, device="cuda"), carried, train_ds.num_docs)
+    # K1's u16 entry on the u16 wire (the warm start's rescore at full size)
+    tables = ensemble_to_qs(lm43.ensemble, space="bin").to(dev)
+    b1023 = td1023.step.binned
+    k1w = kernel_qs.score_qs(b1023, tables)
+    require(torch.equal(k1w, score_qs(b1023, tables)),
+            "qs_score on u16 bins: kernel and plain version differ")
+    require(torch.equal(rescore_binned(lm43.ensemble, td1023.step, lm43._descend_depth()),
+                        lm43.train_scores), "the u16 rescore differs from the carried scores")
+    k1w_ms = time_ms(lambda: kernel_qs.score_qs(b1023, tables), reps=20)
+    k1w_plain_ms = time_ms(lambda: score_qs(b1023, tables), reps=2)
+    k1w_bound = bound_ms(nbytes_of(b1023, k1w),
+                         b1023.shape[0] * float((mean_leaf_depths(lm43.ensemble) + 4).sum()))
+    print(f"  qs_score on the u16 wire {tuple(b1023.shape)} (4 trees of 16 leaves): bitwise "
+          f"its plain version and the carried scores; {k1w_ms:.4f} ms, plain "
+          f"{k1w_plain_ms:.4f}, bound {k1w_bound[0]:.4f} by {k1w_bound[1]}")
+    del td1023, b1023, tables, k1w
+    runs = {}
+    for device in ("cuda", "cpu"):
+        lm = LambdaMart(ntrees=4, nleaves=16, nthresholds=1023, seed=1)
+        runs[device] = (lm, lm.learn(small, None, Ndcg(10), verbose=False, device=device))
+    (gpu_m, gpu_h), (cpu_m, cpu_h) = runs["cuda"], runs["cpu"]
+    root = [(int(m.ensemble.feature[0, 0]), int(m.ensemble.threshold_bin[0, 0]))
+            for m in (gpu_m, cpu_m)]
+    diff = float(np.abs(np.array(gpu_h["train"]) - np.array(cpu_h["train"])).max())
+    print(f"  best@1023 on {CPU_QUERIES} queries: root split card {root[0]}, cpu {root[1]}; "
+          f"max train NDCG@10 difference {diff:.3g} over 4 iterations")
+    require(root[0] == root[1], "best@1023: root split differs between card and CPU")
+    require(diff <= 1e-3, f"best@1023: train NDCG@10 differs by {diff}")
+
+    phase(f"44: best@4095, bestk@1023, level@1023, oblivious@1023, DART, a warm start and "
+          f"RankBoost at {ds36[0].num_queries} + {ds36[1].num_queries} queries on {card}, "
+          f"each against the CPU on {CPU_QUERIES} queries")
+    wide44 = {
+        "best@4095": (LambdaMart, dict(nleaves=16, nthresholds=4095, seed=1)),
+        "bestk@1023": (LambdaMart, dict(nleaves=16, nthresholds=1023, seed=1, growth="bestk")),
+        "level@1023": (LambdaMart, dict(nleaves=16, nthresholds=1023, seed=1, growth="level",
+                                        max_depth=4)),
+        "oblivious@1023": (ObliviousLambdaMart, dict(treedepth=4, nthresholds=1023, seed=1)),
+        "DART@1023": (Dart, dict(nleaves=16, nthresholds=1023, rate_drop=0.5, seed=1)),
+        "RankBoost@1023": (RankBoost, dict(nthresholds=1023)),
+    }
+    wide44_s = {}
+    wide_qs_launches = 0  # qs_score's u16 entry on the main path: DART, the warm start
+    for label, (cls, kw) in wide44.items():
+        n = 10 if cls is RankBoost else 4
+        m = cls(ntrees=n, **kw)
+        q_before = kernel_qs.LAUNCHES
+        h = m.learn(ds36[0], ds36[1], Ndcg(10), verbose=False)
+        require(np.isfinite(h["train"]).all() and (max(h["train"]) > h["train"][0]
+                                                   or max(h["valid"]) > h["valid"][0]),
+                f"{label}: a bad or flat NDCG@10")
+        wide44_s[label] = float(np.median(h["iter_seconds"][1 if cls is RankBoost else 2:]))
+        if cls is Dart:
+            wide_qs_launches += kernel_qs.LAUNCHES - q_before
+            require(kernel_qs.LAUNCHES > q_before, "DART did not score through qs_score")
+            tdd = TrainData.build(ds36[0], 1023, device=dev)
+            tables = ensemble_to_qs(m.ensemble, space="bin").to(dev)
+            require(torch.equal(kernel_qs.score_qs(tdd.step.binned, tables),
+                                score_qs(tdd.step.binned, tables)),
+                    "DART's fold scores on the u16 wire: kernel and plain version differ")
+            del tdd, tables
+        runs = {}
+        for device in ("cuda", "cpu"):
+            c = cls(ntrees=10 if cls is RankBoost else 3, **kw)
+            runs[device] = (c, c.learn(small, None, Ndcg(10), verbose=False, device=device))
+        (gm, gh), (cm, ch) = runs["cuda"], runs["cpu"]
+        n_it = min(len(gh["train"]), len(ch["train"]))
+        diffs = np.abs(np.array(gh["train"][:n_it]) - np.array(ch["train"][:n_it]))
+        if cls is RankBoost:
+            same = (np.array_equal(gm.features_[:5], cm.features_[:5])
+                    and np.array_equal(gm.thetas_[:5], cm.thetas_[:5]))
+            what = f"first five weak rankers {gm.features_[:5].tolist()}"
+            tol = diffs[-1:]
+        elif cls is ObliviousLambdaMart:
+            lv = [(m_.oblivious_ensemble().fid[0].tolist(),
+                   m_.oblivious_ensemble().thr_bin[0].tolist()) for m_ in (gm, cm)]
+            same, what, tol = lv[0] == lv[1], f"first tree's levels {lv[0]}", diffs
+        else:
+            root = [(int(m_.ensemble.feature[0, 0]), int(m_.ensemble.threshold_bin[0, 0]))
+                    for m_ in (gm, cm)]
+            same, what, tol = root[0] == root[1], f"root split {root[0]}", diffs
+            if cls is Dart:
+                require(gh["dropped"] == ch["dropped"], "DART@1023: dropped sets differ")
+                first = next((i for i, d in enumerate(ch["dropped"]) if d), n_it)
+                require(float(diffs.max()) <= 1e-2, f"DART@1023: NDCG@10 differs by "
+                        f"{diffs.max()}")
+                tol = diffs[:first]
+        require(same, f"{label}: card and CPU differ ({what})")
+        require(float(np.max(tol, initial=0.0)) <= 1e-3,
+                f"{label}: train NDCG@10 differs by {np.max(tol)}")
+        print(f"  {label}: {wide44_s[label]:.4f} s/{'round' if cls is RankBoost else 'tree'} "
+              f"at {ds36[0].num_queries} queries (train NDCG@10 "
+              f"{[round(x, 5) for x in h['train']]}); on {CPU_QUERIES} queries card = CPU "
+              f"{what}, train NDCG@10 within {float(diffs.max()):.3g}")
+    # a warm start: the rescore through qs_score's u16 entry is the carry
+    ws = LambdaMart(ntrees=2, nleaves=16, nthresholds=1023, seed=1)
+    ws.learn(ds36[0], None, Ndcg(10), verbose=False)
+    tdw = TrainData.build(ds36[0], 1023, device=dev)
+    q_before = kernel_qs.LAUNCHES
+    rescored = rescore_binned(ws.ensemble, tdw.step, ws._descend_depth())
+    require(kernel_qs.LAUNCHES > q_before, "the u16 rescore did not launch qs_score")
+    require(torch.equal(rescored, ws.train_scores),
+            "warm start: the u16 rescore differs from the carried scores")
+    ws.ntrees = 4
+    q_before = kernel_qs.LAUNCHES
+    resumed = ws.learn(ds36[0], None, Ndcg(10), verbose=False, warm_start=True)
+    wide_qs_launches += kernel_qs.LAUNCHES - q_before
+    require(ws.ensemble.num_trees == 4 and len(resumed["train"]) == 2,
+            "the warm start at 1,023 thresholds did not continue from the model")
+    print(f"  warm start at 1,023 thresholds: the rescore through qs_score's u16 entry equals "
+          f"the carried scores bit for bit; 2 more trees, train NDCG@10 "
+          f"{[round(x, 5) for x in resumed['train']]}")
+    del tdw, rescored
+    with tempfile.TemporaryDirectory() as tmp:
+        svml, model = os.path.join(tmp, "valid36.svml"), os.path.join(tmp, "w.xml")
+        write_svml(ds36[1], svml)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--algo", "LAMBDAMART", "--train", svml, "--num-trees", "2",
+                           "--num-leaves", "16", "--num-thresholds", "4095", "--model-out",
+                           model])
+        require(rc == 0 and LTRAlgorithm.load(model).ensemble.num_trees == 2,
+                f"quicklearn --num-thresholds 4095: exit {rc} or a bad model")
+    print(f"  quicklearn --num-thresholds 4095 trained and saved a 2-tree LambdaMART on the card")
+
+    phase(f"45: LambdaMART best@1023 under a group, {PART3_TREES} trees at "
+          f"{ds36[0].num_queries} + {ds36[1].num_queries} queries: unsharded, a 1-rank gloo "
+          f"group and 2 gloo ranks sharing the card (run in phases 38-40's launches)")
+    solo, grp, pair = res3["BEST@1023"]
+    hold_three("best@1023", solo, grp, pair)
+    require(int(np.max(grp["trees"]["threshold_bin"])) > 255,
+            "best@1023 under a group: no split past bin 255")
+    group45_launches = dict.fromkeys(kernel_histogram.LAUNCHES, 0)
+    for r in [grp] + pair:
+        for k in group45_launches:
+            group45_launches[k] += r["launches"][k]
+    s45 = [float(np.median(r["history"]["iter_seconds"][2:])) for r in (solo, grp, pair[0])]
+    print(f"  2 ranks = 1-rank group = unsharded bit for bit (trees, train and valid NDCG@10 "
+          f"{[round(x, 5) for x in grp['history']['train']]}); s/tree unsharded "
+          f"{s45[0]:.4f}, 1-rank group {s45[1]:.4f} "
+          f"({s45[1] / s45[0]:.2f}x), 2 ranks {s45[2]:.4f}; collectives a tree (rank 0) 1 rank "
+          f"{collectives(grp, PART3_TREES)}, 2 ranks {collectives(pair[0], PART3_TREES)}")
+    wide_launches = {k: v + group45_launches[k] for k, v in kernel_histogram.LAUNCHES.items()}
+    print(f"  launches on the wide-bin path (phases 43-45, group ranks included): "
+          f"{wide_launches}; qs_score (u16 entry) {wide_qs_launches}")
+    require(all(v > 0 for v in wide_launches.values()) and wide_qs_launches > 0,
+            f"a kernel of the wide-bin path was not launched: {wide_launches}, qs_score "
+            f"{wide_qs_launches}")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -2577,6 +2874,15 @@ def main() -> int:
             train_launches["histogram_to_float"] + rb_launches["histogram_to_float"]
             + group_launches["histogram_to_float"] + part3_launches["histogram_to_float"],
             conv_err, conv_ms, conv_plain_ms, conv_bound),
+        # the u16 wire (phases 42-45): K4's root pass at 1,024 bins and its
+        # launches in the wide-bin runs (group ranks included); K1's u16
+        # entry on the 2.56M-doc wire and its launches in DART and the warm
+        # start (phase 44)
+        row("node_histogram_u16", "histogram.cu", "pallas_histogram.py:183",
+            wide_launches["node_histogram"], wide42[1024]["err"], wide42[1024]["ms"],
+            wide42[1024]["plain_ms"], wide42[1024]["bound"], library_ms=wide42[1024]["lib_ms"]),
+        row("qs_score_u16", "qs_score.cu", "pallas_qs.py:100", wide_qs_launches, 0.0, k1w_ms,
+            k1w_plain_ms, k1w_bound),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "
@@ -2587,6 +2893,13 @@ def main() -> int:
           f"{batch_ms:.4f} ms; Cleaver {cleaver_s:.2f} s; RankBoost {rb_s_round:.4f} s/round "
           f"(K4 {rb_k4_ms:.4f} ms a round); "
           + ", ".join(f"{k} {v:.4f}" for k, v in sampled_runs.items()) + " s/tree")
+    print(f"  more than 255 thresholds on {card}: best@1023 {best1023_s:.4f} s/tree at "
+          f"{train_ds.num_queries} queries (K4 {k4_tree_ms:.4f} ms a tree); at "
+          f"{ds36[0].num_queries} queries "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wide44_s.items())
+          + f" s/tree (RankBoost s/round); best@1023 under a group "
+          + " / ".join(f"{x:.4f}" for x in s45) + " s/tree; K4 root pass (ms, bound) "
+          + ", ".join(f"{b} bins {r['ms']:.4f} / {r['bound'][0]:.4f}" for b, r in wide42.items()))
     # the fixed-order query sum: not a TPU kernel, so a line of its own (its
     # launches are phase 6's training runs; held bitwise against its plain
     # version there, at a metric's [Q, D] terms)

@@ -60,6 +60,17 @@
 // is the old doc-a-lane mapping over the dense list.  The kernel is
 // compiled for each channel count, so a doc's values stay in registers.
 //
+// Bin ids come as uint8, uint16 or int32 (the training wire: u8 up to 256
+// bins, u16 up to 65,536, int32 beyond), one id a lane, widened in
+// registers.  Where even one feature's cells do not fit a block of 32
+// threads (C * B * 8 bytes past ~227 KB: more than ~9,600 bins at C = 3),
+// the bin axis is cut into tiles: block (g * tiles + j, i, s) holds the
+// cells of bins [j * tile_bins, (j + 1) * tile_bins) of one feature, runs
+// the same compact and add steps over every doc, and skips an id outside
+// its tile.  Each tile reads the node ids, values and bins again; the sums
+// are integers, so the cells are the bits one block holding every bin
+// would give.
+//
 // The scale is an input.  A launch takes the channels' max-bits words and
 // the doc count n of the scale, writes the int64 accumulator, and
 // histogram_to_float converts it with the same bits and n: one entry for a
@@ -159,12 +170,14 @@ struct DocList {
 // The add step: the first `count` docs of the list into the block's cells.
 // Lane -> (feature fl of the block, doc dl of the warp's turn); kInFlight docs
 // a lane and turn, their bin reads started together before the first atomic.
+// Only bin ids in the block's tile [bin0, bin0 + tile_bins) are added.
 template <typename BinT, int C, int kInFlight>
 __device__ __forceinline__ void add_list(const DocList& list, int count,
                                          const BinT* __restrict__ binned, int64_t width,
-                                         int column, bool has_feature, int num_bins,
-                                         unsigned int* my_lo, unsigned int* my_hi,
-                                         int warp, int nwarps, int dl, int docs_per_warp) {
+                                         int column, bool has_feature, int bin0,
+                                         int tile_bins, unsigned int* my_lo,
+                                         unsigned int* my_hi, int warp, int nwarps, int dl,
+                                         int docs_per_warp) {
   const int turn = docs_per_warp * kInFlight;
   for (int e0 = warp * turn + dl; e0 < count; e0 += nwarps * turn) {
     int64_t b[kInFlight];
@@ -174,12 +187,12 @@ __device__ __forceinline__ void add_list(const DocList& list, int count,
       b[u] = -1;
       if (e < count && has_feature) {
         const int64_t d = list.doc[e];
-        b[u] = static_cast<int64_t>(binned[d * width + column]);
+        b[u] = static_cast<int64_t>(binned[d * width + column]) - bin0;
       }
     }
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u) {
-      if (b[u] < 0 || b[u] >= num_bins) continue;
+      if (b[u] < 0 || b[u] >= tile_bins) continue;
       const int cell = static_cast<int>(b[u]) * C;
       add_doc<C>(my_lo + cell, my_hi + cell, list.q + e0 + u * docs_per_warp, list.cap);
     }
@@ -189,7 +202,7 @@ __device__ __forceinline__ void add_list(const DocList& list, int count,
 template <typename BinT, int C>
 __global__ void __launch_bounds__(kMaxThreads)
 histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
-                 int features, int log2_fpb, int cell_stride,
+                 int features, int log2_fpb, int tiles, int tile_bins, int cell_stride,
                  const float* __restrict__ values, int64_t stride_c, int64_t stride_n,
                  const int32_t* __restrict__ pos, int n0, int k, int num_bins,
                  const unsigned int* __restrict__ maxbits, int64_t n_scale,
@@ -211,7 +224,9 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int f0 = blockIdx.x << log2_fpb;
+  const int f0 = (blockIdx.x / tiles) << log2_fpb;
+  const int bin0 = (blockIdx.x % tiles) * tile_bins;  // the block's tile of the bin axis
+  const int nbins = min(tile_bins, num_bins - bin0);
   const int node = blockIdx.y;
   for (int i = tid; i < 2 * ncells; i += blockDim.x) s_lo[i] = 0u;
   if (tid < C) s_scale[tid] = ldexp(1.0, channel_shift(maxbits[tid], n_scale));
@@ -239,10 +254,10 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
   auto add = [&](int count) {
     if (log2_fpb == 5)
       add_list<BinT, C, kDocsInFlight>(list, count, binned, width, f0 + fl, has_feature,
-                                       num_bins, my_lo, my_hi, warp, nwarps, dl,
+                                       bin0, nbins, my_lo, my_hi, warp, nwarps, dl,
                                        docs_per_warp);
     else
-      add_list<BinT, C, 1>(list, count, binned, width, f0 + fl, has_feature, num_bins,
+      add_list<BinT, C, 1>(list, count, binned, width, f0 + fl, has_feature, bin0, nbins,
                            my_lo, my_hi, warp, nwarps, dl, docs_per_warp);
   };
   auto in_node = [&](int64_t d) {
@@ -309,7 +324,7 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
   __syncthreads();
 
   // this block's cells into the accumulator [features, num_bins, k, C]
-  const int per_feature = num_bins * C;
+  const int per_feature = nbins * C;
   const int fb = min(fpb, features - f0);
   for (int i = tid; i < fb * per_feature; i += blockDim.x) {
     const int f = i / per_feature;
@@ -320,7 +335,8 @@ histogram_kernel(const BinT* __restrict__ binned, int64_t n, int64_t width,
     if (v != 0ull) {
       const int b = j / C;
       const int c = j - b * C;
-      atomicAdd(acc + ((static_cast<int64_t>(f0 + f) * num_bins + b) * k + node) * C + c, v);
+      atomicAdd(acc + ((static_cast<int64_t>(f0 + f) * num_bins + bin0 + b) * k + node) * C + c,
+                v);
     }
   }
 }
@@ -363,20 +379,34 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
                    const unsigned int* maxbits, int64_t n_scale,
                    unsigned long long* acc, cudaStream_t stream) {
   if (n > 0xffffffffll) return cudaErrorInvalidValue;  // the list's doc indices
-  // features a block: the most, up to a warp's 32, whose cells fit beside
-  // the doc list of at least 256 threads
   int log2_fpb = 5;
-  while (log2_fpb > 0 && (1 << (log2_fpb - 1)) >= features) --log2_fpb;
   int threads = kMaxThreads;
-  while (smem_bytes(threads, log2_fpb, num_bins, C) > kSmemMax) {
-    if (threads > 256) threads /= 2;
-    else if (log2_fpb > 0) --log2_fpb, threads = kMaxThreads;
-    else if (threads > kMinThreads) threads /= 2;
-    else return cudaErrorInvalidValue;
+  int tiles = 1;
+  int tile_bins = num_bins;
+  if (smem_bytes(kMinThreads, 0, num_bins, C) > kSmemMax) {
+    // past shared memory: one feature a block, 256 threads, and the bin
+    // axis cut into the fewest even tiles whose cells fit; a block adds the
+    // ids of its tile and skips the others (integer sums, so the cells are
+    // the same bits as one block's would be)
+    log2_fpb = 0;
+    threads = 256;
+    const size_t room = (kSmemMax - smem_bytes(threads, 0, 0, C)) / 8;  // cell words
+    const int most = static_cast<int>((room - 1) / 32 * 32) / C;        // bins a tile
+    tiles = (num_bins + most - 1) / most;
+    tile_bins = (num_bins + tiles - 1) / tiles;
+  } else {
+    // features a block: the most, up to a warp's 32, whose cells fit beside
+    // the doc list of at least 256 threads
+    while (log2_fpb > 0 && (1 << (log2_fpb - 1)) >= features) --log2_fpb;
+    while (smem_bytes(threads, log2_fpb, num_bins, C) > kSmemMax) {
+      if (threads > 256) threads /= 2;
+      else if (log2_fpb > 0) --log2_fpb, threads = kMaxThreads;
+      else threads /= 2;  // down to kMinThreads, which fits
+    }
+    // several blocks an SM where they fit: 512 threads each
+    if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
   }
-  // several blocks an SM where they fit: 512 threads each
-  if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
-  const size_t smem = smem_bytes(threads, log2_fpb, num_bins, C);
+  const size_t smem = smem_bytes(threads, log2_fpb, tile_bins, C);
 
   cudaError_t err = cudaSuccess;  // the caller has cleared acc
   if (n > 0) {
@@ -396,7 +426,8 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
     // nodes' sizes, and the most waves even it out best
     const int64_t resident = static_cast<int64_t>(sms) * std::max<int64_t>(
         1, std::min<int64_t>(2048 / threads, kSmemPerSm / (smem + 1024)));
-    const int64_t items = static_cast<int64_t>((features + (1 << log2_fpb) - 1) >> log2_fpb) * k;
+    const int64_t items =
+        static_cast<int64_t>((features + (1 << log2_fpb) - 1) >> log2_fpb) * tiles * k;
     const int64_t round_docs = static_cast<int64_t>(threads) * kDocsPerThread;
     const int64_t rounds = (n + round_docs - 1) / round_docs;
     int64_t splits = 1;
@@ -413,8 +444,8 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
     const dim3 grid(static_cast<unsigned int>(items / k), static_cast<unsigned int>(k),
                     static_cast<unsigned int>(splits));
     kernel<<<grid, threads, smem, stream>>>(
-        binned, n, width, features, log2_fpb, cell_stride_of(num_bins, C), values, stride_c,
-        stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc);
+        binned, n, width, features, log2_fpb, tiles, tile_bins, cell_stride_of(tile_bins, C),
+        values, stride_c, stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc);
     err = cudaGetLastError();
   }
   return err;
@@ -459,7 +490,7 @@ bool bad_shape(int channels, int k, int num_bins, int features, int64_t width) {
 // where binned[d * width + f] == b, for f < features, b < num_bins, i < k,
 // each value scaled by its channel's power of two from maxbits[c] (the
 // largest |value| bits of channel c) and n_scale (the doc count of the
-// scale).  binned holds bin_bytes-wide ids (1: uint8, 4: int32).  acc is
+// scale).  binned holds bin_bytes-wide ids (1: uint8, 2: uint16, 4: int32).  acc is
 // int64 [features * num_bins * k * C], cleared first; histogram_to_float
 // converts it.  Launches on `stream`; returns the first CUDA error.
 extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
@@ -476,6 +507,10 @@ extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bin_bytes == 1)
     err = launch_channels(channels, static_cast<const uint8_t*>(binned), n, width, features,
+                          values, stride_c, stride_n, pos, n0, k, num_bins, maxbits,
+                          n_scale, acc, s);
+  else if (bin_bytes == 2)
+    err = launch_channels(channels, static_cast<const uint16_t*>(binned), n, width, features,
                           values, stride_c, stride_n, pos, n0, k, num_bins, maxbits,
                           n_scale, acc, s);
   else if (bin_bytes == 4)

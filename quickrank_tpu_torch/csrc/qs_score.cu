@@ -51,9 +51,11 @@
 //     leaves and more; the records grow as leaves^2 / 4 bytes) goes to
 //     qs_score_wide_kernel, whose tiles are runs of one tree's records (see
 //     there), so any width is scored, as the JAX package scores it.
-// The same kernels score uint8 bin ids against bin-space tables (thresholds
-// hold bin ids as float32, exact): the warm-start rescore of the binned
-// training matrix, without a float32 copy of it.
+// The same kernels score uint8 or uint16 bin ids against bin-space tables
+// (thresholds hold bin ids as float32, exact up to 2^24): the warm-start
+// rescore of the binned training matrix and DART's fold scores, on the
+// training wire itself (u8 up to 256 bins, u16 up to 65,536), without a
+// float32 copy of it.  A staged u16 row takes 16-byte reads of 8 ids.
 //
 // What bounds it on an H100: the least the card could take is the feature
 // matrix once over HBM (71 MB, 0.02 ms at 131,072 x 136).  The kernel is
@@ -63,14 +65,15 @@
 // on an NVIDIA H100 80GB HBM3 at 700 W, 1.5e12 node tests a second, where
 // the first kernel took 31.5 ms).
 //
-// The partial entry (qs_partial, qs_partial_u8) runs the same kernels with
-// kPartial set: in place of the fold it writes out[doc, t] = d_t, the
-// unweighted exit-leaf value of every tree (trees/qs.py::partial_scores_qs;
-// the per-tree columns of Mart.partial_scores_dataset and of a warm-started
-// DART run's contributions).  The parked values of a tile are written after
-// its barrier by all threads of the block, consecutive threads on
-// consecutive trees of one doc, so the [n, trees] rows leave in runs; the
-// parking pitch is then kDocs + 1, which keeps those reads off one bank.
+// The partial entry (qs_partial, qs_partial_u8 and _u16) runs the same
+// kernels with kPartial set: in place of the fold it writes out[doc, t] =
+// d_t, the unweighted exit-leaf value of every tree (trees/qs.py::
+// partial_scores_qs; the per-tree columns of Mart.partial_scores_dataset
+// and of a warm-started DART run's contributions).  The parked values of
+// a tile are written after its barrier by all threads of the block,
+// consecutive threads on consecutive trees of one doc, so the [n, trees]
+// rows leave in runs; the parking pitch is then kDocs + 1, which keeps
+// those reads off one bank.
 // A caller scores a range of slots by passing the range's first record and
 // its length, so a large ensemble is taken in chunks of trees.
 // Later work: 32-bit masks for trees of at most 32 leaves.
@@ -374,6 +377,14 @@ extern "C" int qs_score_u8(const uint8_t* x, int64_t n, int64_t f,
                                 stride_words, out, stream);
 }
 
+// The same scorer on uint16 bin ids (more than 256 bins).
+extern "C" int qs_score_u16(const uint16_t* x, int64_t n, int64_t f,
+                            const void* packed, int trees, int nodes, int leaves,
+                            int words, int stride_words, float* out, void* stream) {
+  return launch<uint16_t, false>(x, n, f, packed, trees, nodes, leaves, words,
+                                 stride_words, out, stream);
+}
+
 // The partial entry: out [n, trees] float32, row-major, out[doc, t] the
 // unweighted exit-leaf value of tree t (no weights, no sum).  `packed`
 // points at the first record of the slots to score, `trees` is their count.
@@ -389,6 +400,13 @@ extern "C" int qs_partial_u8(const uint8_t* x, int64_t n, int64_t f,
                              int words, int stride_words, float* out, void* stream) {
   return launch<uint8_t, true>(x, n, f, packed, trees, nodes, leaves, words,
                                stride_words, out, stream);
+}
+
+extern "C" int qs_partial_u16(const uint16_t* x, int64_t n, int64_t f,
+                              const void* packed, int trees, int nodes, int leaves,
+                              int words, int stride_words, float* out, void* stream) {
+  return launch<uint16_t, true>(x, n, f, packed, trees, nodes, leaves, words,
+                                stride_words, out, stream);
 }
 
 extern "C" const char* qr_cuda_error_string(int code) {

@@ -1,5 +1,6 @@
 // Staging of a block's document rows in shared memory, feature-major, for
-// the scoring kernels qs_score.cu and perfect_score.cu.
+// the scoring kernels qs_score.cu and perfect_score.cu.  X is float32, or a
+// uint8 or uint16 bin id (qs_score.cu's bin-space entries).
 //
 // A block of kDocs docs holds rows [doc0, doc0 + kDocs) of x [n, f], one
 // contiguous range of global memory.  It is read in order (as 16-byte
@@ -22,8 +23,13 @@ __device__ __forceinline__ X vec_elem(const int4& raw, int j) {
   constexpr int kPerWord = 4 / static_cast<int>(sizeof(X));
   const int k = j / kPerWord;
   const int word = k == 0 ? raw.x : k == 1 ? raw.y : k == 2 ? raw.z : raw.w;
-  if (sizeof(X) == 4) return static_cast<X>(__int_as_float(word));
-  return static_cast<X>((static_cast<unsigned int>(word) >> (8 * (j % kPerWord))) & 0xffu);
+  if constexpr (sizeof(X) == 4) {
+    return static_cast<X>(__int_as_float(word));
+  } else {
+    constexpr int kBits = 8 * static_cast<int>(sizeof(X));
+    return static_cast<X>((static_cast<unsigned int>(word) >> (kBits * (j % kPerWord))) &
+                          ((1u << kBits) - 1u));
+  }
 }
 
 // pitch (elements) of a staged feature row of kDocs docs

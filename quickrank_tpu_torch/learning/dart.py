@@ -30,8 +30,9 @@ QuickScorer tables packed on the training device (``[capacity, S]``,
 (``trees/qs.py::tree_to_qs_row``) and rebuilds them only on compaction and
 warm start.  A dropped iteration gathers the dropped slots' rows, writes
 their current weights into the rows' weight words (the stored words are
-never read otherwise: the weights change every iteration) and scores the u8
-train and valid rows through ``ops/kernel_qs.py::score_qs``: the QuickScorer
+never read otherwise: the weights change every iteration) and scores the
+train and valid bin rows (the u8 or u16 wire) through
+``ops/kernel_qs.py::score_qs``: the QuickScorer
 kernel on the card, its plain version on the CPU.  Its cost follows the
 number of dropped trees, not the ensemble's size.  Against the JAX package
 the delta differs only in the order of the sum (here a Kahan chain in drop
@@ -78,6 +79,7 @@ from quickrank_tpu_torch.learning.mart import (
     rescore_binned,
 )
 from quickrank_tpu_torch.metrics.metrics import Metric
+from quickrank_tpu_torch.ops.binning import scorer_rows
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import fma_f32, tree_delta_binned
@@ -294,14 +296,8 @@ class Dart(LambdaMart):
                 if group is not None and self._uses_contributions() else None)
         on_card = device.type == "cuda"
 
-        def rows(td: TrainData) -> torch.Tensor:
-            """The bin matrix as the scorers take it (int32 bins, CPU only
-            beyond 256 bins, as float32)."""
-            b = td.step.binned
-            return b if b.dtype == torch.uint8 else b.float()
-
-        feats_tr = rows(tr)
-        feats_va = rows(va) if va is not None else None
+        feats_tr = scorer_rows(tr.step.binned)
+        feats_va = scorer_rows(va.step.binned) if va is not None else None
 
         cap = self.ntrees + max(16, self.ntrees // 4)
         nt = self.normalize_type

@@ -65,7 +65,13 @@ from quickrank_tpu_torch.data.dataset import (
 )
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.metrics.metrics import Metric
-from quickrank_tpu_torch.ops.binning import FLT_MAX, apply_bins, build_thresholds
+from quickrank_tpu_torch.ops.binning import (
+    FLT_MAX,
+    apply_bins,
+    bin_wire,
+    build_thresholds,
+    scorer_rows,
+)
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import kahan_add, partial_scores, tree_delta_binned
@@ -85,8 +91,6 @@ from quickrank_tpu_torch.trees.structs import EnsembleTensors
 #: deepest tree the perfect-tree scorer embeds
 PERFECT_MAX_DEPTH = 5
 
-#: ROADMAP.md §A entry for bin ids wider than a byte on CUDA
-_WIDE_BINS_ITEM = "§A item 12 (bins wider than u8 on CUDA)"
 #: ROADMAP.md §A entry for the meshes other than a 1-D query-sharded group
 MESH_2D_ITEM = "§A item 10b part 4 (the 2-D data x feature mesh)"
 
@@ -108,7 +112,7 @@ class StepData:
     """The tensors one boosting step reads (train or valid fold), all on
     the training device."""
 
-    binned: torch.Tensor  # u8 [N, W] (int32 beyond 256 bins, CPU only)
+    binned: torch.Tensor  # [N, W] u8, u16 beyond 256 bins, int32 beyond 65,536
     labels: torch.Tensor  # f32 [N]
     labels2d: torch.Tensor  # f32 [Q, D]
     doc_mask: torch.Tensor  # bool [N]
@@ -200,13 +204,9 @@ class TrainData:
             binned = np.pad(binned, ((0, 0), (0, f_blk - F)))
             thresholds = np.pad(thresholds, ((0, f_blk - F), (0, 0)),
                                 constant_values=FLT_MAX)
-        B = thresholds.shape[1]
-        if B > 256 and device.type == "cuda":
-            raise NotImplementedError(
-                f"{B} bins need bin ids wider than a byte, which the CUDA "
-                f"histogram path does not take yet: ROADMAP.md {_WIDE_BINS_ITEM}"
-            )
-        wire = torch.from_numpy(binned.astype(np.uint8 if B <= 256 else np.int32))
+        # the JAX package's wire (mart.py:203-209): u8, u16 beyond 256
+        # bins, int32 beyond 65,536; the kernels widen the ids
+        wire = torch.from_numpy(bin_wire(binned, thresholds.shape[1]))
         to = lambda t: t.to(device)  # noqa: E731
         sd = StepData(
             binned=to(wire),
@@ -839,12 +839,14 @@ def rescore_binned(ens: EnsembleTensors, sd: StepData, max_depth: int) -> torch.
     rather than checkpointing them, mart.cc:237-253).
 
     On the card the pass rides bin-space QuickScorer tables and the
-    QuickScorer kernel on the u8 bin matrix itself (no float32 copy of it);
+    QuickScorer kernel on the u8 or u16 bin matrix itself (no float32 copy
+    of it; int32 ids beyond 65,536 bins go as float32);
     on the CPU it is a scan of per-tree bin-space descents.  Both keep the
     fused Kahan step of the training carry, so with the model's live trees
     the result is bitwise the scores training carried."""
     if sd.binned.device.type == "cuda":
-        return score_qs(sd.binned, ensemble_to_qs(ens, space="bin").to(sd.binned.device))
+        return score_qs(scorer_rows(sd.binned),
+                        ensemble_to_qs(ens, space="bin").to(sd.binned.device))
     s = torch.zeros(sd.binned.shape[0], dtype=torch.float32)
     c = torch.zeros_like(s)
     zero = torch.zeros((), dtype=torch.float32)

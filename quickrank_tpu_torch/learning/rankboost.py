@@ -79,6 +79,7 @@ from quickrank_tpu_torch.data.dataset import (
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.learning.mart import StepData, TrainData, eval_metric, refuse_mesh
 from quickrank_tpu_torch.metrics.core import query_sum
+from quickrank_tpu_torch.ops.binning import bin_columns
 from quickrank_tpu_torch.ops.histogram import (
     histogram_scale,
     masked_histogram_scatter,
@@ -278,7 +279,7 @@ class RankBoost(LTRAlgorithm):
             else:
                 alpha = float(np.log((z_t + r_t) / (z_t - r_t)) / 2.0)
                 max_alpha = max(max_alpha, alpha)
-            h = (sd.binned[:, f_i].to(torch.int32) > t_i).to(torch.float32) \
+            h = (bin_columns(sd.binned, f_i) > t_i).to(torch.float32) \
                 * sd.doc_mask.to(torch.float32)
             scores = scores + np.float32(alpha) * h
             metrics = [eval_metric(metric, sd, scores, group)]

@@ -40,9 +40,11 @@ SIGNATURES = {
     # x, n, f, packed, trees, nodes, leaves, words, stride_words, out, stream
     "qs_score": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     "qs_score_u8": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
+    "qs_score_u16": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     # the same arguments; out is [n, trees]
     "qs_partial": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     "qs_partial_u8": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
+    "qs_partial_u16": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     # x, n, f, packed, trees, depth, stride_words, out, stream
     "perfect_score": [_P, _I64, _I64, _P, _I, _I, _I, _P, _P],
     # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream

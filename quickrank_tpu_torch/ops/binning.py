@@ -11,11 +11,19 @@ Threshold semantics follow the reference (mart.cc:127-170):
 A doc with value ``v`` lands in bin ``t`` iff ``thresholds[t-1] < v <=
 thresholds[t]``, so a split at ``t`` sends bins ``<= t`` left, exactly the
 value routing ``v <= threshold`` (rt.cc:330).
+
+The bin matrix travels as the JAX package's wire (:func:`bin_wire`): uint8
+up to 256 bins, uint16 up to 65,536, int32 beyond.  torch's uint16 has
+almost no kernels (no compare, gather or index_copy), so every torch reader
+of the matrix goes through :func:`bin_columns`, :func:`gather_bins` or
+:func:`bin_rows`, which read uint16 ids as their int16 bits and widen only
+the column or block they return to int32, never the whole matrix.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 FLT_MAX = np.float32(np.finfo(np.float32).max)
 
@@ -86,3 +94,50 @@ def apply_bins(features: np.ndarray, thresholds: np.ndarray) -> np.ndarray:
         )
     np.minimum(out, B - 1, out=out)
     return out
+
+
+def bin_wire(binned: np.ndarray, num_bins: int) -> np.ndarray:
+    """Bin ids ``[N, F]`` in the training wire's dtype, the JAX package's
+    (quickrank_tpu/learning/mart.py): uint8 up to 256 bins, uint16 up to
+    65,536, int32 beyond."""
+    if num_bins <= 256:
+        return binned.astype(np.uint8)
+    if num_bins <= 65536:
+        return binned.astype(np.uint16)
+    return binned.astype(np.int32)
+
+
+def _raw(binned: torch.Tensor) -> torch.Tensor:
+    """``binned`` in a dtype torch has kernels for: uint16 ids as their
+    int16 bits (torch's uint16 has no compare, gather or index kernels)."""
+    return binned.view(torch.int16) if binned.dtype == torch.uint16 else binned
+
+
+def widen(ids: torch.Tensor) -> torch.Tensor:
+    """Bin ids of any wire dtype (or their int16 bits) as int32."""
+    if ids.dtype in (torch.uint16, torch.int16):
+        return _raw(ids).to(torch.int32) & 0xFFFF
+    return ids.to(torch.int32)
+
+
+def bin_rows(binned: torch.Tensor, rows) -> torch.Tensor:
+    """int32 ids of ``binned[rows]`` (an index, a slice or a mask), the rest
+    of the wire untouched."""
+    return widen(_raw(binned)[rows])
+
+
+def bin_columns(binned: torch.Tensor, cols) -> torch.Tensor:
+    """int32 ids of ``binned[:, cols]``: ``[N]`` for an int, ``[N, len(cols)]``
+    for an index tensor."""
+    return widen(_raw(binned)[:, cols])
+
+
+def gather_bins(binned: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int32 ids ``[N]``: row n's bin in column ``cols[n]``."""
+    return widen(_raw(binned).gather(1, cols.long()[:, None])[:, 0])
+
+
+def scorer_rows(binned: torch.Tensor) -> torch.Tensor:
+    """The bin matrix as the QuickScorer scorers take it: the u8 or u16
+    wire itself; int32 ids (more than 65,536 bins) as float32, exact."""
+    return binned if binned.dtype in (torch.uint8, torch.uint16) else binned.float()

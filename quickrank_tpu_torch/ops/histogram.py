@@ -38,6 +38,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from quickrank_tpu_torch.ops.binning import bin_rows
+
 NCHANNELS = 3  # count, sum_grad, sum_grad_sq
 #: (doc, feature) elements per scatter chunk, which bounds the index and
 #: value temporaries of the plain versions
@@ -186,7 +188,7 @@ def node_histograms_scatter(binned, values, node_of_doc, doc_mask,
     step = max(1, _CHUNK_ELEMS // max(Fw, 1))
     for r0 in range(0, rows.shape[0], step):
         r = rows[r0:r0 + step]
-        b = binned[r].long()
+        b = bin_rows(binned, r).long()
         bin_ok = (b >= 0) & (b < num_bins)
         node_elem = torch.where(bin_ok, node_of_doc[r].long()[:, None], num_nodes)
         flat = (node_elem * Fw + fidx) * num_bins + b.clamp(0, num_bins - 1)

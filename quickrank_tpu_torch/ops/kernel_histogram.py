@@ -22,6 +22,12 @@ ranks as the count), adds the accumulators as integers and converts the
 sum, so the shards' histogram is bit for bit that of all the docs at once.
 The plain version of the split is :func:`node_histogram_fixed_int` and
 :func:`fixed_to_float`.
+
+Bin ids come on the training wire (uint8 up to 256 bins, uint16 up to
+65,536, int32 beyond) and the sums do not depend on its width.  Where one
+feature's ``C * B`` cells do not fit a block's shared memory
+(:func:`past_shared_memory`), the kernel cuts the bin axis into tiles, one
+block a tile, with the same bits.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from quickrank_tpu_torch.ops import _cuda
+from quickrank_tpu_torch.ops.binning import widen
 from quickrank_tpu_torch.ops.histogram import (
     masked_histogram_scatter,
     node_histograms_scatter,
@@ -41,9 +48,11 @@ LAUNCHES = {"node_histogram": 0, "histogram": 0, "histogram_to_float": 0}
 
 #: most channels a kernel launch takes
 MAX_CHANNELS = 8
-#: shared memory one block may use; it bounds C * B, the cells of one
-#: feature and node (:func:`min_shared_bytes`)
+#: shared memory one block may use; past it the kernel tiles the bin axis
+#: (:func:`past_shared_memory`)
 SMEM_MAX = _cuda.SMEM_MAX
+#: dtypes of the bin wire
+BIN_DTYPES = (torch.uint8, torch.uint16, torch.int32)
 
 
 def min_shared_bytes(channels: int, num_bins: int) -> int:
@@ -55,9 +64,16 @@ def min_shared_bytes(channels: int, num_bins: int) -> int:
     return 32 * (8 * channels + 4) + 8 * MAX_CHANNELS + 8 * stride + 256
 
 
+def past_shared_memory(channels: int, num_bins: int) -> bool:
+    """Whether one feature's cells overflow the smallest block's shared
+    memory, so that the kernel tiles the bin axis (``csrc/histogram.cu``):
+    more than about 9,600 bins at C = 3."""
+    return min_shared_bytes(channels, num_bins) > SMEM_MAX
+
+
 def _check(name, binned, values, num_bins, channels):
-    if binned.dim() != 2 or binned.dtype not in (torch.uint8, torch.int32):
-        raise ValueError(f"{name}: binned must be uint8 or int32 [N, F], got "
+    if binned.dim() != 2 or binned.dtype not in BIN_DTYPES:
+        raise ValueError(f"{name}: binned must be uint8, uint16 or int32 [N, F], got "
                          f"{binned.dtype} {tuple(binned.shape)}")
     if values.dtype != torch.float32 or values.dim() != 2:
         raise ValueError(f"{name}: values must be float32 2-D, got "
@@ -73,15 +89,6 @@ def _check(name, binned, values, num_bins, channels):
         raise ValueError(f"{name}: {channels} channels, the kernel takes 1..{MAX_CHANNELS}")
     if num_bins < 1:
         raise ValueError(f"{name}: num_bins must be >= 1, got {num_bins}")
-
-
-def _check_smem(name, channels, num_bins):
-    if min_shared_bytes(channels, num_bins) > SMEM_MAX:
-        raise ValueError(
-            f"{name}: C*B = {channels}*{num_bins} needs "
-            f"{min_shared_bytes(channels, num_bins)} bytes of shared memory a "
-            f"feature and node, more than {SMEM_MAX}"
-        )
 
 
 def _check_scale(name, maxbits, channels, device):
@@ -114,7 +121,6 @@ def _check_docs(name, binned, values, num_bins):
 
 def _launch(name, binned, values, stride_c, stride_n, pos, n0, k, num_bins, features,
             channels, maxbits, n_scale):
-    _check_smem(name, channels, num_bins)
     dev = binned.device
     N, W = binned.shape
     acc = torch.empty((features, num_bins, k * channels), dtype=torch.int64, device=dev)
@@ -136,7 +142,7 @@ def node_histogram(binned: torch.Tensor, values_t: torch.Tensor,
     """K4: ``hist[f, b, i*C + c] = sum over docs n with pos[n] == n0 + i of
     values_t[c, n] * [binned[n, f] == b]``, float32 ``[F, B, k*C]``.
 
-    ``binned`` uint8 or int32 ``[N, W]``; ``values_t`` float32 ``[C, N]``,
+    ``binned`` uint8, uint16 or int32 ``[N, W]``; ``values_t`` float32 ``[C, N]``,
     already zero outside the doc mask; ``pos`` int32 ``[N]``; ``f_used``
     (0 = all W columns) limits the features.  Bin ids >= ``num_bins`` are
     dropped.  A CPU tensor runs the plain version; a CUDA tensor launches
@@ -301,7 +307,7 @@ def node_histogram_fixed_int(binned, values_t, pos, num_bins: int, n0: int, k: i
     cols = torch.arange(F, device=dev)[None, :]
     step = max(1, (1 << 22) // max(F, 1))
     for r0 in range(0, N, step):
-        b = binned[r0:r0 + step, :F].long()
+        b = widen(binned[r0:r0 + step, :F]).long()
         nd = node[r0:r0 + step, None]
         ok = (b >= 0) & (b < num_bins) & (nd >= 0) & (nd < k)
         flat = torch.where(ok, (cols * num_bins + b) * k + nd, F * num_bins * k)

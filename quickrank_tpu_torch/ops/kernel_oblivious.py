@@ -22,8 +22,8 @@ LAUNCHES = 0
 #: deepest tree the kernel takes: one tree's tables must fit a staged tile
 MAX_DEPTH = 12
 
-#: feature dtype -> the kernel's x_kind; uint8 holds bin ids, the form the
-#: bin matrix has on the card (int32 bins exist only on the CPU)
+#: feature dtype -> the kernel's x_kind; uint8 holds bin ids (up to 256
+#: bins; the bin-space entry takes no wider ids, and has no caller)
 _KINDS = {torch.float32: 0, torch.uint8: 1}
 _DTYPES = (*_KINDS, torch.int32)
 
@@ -32,8 +32,8 @@ def score_oblivious(features: torch.Tensor, ens: ObliviousEnsemble) -> torch.Ten
     """Weighted ensemble scores f32 [N].  float32 ``features`` are compared
     with ``ens.thr`` (value space); uint8 or int32 ones are bin ids and are
     compared with ``ens.thr_bin`` (bin space).  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises (int32 bins are the
-    CPU's form only, so on the card they raise)."""
+    version; a CUDA tensor launches the kernel or raises (bin ids wider than
+    uint8 raise on the card)."""
     global LAUNCHES
     if features.dim() != 2 or features.dtype not in _DTYPES:
         raise ValueError(

@@ -12,6 +12,9 @@ scorer reads the unpacked tables.
 The kernel's partial entry (:func:`partial_scores_qs`) writes each tree's
 unweighted exit-leaf value, ``[N, trees]``, in place of the sum; its plain
 version is ``trees/qs.py::partial_scores_qs``.
+
+Bin-space tables score the training wire itself: uint8 ids up to 256 bins
+(``qs_score_u8``), uint16 up to 65,536 (``qs_score_u16``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ PARTIAL_LAUNCHES = 0
 #: cells of one block of per-tree columns in :func:`partial_score_blocks`
 #: (1 GiB of float32)
 PARTIAL_BLOCK_ELEMS = 1 << 28
+#: feature dtypes the kernel takes: float32 values, or bin ids of the wire
+FEATURE_DTYPES = (torch.float32, torch.uint8, torch.uint16)
+#: entry-name suffix by feature dtype
+_SUFFIX = {torch.float32: "", torch.uint8: "_u8", torch.uint16: "_u16"}
 
 
 def check_inputs(features: torch.Tensor, tables, name: str,
@@ -63,11 +70,11 @@ def check_inputs(features: torch.Tensor, tables, name: str,
 
 def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
     """Weighted ensemble scores f32 [N].  ``features`` are float32 values,
-    or uint8 bin ids for bin-space tables (``ensemble_to_qs(space="bin")``).
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or uint8 or uint16 bin ids for bin-space tables
+    (``ensemble_to_qs(space="bin")``).  A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel or raises."""
     global LAUNCHES
-    check_inputs(features, qs, "score_qs", (torch.float32, torch.uint8))
+    check_inputs(features, qs, "score_qs", FEATURE_DTYPES)
     if features.device.type == "cpu":
         return plain_score_qs(features, qs)
     N, F = features.shape
@@ -77,8 +84,7 @@ def score_qs(features: torch.Tensor, qs: QSEnsemble) -> torch.Tensor:
     if N == 0:
         return out
     lib = _cuda.library()
-    entry = lib.qs_score if features.dtype == torch.float32 else lib.qs_score_u8
-    rc = entry(
+    rc = getattr(lib, "qs_score" + _SUFFIX[features.dtype])(
         features.data_ptr(), N, F, packed.data_ptr(), T, I, qs.num_leaves,
         int(qs.excl.shape[2]), int(packed.shape[1]), out.data_ptr(),
         torch.cuda.current_stream(features.device).cuda_stream,
@@ -97,7 +103,7 @@ def partial_scores_qs(features: torch.Tensor, qs: QSEnsemble, t0: int = 0,
     partial entry or raises.  The output is written whole: take a large
     ensemble a range of slots at a time."""
     global PARTIAL_LAUNCHES
-    check_inputs(features, qs, "partial_scores_qs", (torch.float32, torch.uint8))
+    check_inputs(features, qs, "partial_scores_qs", FEATURE_DTYPES)
     T = qs.fid.shape[0]
     t1 = T if t1 is None else t1
     if not 0 <= t0 <= t1 <= T:
@@ -111,8 +117,7 @@ def partial_scores_qs(features: torch.Tensor, qs: QSEnsemble, t0: int = 0,
     if N == 0 or t1 == t0:
         return out
     lib = _cuda.library()
-    entry = lib.qs_partial if features.dtype == torch.float32 else lib.qs_partial_u8
-    rc = entry(
+    rc = getattr(lib, "qs_partial" + _SUFFIX[features.dtype])(
         features.data_ptr(), N, F, packed[t0].data_ptr(), t1 - t0, I, qs.num_leaves,
         int(qs.excl.shape[2]), int(packed.shape[1]), out.data_ptr(),
         torch.cuda.current_stream(features.device).cuda_stream,

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from quickrank_tpu_torch.ops.binning import gather_bins
 from quickrank_tpu_torch.trees.structs import EnsembleTensors, Tree
 
 
@@ -117,7 +118,7 @@ def descend_tree_binned(binned: torch.Tensor, tree: Tree,
     node = torch.zeros(binned.shape[0], dtype=torch.long, device=binned.device)
     for _ in range(max_depth):
         f = feature[node].clamp(min=0)
-        x = binned.gather(1, f[:, None])[:, 0].int()
+        x = gather_bins(binned, f)
         nxt = torch.where(x <= tree.threshold_bin[node], left[node], right[node])
         node = torch.where(tree.is_leaf[node], node, nxt)
     return node

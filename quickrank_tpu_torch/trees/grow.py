@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from quickrank_tpu_torch.ops.binning import bin_columns
 from quickrank_tpu_torch.ops.histogram import (
     doc_channels,
     group_histogram,
@@ -142,7 +143,8 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
              generator: Optional[torch.Generator] = None, group=None):
     """Grow one tree on binned docs.
 
-    binned: uint8/int32 [N, F] bin ids; grad: f32 [N] pseudoresponses;
+    binned: [N, F] bin ids on the wire (uint8, uint16 or int32); grad: f32
+    [N] pseudoresponses;
     doc_mask: bool [N] (False = padding or sampled-out doc); thresholds:
     f32 [F, B] split values per bin (read on the host).
 
@@ -208,7 +210,7 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
             taken += 1
             continue
         a, b = n_nodes, n_nodes + 1
-        goes_left = binned[:, f_star] <= t_star
+        goes_left = bin_columns(binned, f_star) <= t_star
         in_leaf = node_of_doc == leaf
         node_of_doc = torch.where(
             in_leaf, torch.where(goes_left, a, b), node_of_doc

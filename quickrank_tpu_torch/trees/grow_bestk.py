@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from quickrank_tpu_torch.ops.binning import gather_bins
 from quickrank_tpu_torch.ops.histogram import doc_channels, histogram_scale, node_histograms_t
 from quickrank_tpu_torch.trees import grow
 from quickrank_tpu_torch.trees.grow import (
@@ -142,7 +143,7 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
             tables, [max_nodes] + [n_sel + 1] * 4)
         slot = slot_of_node_t[node_of_doc.long()]
         in_sel = slot < n_sel
-        goes_right = binned.gather(1, f_tab[slot][:, None])[:, 0].long() > t_tab[slot]
+        goes_right = gather_bins(binned, f_tab[slot]).long() > t_tab[slot]
         node_of_doc = torch.where(
             in_sel, a_tab[slot] + goes_right.long(), node_of_doc).to(torch.int32)
         left_hist = hists_of(

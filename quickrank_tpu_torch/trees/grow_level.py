@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from quickrank_tpu_torch.ops.binning import gather_bins
 from quickrank_tpu_torch.ops.histogram import histogram_scale, node_histograms_t, prefix_sum
 from quickrank_tpu_torch.trees.grow import EPS, NEG_INF, GrowConfig, _feature_sample_mask
 from quickrank_tpu_torch.trees.structs import Tree
@@ -58,7 +59,6 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     leaf_den = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
     pos = torch.zeros(N, dtype=torch.long, device=dev)
     nfs = cfg.num_feature_samples(F)
-    arange_n = torch.arange(N, device=dev)
 
     for d in range(depth):
         n_nodes = 2 ** d
@@ -104,7 +104,7 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
         thr_val = thresholds[f_star, t_star]
         # routing bit of every doc at its own node's split
         f_doc = f_star[pos]
-        bit = (binned[arange_n, f_doc].long() > t_star[pos]).long()
+        bit = (gather_bins(binned, f_doc).long() > t_star[pos]).long()
 
         ids = base + torch.arange(n_nodes, device=dev)
         tree.feature[ids] = torch.where(can, f_star, -1).to(torch.int32)

@@ -33,6 +33,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from quickrank_tpu_torch.ops.binning import bin_columns
 from quickrank_tpu_torch.ops.histogram import (
     histogram_scale,
     node_histograms_t,
@@ -195,8 +196,7 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
         f_star = flat // B
         t_star = flat % B
         can = alive & valid.any() & (gain[flat][0] > 0)
-        fcol = binned.index_select(1, f_star)[:, 0]
-        bit = (fcol.to(torch.int32) > t_star).to(torch.int32)
+        bit = (bin_columns(binned, f_star)[:, 0] > t_star).to(torch.int32)
         node = torch.where(can, 2 * node + bit, 2 * node)
         fid[d] = torch.where(can, f_star[0], 0)
         thr[d] = torch.where(can, thresholds.reshape(-1)[flat][0], FLT_MAX)

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from quickrank_tpu_torch.ops.binning import bin_columns
 from quickrank_tpu_torch.ops.scoring import kahan_add
 
 FLT_MAX = float(np.float32(3.4028235e38))
@@ -263,7 +264,9 @@ def _exit_values(features: torch.Tensor, qs: QSEnsemble, t0: int, t1: int):
         b = min(t1, a + chunk)
         excl = unpack_leaf_masks(dataclasses.replace(qs, excl=qs.excl[a:b])).float()
         fid = qs.fid[a:b].long()
-        false_bits = features[:, fid.reshape(-1)].view(N, b - a, I) > qs.thr[a:b]
+        cols = (bin_columns(features, fid.reshape(-1)) if features.dtype == torch.uint16
+                else features[:, fid.reshape(-1)])
+        false_bits = cols.view(N, b - a, I) > qs.thr[a:b]
         counts = torch.einsum("nti,til->ntl", false_bits.float(), excl)
         exit_leaf = (counts == 0).to(torch.uint8).argmax(dim=2)  # first max
         yield a, b, qs.leafval[a:b].gather(1, exit_leaf.T).T

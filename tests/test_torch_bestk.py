@@ -26,6 +26,8 @@ from quickrank_tpu_torch.ops.binning import apply_bins, build_thresholds
 from quickrank_tpu_torch.trees import grow
 from quickrank_tpu_torch.trees.grow_bestk import fit_tree_bestk
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 NODE_FIELDS = ("feature", "threshold", "threshold_bin", "left", "right", "is_leaf")
 
 

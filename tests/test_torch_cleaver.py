@@ -12,6 +12,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 import quickrank_tpu.learning as JL
 import quickrank_tpu_torch.learning as PL
@@ -29,6 +30,8 @@ from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.metrics import Ndcg
 from quickrank_tpu_torch.optimization import PRUNING_METHODS, Cleaver, optimization_factory
 from quickrank_tpu_torch.optimization import cleaver as PC
+
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
 
 EXACT = ("RANDOM", "RANDOM_ADV", "LOW_WEIGHTS", "SKIP", "LAST")
 RATE = 0.25

@@ -10,6 +10,7 @@ meta-learner cases are in ``test_torch_cli_phases.py``."""
 
 import numpy as np
 import pytest
+import torch
 
 from quickrank_tpu_torch.data.dataset import select_columns
 from torch_cli_common import (  # noqa: F401  (svml_dir is a fixture)
@@ -24,6 +25,8 @@ from torch_cli_common import (  # noqa: F401  (svml_dir is a fixture)
     read_svml,
     svml_dir,
 )
+
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
 
 
 def test_mart_trees_equal_jax(svml_dir, tmp_path):

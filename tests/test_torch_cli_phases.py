@@ -20,6 +20,8 @@ from torch_cli_common import (  # noqa: F401  (svml_dir is a fixture)
     svml_dir,
 )
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def test_restart_train_and_partial_saves(svml_dir, tmp_path):
     """--partial 2 writes <base>.T2.xml; --restart-train resumes from it (two

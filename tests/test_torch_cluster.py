@@ -27,6 +27,8 @@ from quickrank_tpu_torch.ops.histogram import masked_histogram_t
 from quickrank_tpu_torch.trees import grow, grow_cluster
 from quickrank_tpu_torch.trees.grow_cluster import fit_tree_clustered
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 NODE_FIELDS = ("feature", "threshold", "threshold_bin", "left", "right", "is_leaf")
 
 

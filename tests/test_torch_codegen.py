@@ -13,6 +13,7 @@ from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
+import torch
 
 from quickrank_tpu.cli import main as jax_main
 from quickrank_tpu.io import codegen as jax_codegen
@@ -25,6 +26,8 @@ from quickrank_tpu_torch.learning import LambdaMart, ObliviousMart
 from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.metrics import Ndcg
 from quickrank_tpu_torch.utils import phase_timer
+
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
 
 #: model -> the generators that take it (``oblivious`` needs symmetric trees)
 CASES = [("mart", "condop"), ("mart", "vpred"), ("obv", "condop"), ("obv", "oblivious"),

@@ -36,6 +36,8 @@ from quickrank_tpu_torch.trees import qs
 from quickrank_tpu_torch.trees.random_ensemble import random_bestfirst_ensemble
 from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _port_ds(d):
     return Dataset(d.features, d.labels, d.query_offsets, d.qids)

@@ -35,6 +35,8 @@ from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.learning.dart import NORMALIZATION_TYPES, Dart
 from quickrank_tpu_torch.metrics.metrics import Ndcg
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _port_ds(d):
     return Dataset(d.features, d.labels, d.query_offsets, d.qids)

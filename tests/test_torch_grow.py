@@ -35,6 +35,8 @@ from quickrank_tpu_torch.trees import grow
 from quickrank_tpu_torch.trees.grow_level import fit_tree_levelwise
 from quickrank_tpu_torch.trees.structs import Tree
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 NODE_FIELDS = ("feature", "threshold", "threshold_bin", "left", "right", "is_leaf")
 
 

@@ -20,6 +20,8 @@ from quickrank_tpu_torch.ops import histogram, kernel_histogram
 from quickrank_tpu_torch.ops.binning import apply_bins, build_thresholds
 from quickrank_tpu_torch.trees.grow import segment_sums
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _problem(num_bins, N=700, F=10, seed=0, oob=False):
     """u8 bins from the port's binner, doc channels (count, g, g^2) zeroed
@@ -122,18 +124,23 @@ def test_histogram_plain_matches_jax(num_slots):
     np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("first", range(1, 257, 32))
+@pytest.mark.parametrize("first", [*range(1, 257, 32), 1024, 1025, 4096, 4097])
 def test_prefix_sum_and_tree_sum_match_xla(first):
     """Bin-axis sums in XLA's CPU order, bitwise, at every bin count from 1
-    to 256 (and 257), 32 counts a case: the port's ``_node_stats`` against
-    the JAX package's jitted ``_node_stats`` (the grower's reduce), and
-    ``prefix_sum`` against ``jnp.cumsum`` (the gain scan's), on [F, B, 3]
-    histograms whose values span 2^-11..2^11 in magnitude."""
+    to 256 (and 257), 32 counts a case, and at the wide-bin lengths 1,024,
+    1,025, 4,096 and 4,097 (two and three levels of the rewrites), one a
+    case: the port's ``_node_stats`` against the JAX package's jitted
+    ``_node_stats`` (the grower's reduce), and ``prefix_sum`` against
+    ``jnp.cumsum`` (the gain scan's), on [F, B, 3] histograms whose values
+    span 2^-11..2^11 in magnitude."""
     import jax
 
     from quickrank_tpu_torch.trees.grow import _node_stats
 
-    lengths = list(range(first, first + 32)) + ([257] if first + 32 > 256 else [])
+    if first > 257:
+        lengths = [first]
+    else:
+        lengths = list(range(first, first + 32)) + ([257] if first + 32 > 256 else [])
     rng = np.random.default_rng(first)
     hs = [(rng.normal(size=(3, n, 3)) * np.exp2(rng.uniform(-11, 11, size=(3, n, 3))))
           .astype(np.float32) for n in lengths]
@@ -265,8 +272,12 @@ def test_node_histogram_fixed_special_values(what):
 
 
 def test_wrapper_shared_memory_limit():
-    """The kernel's smallest block must hold one feature's C * B cells; the
-    wrapper refuses more before any launch (on the card)."""
+    """Where the kernel's smallest block cannot hold one feature's C * B
+    cells, the kernel tiles the bin axis (``past_shared_memory``): not at
+    256 bins, from about 9,600 bins at C = 3."""
     assert kernel_histogram.min_shared_bytes(3, 256) < kernel_histogram.SMEM_MAX
     assert kernel_histogram.min_shared_bytes(8, 256) < kernel_histogram.SMEM_MAX
     assert kernel_histogram.min_shared_bytes(1, 1 << 15) > kernel_histogram.SMEM_MAX
+    assert not kernel_histogram.past_shared_memory(3, 4096)
+    assert kernel_histogram.past_shared_memory(3, 16384)
+    assert kernel_histogram.past_shared_memory(1, 1 << 15)

@@ -18,6 +18,8 @@ from quickrank_tpu.ops.lambdas import lambda_gradients as jax_lambda_gradients
 from quickrank_tpu_torch.metrics import metric_factory
 from quickrank_tpu_torch.ops.lambdas import lambda_gradients
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _views(seed, Q=13, D=40, sample=False):
     rng = np.random.default_rng(seed)

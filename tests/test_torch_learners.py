@@ -54,6 +54,8 @@ from quickrank_tpu_torch.learning.stochasticnegative import sample_presence
 from quickrank_tpu_torch.metrics.metrics import Ndcg
 from quickrank_tpu_torch.trees import random_ensemble
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 TREE_FIELDS = ("feature", "threshold", "left", "right", "is_leaf", "leaf_value")
 _KW = dict(ntrees=3, nleaves=8, nthresholds=32, seed=3, esr=0)
 

@@ -26,6 +26,8 @@ from quickrank_tpu_torch.learning import linear as PL
 from quickrank_tpu_torch.metrics import Ndcg
 from quickrank_tpu_torch.ops.scoring import matvec_f32
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 F = 10
 TOL = 1e-6
 

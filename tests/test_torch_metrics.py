@@ -20,6 +20,8 @@ from quickrank_tpu_torch.data.dataset import Dataset, pack_doc_values, shard_and
 from quickrank_tpu_torch.metrics import core, metric_factory
 from quickrank_tpu_torch.metrics.metrics import Dcg, Map, Ndcg, Rmse, Tndcg
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 NAMES = ["DCG@10", "NDCG@10", "NDCG@3", "NDCG", "TNDCG@10", "MAP@10", "MAP", "RMSE"]
 ATOL = 1e-6
 RTOL = 1e-6

@@ -40,6 +40,8 @@ from quickrank_tpu_torch.ops.scoring import score_ensemble
 from quickrank_tpu_torch.trees import oblivious as obl
 from quickrank_tpu_torch.trees.random_ensemble import random_oblivious_ensemble
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 FLT_MAX = np.finfo(np.float32).max
 FIELDS = ("fid", "thr", "thr_bin", "leaf", "weight", "num_trees")
 

@@ -33,7 +33,8 @@ best-k, level-wise and oblivious LambdaMART at 60 queries:
     ``tests/test_rankboost.py``'s, ``tests/test_sharding.py``'s and
     ``tests/test_cluster.py``'s tolerances;
   * doc subsampling's masks, one draw shared by the ranks: two ranks' and
-    a one-rank group's are the single-device masks.
+    a one-rank group's are the single-device masks;
+  * LambdaMART at 1,023 thresholds, on the u16 bin wire in every rank.
 
 Every rank must return the same model, byte for byte.  A rank that raises
 fails its launch within the launch's deadline.  The histogram kernels' group
@@ -81,6 +82,8 @@ from quickrank_tpu_torch.parallel.workers import (
     fail_rank,
     save_dataset,
 )
+
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
 
 SHARDS = 2
 TREES = 3
@@ -146,7 +149,13 @@ LEARNERS = {
                                                 subsample=0.5, seed=1)),
     "cluster-on": ("LambdaMart", dict(ntrees=4, nleaves=6, nthresholds=NTHR, seed=1,
                                       cluster="on")),
+    # more than 255 thresholds: 1,024 bins on the u16 wire in every rank
+    "lambdamart-1023": ("LambdaMart", dict(ntrees=TREES, nleaves=8, nthresholds=1023,
+                                           seed=1)),
 }
+#: the learners on the u16 bin wire, held as the growers are
+#: (``test_ndcg_matches_jax_sharded_run``, ``test_two_ranks_match_one``)
+WIDE = ("lambdamart-1023",)
 #: the learners of 10b part 3, which also run as a one-rank group
 PART3 = ("rankboost", "randomforest", "selective", "stochasticnegative",
          "lambdamart-subsample", "cluster-on")
@@ -490,15 +499,8 @@ def port_unsharded(folds, cleaver_model):
     from quickrank_tpu_torch import optimization
 
     pf = tuple(_port_ds(f) for f in folds)
-    # one intra-op thread, as each rank has (parallel/launch.py): a step is
-    # thousands of small ops, which a thread pool on a loaded host slows down
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return {name: _learner_run(PL, optimization, name, pf, cleaver_model, device="cpu")
-                for name in LEARNERS}
-    finally:
-        torch.set_num_threads(threads)
+    return {name: _learner_run(PL, optimization, name, pf, cleaver_model, device="cpu")
+            for name in LEARNERS}
 
 
 def _model_bytes(result) -> dict:
@@ -533,12 +535,25 @@ def test_learner_matches_jax_sharded_run(port_ranks, jax_learner_runs, name):
     sizes, NDCG@10 within 1e-5 and the same weights.  RankBoost as
     ``tests/test_rankboost.py`` holds its sharded run: the same features,
     thresholds within 1e-6 and alphas within 1e-3 relative; the clustered
-    grower the last train NDCG@10 within ``tests/test_cluster.py``'s 2e-3.
-    The learners with random draws (``torch.Generator`` against
+    grower the last train NDCG@10 within ``tests/test_cluster.py``'s 2e-3;
+    LambdaMART at 1,023 thresholds (the u16 wire) train NDCG@10 within 1e-4
+    an iteration, as the growers, and valid within 1e-2.  The learners with
+    random draws (``torch.Generator`` against
     ``jax.random``) run finite (``tests/test_sharding.py``'s sampling
     learners) and learn."""
     got = port_ranks[3][name][0]
     want, jmodel = jax_learner_runs[name]
+    if name in WIDE:
+        # valid within tests/test_sharding.py's 1e-2: JAX's own make_mesh(2)
+        # run is 9.2e-3 from its single-device run at iteration 1 on this
+        # fold (its psum of float leaf sums moves leaf values a few ulps and
+        # flips valid ties), where the port's two ranks equal both
+        assert got["trees"]["threshold_bin"].max() > 255
+        np.testing.assert_allclose(got["history"]["train"], want["history"]["train"],
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["history"]["valid"], want["history"]["valid"],
+                                   atol=1e-2)
+        return
     if name == "rankboost":
         np.testing.assert_array_equal(got["trees"]["feature"], jmodel.features_)
         np.testing.assert_allclose(got["trees"]["theta"], jmodel.thetas_, rtol=1e-6)
@@ -590,6 +605,12 @@ def test_learner_two_ranks_match_one(port_ranks, port_unsharded, name):
     bit, ``chip_smoke.py`` phases 35-36)."""
     got = port_ranks[3][name][0]
     want, _ = port_unsharded[name]
+    if name in WIDE:
+        g, w = got["history"], want["history"]
+        np.testing.assert_allclose(g["train"], w["train"], atol=1e-2)
+        np.testing.assert_allclose(g["valid"], w["valid"], atol=1e-2)
+        assert abs(g["train"][-1] - w["train"][-1]) < 6e-3
+        return
     if name == "rankboost":
         # the float potential histograms of two ranks add in another order:
         # tests/test_rankboost.py's sharded tolerances

@@ -14,6 +14,8 @@ from quickrank_tpu_torch.parallel.mesh import RowShards, score_rows_sharded
 from quickrank_tpu_torch.quickscore import main as quickscore_main
 from torch_cli_common import _flags, _ndcg10, port_main, read_svml, svml_dir  # noqa: F401
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 #: seconds the two ranks' launch may take (it takes ~5 s)
 DEADLINE = 120.0
 

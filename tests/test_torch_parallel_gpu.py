@@ -15,6 +15,8 @@ from quickrank_tpu_torch.ops import kernel_histogram as kh
 from quickrank_tpu_torch.parallel.launch import run_ranks
 from quickrank_tpu_torch.parallel.workers import batch_rank, save_dataset
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 #: seconds a launch of this module may take
 DEADLINE = 300.0
 

@@ -29,6 +29,8 @@ from quickrank_tpu_torch.trees.perfect import tree_depths
 from quickrank_tpu_torch.trees.random_ensemble import random_bestfirst_ensemble
 from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _port(jens) -> EnsembleTensors:
     return EnsembleTensors.from_numpy({k: np.asarray(getattr(jens, k)) for k in FIELDS})

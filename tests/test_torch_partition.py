@@ -18,6 +18,8 @@ from quickrank_tpu_torch.ops.kernel_partition import (
     partition_rows_plain,
 )
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _np_reference(data, bit, mode, dsta, dstb, sz, so, pos_col):
     """The contract spelt out tile by tile (tests/test_partition.py)."""

@@ -17,6 +17,8 @@ from quickrank_tpu_torch.ops.scoring import score_ensemble
 from quickrank_tpu_torch.trees import perfect
 from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 def _port(jens) -> EnsembleTensors:
     return EnsembleTensors.from_numpy({k: np.asarray(getattr(jens, k)) for k in FIELDS})

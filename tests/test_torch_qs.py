@@ -20,6 +20,8 @@ from quickrank_tpu_torch.ops.scoring import fma_f32, score_ensemble
 from quickrank_tpu_torch.trees import qs
 from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 SHAPES = [(40, 16, 12), (7, 16, 12), (3, 4, 5), (1, 2, 3), (25, 16, 136),
           (6, 32, 20), (5, 64, 40), (4, 128, 16)]
 

@@ -21,6 +21,8 @@ from quickrank_tpu_torch.learning.base import LTRAlgorithm
 from quickrank_tpu_torch.trees import random_ensemble
 from quickrank_tpu_torch.trees.perfect import tree_depths
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):

@@ -31,6 +31,8 @@ from quickrank_tpu_torch.metrics import Ndcg
 from quickrank_tpu_torch.ops import kernel_histogram
 from quickrank_tpu_torch.optimization import cleaver as PC
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 ROUNDS = 12
 
 

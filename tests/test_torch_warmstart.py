@@ -29,6 +29,8 @@ from quickrank_tpu_torch.ops.binning import build_thresholds
 from quickrank_tpu_torch.trees.qs import ensemble_to_qs, score_qs
 from quickrank_tpu_torch.trees.structs import FIELDS
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 KW = dict(nleaves=8, nthresholds=32, seed=1)
 
 

@@ -15,6 +15,8 @@ from quickrank_tpu_torch.learning import LambdaMart, Mart
 from quickrank_tpu_torch.trees import random_ensemble
 from quickrank_tpu_torch.trees.structs import FIELDS, EnsembleTensors
 
+torch.set_num_threads(1)  # the suite's workers share the host's cores: one thread each
+
 ENSEMBLES = {
     "bestfirst": ("random_bestfirst_ensemble", (15, 16, 30), {"seed": 3}),
     "balanced": ("random_balanced_ensemble", (12, 4, 30), {"seed": 4}),
