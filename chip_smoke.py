@@ -128,6 +128,11 @@ CLEAVER36_TREES = 50
 #: learners' trees
 RANKBOOST38_ROUNDS = 20
 PART3_TREES = 4
+MESH46_TREES = 4  # phase 46: the 2-D mesh, three ways
+#: phase 46's DART iterations: past iteration 10, where a new best (on the
+#: train fold: best_on_train) ends in the full rescore of the train fold,
+#: over the feature blocks on the mesh
+MESH46_DART_TREES = 16
 CPU_QUERIES = 200  # phases 7, 10, 12, 16, 21 and 24: the card against the CPU
 LINEAR_EPOCHS = 2  # phase 23: CoordinateAscent epochs, LineSearch iterations
 CLEAVER_RATE = 0.5  # phase 25: the share of the DART model's trees pruned
@@ -2261,7 +2266,8 @@ def main() -> int:
                                                   "metric_before_valid",
                                                   "metric_after_valid")})
         else:
-            out.update({k: r["history"].get(k) for k in ("train", "valid", "dropped")})
+            out.update({k: r["history"].get(k) for k in ("train", "valid", "dropped",
+                                                          "rescored")})
         return out
 
     def hold_three(label, solo, grp, pair):
@@ -2647,25 +2653,11 @@ def main() -> int:
         kernel_histogram.LAUNCHES[name] = 0
     phase(f"43: LambdaMART best@1023, 4 trees at {train_ds.num_queries} + "
           f"{valid_ds.num_queries} queries on {card}, beside phase 6's best@255")
-    k4_events = []
-    k4_int = kernel_histogram.node_histogram_int
-
-    def k4_timed(*a, **kw):
-        """K4's int64 sums between CUDA events (its device time a tree)."""
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = k4_int(*a, **kw)
-        ev[1].record()
-        k4_events.append(ev)
-        return out
-
-    kernel_histogram.node_histogram_int = k4_timed
-    try:
+    # K4's int64 sums between CUDA events (its device time a tree)
+    with workers.k4_timed() as k4_events:
         lm43 = LambdaMart(ntrees=4, nleaves=16, nthresholds=1023, seed=1, esr=100)
         grow.HOST_SYNCS = 0
         h43 = lm43.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
-    finally:
-        kernel_histogram.node_histogram_int = k4_int
     torch.cuda.synchronize()
     best1023_s = report_run("best@1023", lm43, h43)
     k4_tree_ms = sum(a.elapsed_time(b) for a, b in k4_events) / len(h43["iter_seconds"])
@@ -2830,6 +2822,166 @@ def main() -> int:
             f"a kernel of the wide-bin path was not launched: {wide_launches}, qs_score "
             f"{wide_qs_launches}")
 
+    # -- phases 46-48: the 2-D data x feature mesh ----------------------------------
+    from quickrank_tpu_torch import learning
+    from quickrank_tpu_torch.data.dataset import shard_and_pad
+    from quickrank_tpu_torch.parallel.workers import ensemble_arrays
+
+    phase(f"46: the 2-D data x feature mesh at {ds36[0].num_queries} + "
+          f"{ds36[1].num_queries} queries x {N_FEATURES} features, {MESH46_TREES} trees: "
+          f"best@255, bestk@255, level@255, oblivious@255, and DART for {MESH46_DART_TREES} "
+          "iterations (its full rescore included), unsharded, on a 1 x 2 and on a 2 x 2 gloo "
+          "mesh sharing the card")
+    mesh46 = {
+        "best": ("LambdaMart", dict(growth="best")),
+        "bestk": ("LambdaMart", dict(growth="bestk")),
+        "level": ("LambdaMart", dict(growth="level", max_depth=4)),
+        "oblivious": ("ObliviousLambdaMart", dict(treedepth=4)),
+        "DART": ("Dart", dict(rate_drop=0.5, best_on_train=True)),
+    }
+    jobs46 = []
+    for label, (cls, kw) in mesh46.items():
+        trees = MESH46_DART_TREES if cls == "Dart" else MESH46_TREES
+        kw = dict(kw, ntrees=trees, nthresholds=255, seed=1, esr=0)
+        if cls != "ObliviousLambdaMart":
+            kw["nleaves"] = 16
+        jobs46.append(("train_rank", dict(learner=cls, kwargs=kw, train=train36,
+                                          valid=valid36, k4_ms=True)))
+    solo46 = {}
+    for label, (_, spec) in zip(mesh46, jobs46):
+        m = getattr(learning, spec["learner"])(**spec["kwargs"])
+        with workers.k4_timed() as ev:
+            h = m.learn(ds36[0], ds36[1], Ndcg(10), verbose=False)
+        torch.cuda.synchronize()
+        solo46[label] = {"trees": ensemble_arrays(m), "history": h,
+                         "k4_ms": sum(a.elapsed_time(b) for a, b in ev)}
+    mesh_runs, secs46 = {}, {}
+    for shape in ((1, 2), (2, 2)):
+        t0 = time.perf_counter()
+        out = launch.run_ranks(workers.batch_rank, shape[0], args=(jobs46,), device="cuda",
+                               backend="gloo", deadline=900, num_feat_shards=shape[1])
+        secs46[shape] = time.perf_counter() - t0
+        mesh_runs[shape] = {label: [r[i] for r in out] for i, label in enumerate(mesh46)}
+    print(f"  launches: 1 x 2 {secs46[(1, 2)]:.1f} s, 2 x 2 {secs46[(2, 2)]:.1f} s")
+    mesh_launches = dict.fromkeys(kernel_histogram.LAUNCHES, 0)
+    mesh46_s, mesh46_k4_ms = {}, {}
+    for label in mesh46:
+        solo = solo46[label]
+        for shape, runs in mesh_runs.items():
+            for rank, r in enumerate(runs[label]):
+                require(model_of(r) == model_of(solo),
+                        f"{label}: rank {rank} of the {shape} mesh differs from the unsharded "
+                        "run")
+                for k in mesh_launches:
+                    mesh_launches[k] += r["launches"][k]
+                require(r["launches"]["node_histogram"] > 0,
+                        f"{label}: rank {rank} of the {shape} mesh launched no K4")
+        if label == "DART":
+            dropped = sum(len(d) for d in solo["history"]["dropped"])
+            require(dropped > 0, "DART: no tree was dropped")
+            require(len(solo["history"]["rescored"]) > 0,
+                    "DART: no full rescore ran (no new best past iteration 10)")
+        s = [float(np.median(solo["history"]["iter_seconds"][1:]))] + [
+            float(np.median(mesh_runs[shape][label][0]["history"]["iter_seconds"][1:]))
+            for shape in ((1, 2), (2, 2))]
+        mesh46_s[label] = s
+        per = len(solo["history"]["iter_seconds"])
+        k4 = [mesh_runs[shape][label][r]["launches"]["node_histogram"] / per
+              for shape in ((1, 2), (2, 2)) for r in range(len(mesh_runs[shape][label]))]
+        k4_ms = [solo["k4_ms"] / per] + [mesh_runs[shape][label][r]["k4_ms"] / per
+                                         for shape in ((1, 2), (2, 2))
+                                         for r in range(len(mesh_runs[shape][label]))]
+        mesh46_k4_ms[label] = k4_ms
+        dart_txt = (f", dropped sets, full rescores at iterations "
+                    f"{solo['history']['rescored']}" if label == "DART" else "")
+        print(f"  {label}: every rank of both meshes = unsharded bit for bit (trees, train "
+              f"and valid NDCG@10{dart_txt}); train "
+              f"NDCG@10 {[round(x, 5) for x in solo['history']['train']]}")
+        print(f"    s/{'iteration' if label == 'DART' else 'tree'} (median of iterations 1+): "
+              f"unsharded {s[0]:.4f}, 1 x 2 {s[1]:.4f} ({s[1] / s[0]:.2f}x), 2 x 2 sharing "
+              f"the card {s[2]:.4f} ({s[2] / s[0]:.2f}x); collectives a tree (rank 0) 1 x 2 "
+              f"{collectives(mesh_runs[(1, 2)][label][0], per)}, 2 x 2 "
+              f"{collectives(mesh_runs[(2, 2)][label][0], per)}; K4 launches a tree by rank "
+              f"(1 x 2, then 2 x 2) {[round(x, 2) for x in k4]}; K4 device ms a tree "
+              f"(CUDA events) unsharded {k4_ms[0]:.4f}, by rank 1 x 2 "
+              f"{[round(x, 4) for x in k4_ms[1:3]]}, 2 x 2 {[round(x, 4) for x in k4_ms[3:]]}")
+        if label == "DART":
+            # iteration m's seconds are iter_seconds[m - 1]
+            rs = [[round(h["iter_seconds"][m - 1], 4) for m in solo["history"]["rescored"]]
+                  for h in [solo["history"]] + [mesh_runs[shape][label][0]["history"]
+                                                 for shape in ((1, 2), (2, 2))]]
+            print(f"    the full rescore's iteration(s), s (rank 0): unsharded {rs[0]}, 1 x 2 "
+                  f"{rs[1]}, 2 x 2 {rs[2]}, beside the medians above")
+    print(f"  histogram launches on the mesh runs (every rank): {mesh_launches}")
+    require(all(mesh_launches[k] > 0 for k in ("node_histogram", "histogram",
+                                               "histogram_to_float")),
+            f"a histogram kernel of the mesh path was not launched: {mesh_launches}")
+
+    phase("47: K4 on a rank's feature block (the stats column, then f_blk = 96 columns) "
+          f"against the whole {N_FEATURES}-feature matrix (160 columns) at "
+          f"{ds36[0].num_queries} queries, the same scale: bits and ms")
+    td47 = TrainData.build(ds36[0], 255, device=dev)
+    full = td47.step.binned
+    N47 = full.shape[0]
+    g47 = torch.randn(N47, generator=torch.Generator().manual_seed(47)).to(dev)
+    vt47 = doc_channels(g47, td47.step.doc_mask).T.contiguous()
+    pos47 = torch.where(td47.step.doc_mask, 0, 1).to(torch.int32)
+    n47 = int(td47.step.doc_mask.sum())
+    bits47 = kernel_histogram.channel_max_bits(vt47)
+    width = 96  # JAX's f_blk for 136 features over 2 feature ranks at 256 bins
+    half = shard_and_pad(ds36[0], 2, block=0).num_docs_padded
+    whole47 = kernel_histogram.node_histogram_int(full, vt47, pos47, 256, 0, 1, bits47, n47)
+    k4_47 = {}
+    for f in (0, 1):
+        lo = f * width
+        cols = torch.zeros((N47, 1 + width), dtype=full.dtype, device=dev)
+        cols[:, 0] = full[:, 0]
+        real = min(width, full.shape[1] - lo)
+        cols[:, 1:1 + real] = full[:, lo:lo + real]
+        block = kernel_histogram.node_histogram_int(cols, vt47, pos47, 256, 0, 1, bits47, n47)
+        require(torch.equal(block[0], whole47[0])
+                and torch.equal(block[1:1 + real], whole47[lo:lo + real]),
+                f"K4 on feature block {f}: its columns differ from the whole matrix's")
+        if f == 1:
+            rows = slice(0, half)
+            for label, b, v, p in (
+                    ("whole", full, vt47, pos47),
+                    ("1 x 2 block", cols, vt47, pos47),
+                    ("1 x 2 block, no stats column", cols[:, 1:].contiguous(), vt47, pos47),
+                    ("2 x 2 block", cols[rows].contiguous(), vt47[:, rows].contiguous(),
+                     pos47[rows].contiguous())):
+                ms = time_ms(lambda b=b, v=v, p=p: kernel_histogram.node_histogram_int(
+                    b, v, p, 256, 0, 1, bits47, n47), reps=20)
+                nb = int(p.numel())
+                bound = bound_ms(nb * b.shape[1] + nbytes_of(v, p, bits47)
+                                 + b.shape[1] * 256 * 3 * 8, nb * b.shape[1] * 3)
+                k4_47[label] = (ms, bound, tuple(b.shape))
+    print("  each feature block's K4 columns (the stats column and its block) are the whole "
+          "matrix's int64 sums bit for bit")
+    print("  K4 root pass (int64 sums, scale given), ms / bound: "
+          + "; ".join(f"{k} {tuple(v[2])} {v[0]:.4f} / {v[1][0]:.4f} ({v[1][1]})"
+                      for k, v in k4_47.items())
+          + f"; block / whole {k4_47['1 x 2 block'][0] / k4_47['whole'][0]:.2f}x and "
+            f"{k4_47['2 x 2 block'][0] / k4_47['whole'][0]:.2f}x; the stats column's share "
+            f"of the 1 x 2 block's pass "
+            f"{1 - k4_47['1 x 2 block, no stats column'][0] / k4_47['1 x 2 block'][0]:.3f}")
+    del td47, full, g47, vt47, pos47, whole47, cols, block
+    torch.cuda.empty_cache()
+
+    phase("48: a 2 x 2 NCCL mesh, one card a rank")
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        nccl46 = launch.run_ranks(workers.batch_rank, 2, args=(jobs46[:1],), device="cuda",
+                                  deadline=600, num_feat_shards=2)
+        for rank, r in enumerate(nccl46):
+            require(model_of(r[0]) == model_of(solo46["best"]),
+                    f"2 x 2 NCCL: rank {rank} differs from the unsharded run")
+        print(f"  2 x 2 NCCL on 4 of the {cards} cards = unsharded node for node; s/tree "
+              f"{float(np.median(nccl46[0][0]['history']['iter_seconds'][1:])):.4f}")
+    else:
+        print(f"  SKIPPED: a 2 x 2 NCCL mesh needs 4 CUDA devices, this machine has {cards} "
+              "(NCCL refuses two ranks on one card)")
+
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"quickrank_tpu_torch/csrc/{source}",
@@ -2848,12 +3000,13 @@ def main() -> int:
         # the group runs of phases 32 and 38-40 (every rank)
         row("node_histogram", "histogram.cu", "pallas_histogram.py:183",
             train_launches["node_histogram"] + rb_launches["node_histogram"]
-            + group_launches["node_histogram"] + part3_launches["node_histogram"],
+            + group_launches["node_histogram"] + part3_launches["node_histogram"]
+            + mesh_launches["node_histogram"],
             hist_err["node_histogram"], *k4_times["256 bins, k=1 (root)"], k4_bound,
             library_ms=k4_library),
         row("histogram", "histogram.cu", "pallas_histogram.py:278",
             train_launches["histogram"] + group_launches["histogram"]
-            + part3_launches["histogram"], hist_err["histogram"],
+            + part3_launches["histogram"] + mesh_launches["histogram"], hist_err["histogram"],
             *k5_times, k5_bound, library_ms=k5_library),
         # the largest byte difference over the three directive sets; no
         # single PyTorch call computes the function (the row scatter alone is
@@ -2872,7 +3025,8 @@ def main() -> int:
         # root pass (phase 31)
         row("histogram_to_float", "histogram.cu", "pallas_histogram.py:183",
             train_launches["histogram_to_float"] + rb_launches["histogram_to_float"]
-            + group_launches["histogram_to_float"] + part3_launches["histogram_to_float"],
+            + group_launches["histogram_to_float"] + part3_launches["histogram_to_float"]
+            + mesh_launches["histogram_to_float"],
             conv_err, conv_ms, conv_plain_ms, conv_bound),
         # the u16 wire (phases 42-45): K4's root pass at 1,024 bins and its
         # launches in the wide-bin runs (group ranks included); K1's u16
@@ -2918,6 +3072,10 @@ def main() -> int:
           + "; " + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} s/"
                              + ("round" if k == "RANKBOOST" else "tree")
                              for k, v in part3_s.items()))
+    print(f"  the 2-D mesh (phase 46; unsharded / 1 x 2 / 2 x 2 gloo sharing the card): "
+          + "; ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)}" for k, v in mesh46_s.items())
+          + " s/tree (DART s/iteration); K4 root pass "
+          + "; ".join(f"{k} {v[0]:.4f}" for k, v in k4_47.items()) + " ms")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

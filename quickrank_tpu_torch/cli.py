@@ -7,7 +7,8 @@ optimization, testing and code generation.  Every flag is parsed; those whose
 modules are not ported yet raise in ``driver.run``, naming their ROADMAP.md item.
 ``--device`` (cuda or cpu, default cuda) takes the place of ``--platform``:
 without a CUDA device ``--device cuda`` is an error, never a CPU run.
-``--num-shards N`` trains in N ranks (``driver.run``).
+``--num-shards N`` trains in N ranks (``driver.run``), ``--num-feat-shards K``
+in N x K ranks of a 2-D data x feature mesh.
 
 Run as ``python -m quickrank_tpu_torch.cli --help``.
 """
@@ -50,7 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = one process)")
     g.add_argument("--num-feat-shards", type=int, default=0,
                    help="also shard the histogram/split-scan feature axis "
-                        "(2-D data x feature mesh; not ported yet)")
+                        "over this many ranks: --num-shards x this many "
+                        "ranks of a 2-D data x feature mesh (not with "
+                        "RANKBOOST, COORDASC, LINESEARCH, --restart-train or "
+                        "--collapse-leaves-factor; 0 or 1 = no feature axis)")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="training and scoring device; cuda without a CUDA "
                         "device is an error")

@@ -20,9 +20,13 @@ cpu`` gloo ranks on the CPU), each training and optimizing on its block of
 the queries; every rank holds the same model.  ``--test`` scoring fans the
 doc rows out over the ranks' devices (JAX driver.py:337-341) and gathers the
 scores, which equal one device's bit for bit; rank 0 alone prints, writes
-the files and evaluates.  What is not ported (the 2-D data x feature mesh,
-the ``stablehlo`` generator) raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+the files and evaluates.  ``--num-feat-shards K`` (K > 1) also shards the
+feature axis of the growers: ``--num-shards N`` x K ranks of a 2-D data x
+feature mesh (JAX driver.py:203-235), whose excluded combinations
+(RankBoost, the linear rankers, ``--restart-train``,
+``--collapse-leaves-factor``) are refused before anything runs, with JAX's
+messages.  What is not ported (the ``stablehlo`` generator) raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ from quickrank_tpu_torch.data.dataset import (
 from quickrank_tpu_torch.data.svml import read_svml, write_svml
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_factory
-from quickrank_tpu_torch.learning.mart import MESH_2D_ITEM
 from quickrank_tpu_torch.metrics.metrics import metric_factory
 from quickrank_tpu_torch.optimization.cleaver import Cleaver
 from quickrank_tpu_torch.optimization.factory import optimization_factory
@@ -56,9 +59,10 @@ _EXPORT_ITEM = "§A item 9 (CLIs and export)"
 #: what is not ported: (parameter, the value refused or None for any) ->
 #: ROADMAP.md item
 UNPORTED = {
-    ("num_feat_shards", None): MESH_2D_ITEM,
     ("generator", "stablehlo"): _EXPORT_ITEM,
 }
+#: the learners that train on a 1-D (data) mesh only (JAX driver.py:213-218)
+NO_2D = ("RANKBOOST", "COORDASC", "LINESEARCH")
 
 
 def load_dataset(path: str, verbose: bool = True) -> Dataset:
@@ -138,6 +142,24 @@ def _refuse_unported(p: dict) -> None:
             )
 
 
+def _refuse_2d(p: dict) -> None:
+    """The combinations a 2-D mesh excludes, refused up front with JAX's
+    messages (driver.py:203-232; PARITY.md "known exclusions")."""
+    algo = str(p.get("algo", "LAMBDAMART")).upper()
+    if algo in NO_2D:
+        raise NotImplementedError(
+            f"--num-feat-shards: {algo} supports 1-D (data) meshes only (PARITY.md "
+            "known exclusions)")
+    if p.get("restart_train"):
+        raise NotImplementedError(
+            "--num-feat-shards with --restart-train is not supported (warm starts "
+            "need feature-replicated descent; PARITY.md known exclusions)")
+    if float(p.get("collapse_leaves_factor", 0) or 0) > 0:
+        raise NotImplementedError(
+            "--num-feat-shards with --collapse-leaves-factor is not supported "
+            "(PARITY.md known exclusions)")
+
+
 def _learner(p: dict) -> LTRAlgorithm:
     """The learner of ``p`` (built, or loaded with ``--model-in``)."""
     rest = {k: v for k, v in p.items()
@@ -152,29 +174,40 @@ def run(params: dict) -> dict:
     wall-clocked into ``results["timings"]`` (the reference's phase prints,
     mart.cc:216-258 / driver.cc:239-246).  With ``num_shards`` the pipeline
     runs in that many ranks and the results are rank 0's (without the
-    learner object); ``deadline`` (seconds, no flag) bounds their launch."""
+    learner object); with ``num_feat_shards`` > 1 in ``num_shards`` x
+    ``num_feat_shards`` ranks of a 2-D mesh.  ``deadline`` (seconds, no
+    flag) bounds their launch."""
     p = params
     _refuse_unported(p)
     shards = int(p.get("num_shards") or 0)
-    if not shards:
+    feat = int(p.get("num_feat_shards") or 0)
+    if feat > 1:
+        _refuse_2d(p)
+    else:
+        feat = 1
+    if not shards and feat == 1:
         return run_rank(p, None)
+    shards = max(shards, 1)
     device = str(p.get("device") or "cuda")
-    if device != "cpu" and torch.cuda.device_count() < shards:
+    ranks = shards * feat
+    if device != "cpu" and torch.cuda.device_count() < ranks:
+        flags = f"--num-shards {shards}" + (f" --num-feat-shards {feat}" if feat > 1 else "")
         raise ValueError(
-            f"--num-shards {shards} on {device} needs {shards} CUDA devices, one a rank, "
+            f"{flags} on {device} needs {ranks} CUDA devices, one a rank, "
             f"but {torch.cuda.device_count()} are visible (--device cpu runs the ranks "
             "on the CPU)")
     from quickrank_tpu_torch.parallel.launch import run_ranks
     from quickrank_tpu_torch.parallel.workers import driver_rank
 
     return run_ranks(driver_rank, shards, args=(p,), device=device,
-                     deadline=p.get("deadline"))[0]
+                     deadline=p.get("deadline"), num_feat_shards=feat)[0]
 
 
 def run_rank(params: dict, group) -> dict:
     """:func:`run`'s pipeline in one process, or in one rank of a group
-    (``group``, a ``parallel.DataGroup``): the rank trains on its block on
-    the group's device, and rank 0 alone prints, saves and tests."""
+    (``group``, a ``parallel.DataGroup`` or a ``parallel.mesh.Mesh2D``): the
+    rank trains on its block on the group's device, and rank 0 alone
+    prints, saves and tests."""
     p = params
     device = group.device if group is not None else resolve_device(p.get("device"))
     lead = group is None or group.rank == 0

@@ -53,6 +53,16 @@ the mean |output| over the docs of every rank, gathered into global doc
 order and summed as one rank sums them.  So every decision is one rank's,
 bit for bit.  ``subsample`` is one draw shared by the ranks, as Mart's is.
 Rank 0 alone prints and saves.
+
+Under a 2-D data x feature mesh (``learn(mesh=...)`` a ``parallel.mesh.
+Mesh2D``; JAX dart.py:166-209, :457-493) the train fold is this rank's
+feature block, which the QuickScorer tables cannot score: the train-side
+dropped-set delta and the periodic full rescore descend it with the owners'
+node tests (``ops/scoring.py::delta_owned``, one all-reduce over the feature
+axis a block of docs and slots, its memory bounded by a fixed number of
+words) and sum in the same Kahan chain, so they are the kernel's bits.
+The valid fold stays whole on the feature axis, and its deltas on the
+kernel.  A warm start is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -78,11 +88,12 @@ from quickrank_tpu_torch.learning.mart import (
     refuse_mesh,
     rescore_binned,
 )
+from quickrank_tpu_torch.parallel.mesh import feature_sharded
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.binning import scorer_rows
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
-from quickrank_tpu_torch.ops.scoring import fma_f32, tree_delta_binned
+from quickrank_tpu_torch.ops.scoring import delta_owned, fma_f32, tree_delta_binned
 from quickrank_tpu_torch.trees.grow import leaf_outputs
 from quickrank_tpu_torch.trees.qs import (
     ensemble_to_qs,
@@ -104,6 +115,9 @@ NORMALIZATION_TYPES = (
 #: the sampling and normalization types that read per-tree contributions
 _CONTRIBUTION_TYPES = ("CONTR", "CONTR_INV", "WCONTR", "WCONTR_INV", "TOP_WCONTR",
                        "LESS_WCONTR")
+#: JAX's refusal of a warm start under feature-axis sharding (dart.py:176-181)
+WARM_START_2D = ("DART warm start (--restart-train) under feature-axis sharding is not "
+                 "supported — drop --num-feat-shards (PARITY.md known exclusions)")
 ADAPTIVE_TYPES = (
     "FIXED", "PLUS1_DIV2", "PLUSHALF_DIV2", "PLUSONETHIRD_DIV2",
     "PLUSHALF_RESET", "PLUSHALF_RESET_LB1_UB5", "PLUSHALF_RESET_LB1_UB10",
@@ -270,13 +284,18 @@ class Dart(LambdaMart):
         writes ``<output_basename>.T<k>.xml`` snapshots (the Mart family's
         --partial / --restart-train applied to the DART loop).  Returns the
         history dict: per-iteration train and valid metric, best iteration,
-        times, and per iteration the dropped slots (``dropped``) and the ms
+        times, per iteration the dropped slots (``dropped``) and the ms
         of their delta (``delta_ms``: CUDA events on the card, the host
-        clock on the CPU).  With ``mesh``, a ``parallel.DataGroup``, this
+        clock on the CPU), and the iterations that ended in a full rescore
+        of the folds (``rescored``).  With ``mesh``, a ``parallel.DataGroup``, this
         rank trains on its block of ``train`` (or on ``train``, this
         process's ``TrainData``) on the group's device, and every rank
-        returns the same model."""
+        returns the same model; a ``parallel.mesh.Mesh2D`` also shards the
+        feature axis (no warm start)."""
         refuse_mesh(mesh)
+        if feature_sharded(mesh) and warm_start:
+            raise NotImplementedError(WARM_START_2D)
+        self._refuse_2d(mesh, False)
         metric = metric or self.default_metric()
         t0 = time.time()
         tr = self._train_data(train, device, mesh)
@@ -321,10 +340,27 @@ class Dart(LambdaMart):
         dropout_factor_hist = [0.0]
         perf_valid_hist = [0.0]
         last_global_rescore = 0
+        rescored = []
         hist_tr, hist_va = [], []
 
         def sync_weights():
             ens.weight.copy_(torch.from_numpy(w_host))
+
+        def train_delta(slots, weights):
+            """The dropped trees' weighted sum on the train fold: the
+            kernel, or over a feature block the owners' tests."""
+            if tr.feat is None:
+                return table.delta(slots, weights, feats_tr)
+            return delta_owned(tr.step.binned, ens, slots, weights, tr.feat, md)
+
+        def train_rescore():
+            """The full rescore of the train fold (every slot, the dead
+            ones with weight 0, as ``rescore_binned``)."""
+            if tr.feat is None:
+                return rescore_binned(ens, tr.step, md)
+            w = np.zeros(ens.capacity, np.float32)
+            w[:ens.num_trees] = ens.weight[:ens.num_trees].cpu().numpy()
+            return delta_owned(tr.step.binned, ens, range(ens.capacity), w, tr.feat, md)
 
         iter_offset = 0
         warm = warm_start and self.ensemble is not None and self.ensemble.num_trees > 0
@@ -404,7 +440,7 @@ class Dart(LambdaMart):
                 else:
                     t_delta = time.perf_counter()
                 w_drop = w_host[dropped]
-                delta_tr = table.delta(dropped, w_drop, feats_tr)
+                delta_tr = train_delta(dropped, w_drop)
                 if va is not None:
                     delta_va = table.delta(dropped, w_drop, feats_va)
                 if on_card:
@@ -520,10 +556,11 @@ class Dart(LambdaMart):
                 dropped_before_cleaning = 0
                 # periodic full rescore against drift (dart.cc:552-558)
                 if m - last_global_rescore > 10:
-                    scores_tr = rescore_binned(ens, tr.step, md)
+                    scores_tr = train_rescore()
                     if va is not None:
                         scores_va = rescore_binned(ens, va.step, md)
                     last_global_rescore = m
+                    rescored.append(m)
             perf_valid_hist.append(m_va if va is not None else m_tr)
             if (partial_save and output_basename and (m + iter_offset) % partial_save == 0
                     and lead):
@@ -561,6 +598,7 @@ class Dart(LambdaMart):
             "iter_seconds": iter_seconds,
             "dropped_per_iter": dropped_per_iter,
             "dropped": dropped_sets,
+            "rescored": rescored,
             "delta_ms": [e[0].elapsed_time(e[1]) if on_card else e for e in delta_events],
             "metric": repr(metric),
         }

@@ -55,9 +55,14 @@ from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.histogram import tree_sum
 from quickrank_tpu_torch.ops.kernel_query_sum import pairwise_sum
 from quickrank_tpu_torch.ops.scoring import fma_f32, matvec_f32
-from quickrank_tpu_torch.parallel.mesh import BlockOrder, DataGroup
+from quickrank_tpu_torch.parallel.mesh import BlockOrder, DataGroup, data_group
 
 NEG_INF = float("-inf")
+#: JAX's refusal of a 2-D mesh (linear.py:170-173), with its reason (PARITY.md
+#: "known exclusions")
+ONE_D = ("linear rankers support 1-D (data) meshes only: coordinate descent "
+         "iterates the features one after another by design, so sharding the "
+         "feature axis has no parallel win (PARITY.md known exclusions)")
 
 #: device bytes one chunk of a candidate batch may take in :meth:`Fold.metrics`
 CANDIDATE_BATCH_BYTES = 2 << 30
@@ -299,7 +304,8 @@ class _LinearRanker(LTRAlgorithm):
     def _folds(self, train, valid, device, mesh):
         """The train and valid folds on ``device``, or this rank's blocks on
         the group's device under ``mesh``."""
-        refuse_mesh(mesh)
+        refuse_mesh(mesh, one_d=ONE_D)
+        mesh = data_group(mesh)
         device = mesh.device if mesh is not None else resolve_device(device)
         return (Fold(train, device, mesh),
                 Fold(valid, device, mesh) if valid is not None else None)

@@ -40,6 +40,16 @@ block's slice (JAX folds ``axis_index`` into its key instead,
 mart.py:485-489, so its ranks draw apart), and feature sampling is the same
 on every rank.  Rank 0 alone prints and writes partial models.
 
+Under a 2-D data x feature mesh (``learn(mesh=...)`` a ``parallel.mesh.
+Mesh2D``, JAX mart.py:181-202, :732-743) a rank also keeps only its block of
+the feature axis (``parallel.mesh.FeatureShard``): the growers histogram
+and scan that block, gather the split candidates over the feature axis and
+take the owners' routing bits (``trees/grow.py``), and everything above the
+growers runs as under a 1-D group over the data axis.  The valid fold stays
+whole on the feature axis.  JAX's exclusions hold (PARITY.md "known
+exclusions"): no warm start, no leaf collapse, and ``cluster="on"`` grows in
+dataset order.
+
 Inference.  Scorer dispatch depends on the model's shape only: the
 perfect-tree scorer when every tree has depth <= 5, QuickScorer otherwise
 (any depth).  The device then picks kernel or plain version inside the
@@ -75,7 +85,14 @@ from quickrank_tpu_torch.ops.binning import (
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
 from quickrank_tpu_torch.ops.kernel_qs import partial_score_blocks, score_qs
 from quickrank_tpu_torch.ops.scoring import kahan_add, partial_scores, tree_delta_binned
-from quickrank_tpu_torch.parallel.mesh import BlockOrder, DataGroup
+from quickrank_tpu_torch.parallel.mesh import (
+    BlockOrder,
+    DataGroup,
+    FeatureShard,
+    Mesh2D,
+    data_group,
+    feature_sharded,
+)
 from quickrank_tpu_torch.trees.grow import GrowConfig, fit_tree, leaf_outputs
 from quickrank_tpu_torch.trees.grow_bestk import fit_tree_bestk
 from quickrank_tpu_torch.trees.grow_cluster import (
@@ -91,20 +108,29 @@ from quickrank_tpu_torch.trees.structs import EnsembleTensors
 #: deepest tree the perfect-tree scorer embeds
 PERFECT_MAX_DEPTH = 5
 
-#: ROADMAP.md §A entry for the meshes other than a 1-D query-sharded group
-MESH_2D_ITEM = "§A item 10b part 4 (the 2-D data x feature mesh)"
+#: JAX's exclusions under feature-axis sharding (mart.py:732-743, dart.py:
+#: 176-181), with its messages
+COLLAPSE_2D = ("collapse-leaves-factor under feature-axis sharding is not supported "
+               "— drop --num-feat-shards or --collapse-leaves-factor (PARITY.md known "
+               "exclusions)")
+WARM_START_2D = ("warm start (--restart-train / MetaCleaver) under feature-axis "
+                 "sharding is not supported — drop --num-feat-shards (PARITY.md known "
+                 "exclusions)")
 
 
-def refuse_mesh(mesh, what: str = "learn(mesh=...)") -> None:
-    """Raise for a ``mesh`` that is not a ``parallel.DataGroup`` (a 1-D
-    query-sharded group), before any data is touched, naming ROADMAP.md's
-    item."""
-    if mesh is not None and not isinstance(mesh, DataGroup):
+def refuse_mesh(mesh, what: str = "learn(mesh=...)", one_d: str = "") -> None:
+    """Raise, before any data is touched, for a ``mesh`` that is neither a
+    ``parallel.DataGroup`` (a 1-D query-sharded group) nor a
+    ``parallel.mesh.Mesh2D``; with ``one_d`` (the learner's reason, JAX's)
+    also for a mesh that shards the feature axis."""
+    if mesh is not None and not isinstance(mesh, (DataGroup, Mesh2D)):
         raise NotImplementedError(
-            f"{what} takes a parallel.DataGroup (a 1-D query-sharded group), got "
-            f"{type(mesh).__name__}; other meshes, such as the 2-D data x feature "
-            f"mesh, are not ported to quickrank_tpu_torch yet: ROADMAP.md {MESH_2D_ITEM}"
+            f"{what} takes a parallel.DataGroup (a 1-D query-sharded group) or a "
+            f"parallel.mesh.Mesh2D (the 2-D data x feature mesh), got "
+            f"{type(mesh).__name__}"
         )
+    if one_d and feature_sharded(mesh):
+        raise NotImplementedError(one_d)
 
 
 @dataclasses.dataclass
@@ -161,14 +187,17 @@ class TrainData:
 
     padded: PaddedDataset
     step: StepData
-    thresholds: np.ndarray  # f32 [W, B], host
+    thresholds: np.ndarray  # f32 [W, B], host (the global table under a 2-D mesh)
     num_real_features: int
     group: Optional[DataGroup] = None
+    #: under a 2-D mesh this rank's block of the feature axis: ``step.binned``
+    #: is then ``[N, 1 + feat.width]`` (the stats column, then the block)
+    feat: Optional[FeatureShard] = None
 
     @staticmethod
     def build(ds: Dataset, nthresholds: int,
               thresholds: Optional[np.ndarray] = None,
-              device=None, group: Optional[DataGroup] = None,
+              device=None, group=None,
               force_dims: Optional[tuple] = None,
               num_docs: Optional[int] = None) -> "TrainData":
         """Bin ``ds`` and move its step tensors to ``device``.  With
@@ -177,7 +206,11 @@ class TrainData:
         the group's device; the tables come from all of ``ds``.  With
         ``force_dims`` ``ds`` is this process's block already
         (``parallel/multihost.py``), laid out with the agreed geometry, and
-        ``num_docs`` counts the real docs of all processes."""
+        ``num_docs`` counts the real docs of all processes.  ``group`` may
+        be a ``Mesh2D``: the layout is then its data axis's, and the bin
+        matrix this rank's feature block (:class:`FeatureShard`)."""
+        feat_comm = group.feat if feature_sharded(group) else None
+        group = data_group(group)
         device = resolve_device(group.device if group is not None else device)
         if group is None:
             padded = shard_and_pad(ds)
@@ -189,21 +222,36 @@ class TrainData:
             group = group.with_num_docs(num_docs)
         if thresholds is None:
             thresholds, _ = build_thresholds(ds.features, nthresholds)
-        binned = apply_bins(padded.features, np.asarray(thresholds))
+        thresholds = np.asarray(thresholds)
         # the JAX package pads the feature axis to its kernel's feature
-        # group (mart.py:186-202), with at least 8 pad columns; pad columns
-        # bin every doc to 0 and carry FLT_MAX thresholds, so a split on
-        # one sends every doc left and is never chosen.  The port keeps the
-        # same width so that histograms and trees line up with JAX's.
-        F = binned.shape[1]
+        # group (mart.py:186-202), each of k feature blocks to a multiple of
+        # it, with the padding at the global end, and on one block with at
+        # least 8 pad columns; pad columns bin every doc to 0 and carry
+        # FLT_MAX thresholds, so a split on one sends every doc left and is
+        # never chosen.  The port keeps the same widths so that histograms
+        # and trees line up with JAX's, and global feature ids with the
+        # unsharded run's.
+        F = padded.features.shape[1]
+        k = feat_comm.world_size if feat_comm is not None else 1
         g_align = 64 if thresholds.shape[1] <= 64 else 32
-        f_blk = (F + g_align - 1) // g_align * g_align
-        if f_blk - F < 8:
+        f_blk = (-(-F // k) + g_align - 1) // g_align * g_align
+        if k == 1 and f_blk - F < 8:
             f_blk += g_align
-        if f_blk != F:
-            binned = np.pad(binned, ((0, 0), (0, f_blk - F)))
-            thresholds = np.pad(thresholds, ((0, f_blk - F), (0, 0)),
+        feat = None
+        if feat_comm is None:
+            binned = apply_bins(padded.features, thresholds)
+        else:
+            # the stats column (global column 0), then this rank's block
+            feat = FeatureShard(feat_comm, f_blk)
+            cols = [0] + list(range(feat.lo, min(feat.lo + f_blk, F)))
+            binned = np.zeros((padded.features.shape[0], 1 + f_blk), np.int32)
+            binned[:, :len(cols)] = apply_bins(
+                np.ascontiguousarray(padded.features[:, cols]), thresholds[cols])
+        if f_blk * k != F:
+            thresholds = np.pad(thresholds, ((0, f_blk * k - F), (0, 0)),
                                 constant_values=FLT_MAX)
+        if feat is None and binned.shape[1] != f_blk:
+            binned = np.pad(binned, ((0, 0), (0, f_blk - F)))
         # the JAX package's wire (mart.py:203-209): u8, u16 beyond 256
         # bins, int32 beyond 65,536; the kernels widen the ids
         wire = torch.from_numpy(bin_wire(binned, thresholds.shape[1]))
@@ -230,7 +278,7 @@ class TrainData:
         rows = torch.arange(padded.num_docs_padded)
         sd.doc_ids = to(torch.where(padded.doc_mask, before + rows, 0))
         return TrainData(padded=padded, step=sd, thresholds=thresholds,
-                         num_real_features=ds.num_features, group=group)
+                         num_real_features=ds.num_features, group=group, feat=feat)
 
     @property
     def num_bins(self) -> int:
@@ -326,7 +374,9 @@ class Mart(LTRAlgorithm):
         ``split_pack=1`` is exact best-first).  ``cluster="on"`` grows
         best-first trees over a node-clustered copy of the bin matrix
         (``trees/grow_cluster.py``; the same split rule, another doc layout);
-        "off" and "auto" grow in dataset order."""
+        "off" and "auto" grow in dataset order, as does "on" under a 2-D
+        mesh (JAX mart.py:401; the clustered grower keeps the feature axis
+        whole, grow_cluster.py:183)."""
         self.ntrees = int(ntrees)
         self.shrinkage = float(shrinkage)
         self.nthresholds = int(nthresholds)
@@ -443,13 +493,15 @@ class Mart(LTRAlgorithm):
         kth = torch.sort(ranked).values[max(k - 1, 0)]
         return pool & (keys[sd.doc_ids] <= kth)
 
-    def _cluster_applicable(self, sd: StepData, cfg: GrowConfig) -> bool:
+    def _cluster_applicable(self, tr: "TrainData", cfg: GrowConfig) -> bool:
         """Whether the node-clustered best-first grower runs: asked for with
         ``cluster="on"`` ("auto" resolves to off, as in the JAX package), and
-        u8 bins, tile-aligned docs, payload room in the pad columns and no
-        collapse (the requirements of ``trees/grow_cluster.py``)."""
-        if self.cluster != "on" or self.growth != "best":
+        u8 bins, tile-aligned docs, payload room in the pad columns, no
+        collapse and a whole feature axis (the requirements of
+        ``trees/grow_cluster.py``)."""
+        if self.cluster != "on" or self.growth != "best" or tr.feat is not None:
             return False
+        sd = tr.step
         N, W = sd.binned.shape
         return (sd.binned.dtype == torch.uint8 and N % TILE == 0
                 and W - (cfg.num_real_features or W) >= payload_columns_required()
@@ -459,24 +511,26 @@ class Mart(LTRAlgorithm):
                         weights=None):
         """(tree, node_of_doc, leaves_done): the level-wise grower sets
         leaf values itself; the best-first growers (dataset order or
-        node-clustered) and best-k leave them to :func:`leaf_outputs`."""
-        sd, group = tr.step, tr.group
+        node-clustered) and best-k leave them to :func:`leaf_outputs`.  Under
+        a 2-D mesh the grower works on this rank's feature block
+        (``tr.feat``)."""
+        sd, group, feat = tr.step, tr.group, tr.feat
         if self.growth == "level":
             tree, node = fit_tree_levelwise(
                 sd.binned, grad, smask, sd.thresholds, self._level_depth(),
-                cfg, generator, weights=weights, group=group,
+                cfg, generator, weights=weights, group=group, feat=feat,
             )
             return tree, node, True
         thresholds = torch.from_numpy(tr.thresholds)
         if self.growth == "bestk":
             tree, node = fit_tree_bestk(sd.binned, grad, smask, thresholds, cfg,
-                                        self.split_pack, generator, group=group)
-        elif self._cluster_applicable(sd, cfg):
+                                        self.split_pack, generator, group=group, feat=feat)
+        elif self._cluster_applicable(tr, cfg):
             tree, node = fit_tree_clustered(sd.binned, grad, smask, thresholds, cfg,
                                             generator, group=group)
         else:
             tree, node = fit_tree(sd.binned, grad, smask, thresholds, cfg, generator,
-                                  group=group)
+                                  group=group, feat=feat)
         return tree, node, False
 
     # -- the boosting step ---------------------------------------------------
@@ -516,17 +570,30 @@ class Mart(LTRAlgorithm):
 
     # -- training ------------------------------------------------------------
 
-    def _train_data(self, train, device, mesh: Optional[DataGroup]) -> TrainData:
+    def _train_data(self, train, device, mesh) -> TrainData:
         """``train`` laid out and binned on ``device`` (this rank's block on
-        the group's device under ``mesh``), or ``train`` itself when it is a
-        ``TrainData`` already (``parallel/multihost.py``)."""
+        the group's device under ``mesh``, a ``DataGroup`` or a ``Mesh2D``),
+        or ``train`` itself when it is a ``TrainData`` already
+        (``parallel/multihost.py``)."""
         if not isinstance(train, TrainData):
             return TrainData.build(train, self.nthresholds, device=device, group=mesh)
-        if (mesh is None) != (train.group is None) or (
-                mesh is not None and train.group.rank != mesh.rank):
+        group = data_group(mesh)
+        k = mesh.num_feat_shards if feature_sharded(mesh) else 1
+        if (group is None) != (train.group is None) or (
+                group is not None and train.group.rank != group.rank) or (
+                (train.feat.size if train.feat is not None else 1) != k):
             raise ValueError("a TrainData trains with mesh= the group it was built "
                              "for, and without one when it was built without")
         return train
+
+    def _refuse_2d(self, mesh, warm_start: bool) -> None:
+        """JAX's exclusions under feature-axis sharding (mart.py:732-743)."""
+        if not feature_sharded(mesh):
+            return
+        if self.collapse_leaves_factor > 0:
+            raise NotImplementedError(COLLAPSE_2D)
+        if warm_start:
+            raise NotImplementedError(WARM_START_2D)
 
     def learn(self, train, valid: Optional[Dataset] = None,
               metric: Optional[Metric] = None, verbose: bool = True,
@@ -542,10 +609,12 @@ class Mart(LTRAlgorithm):
         With ``mesh``, a ``parallel.DataGroup``, this rank trains on its
         block of ``train`` (or on ``train``, this process's ``TrainData``
         from ``parallel/multihost.py``) on the group's device, and every rank
-        returns the same model.  Returns the history dict: per-iteration
-        train and valid metric (the new iterations only), best iteration,
-        times."""
+        returns the same model; a ``parallel.mesh.Mesh2D`` also shards the
+        feature axis (no warm start, no leaf collapse).  Returns the history
+        dict: per-iteration train and valid metric (the new iterations only),
+        best iteration, times."""
         refuse_mesh(mesh)
+        self._refuse_2d(mesh, warm_start)
         metric = metric or self.default_metric()
         t_init = time.time()
         tr = self._train_data(train, device, mesh)

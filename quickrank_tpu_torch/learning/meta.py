@@ -22,7 +22,7 @@ import numpy as np
 
 from quickrank_tpu_torch.data.dataset import Dataset
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
-from quickrank_tpu_torch.learning.mart import refuse_mesh
+from quickrank_tpu_torch.learning.mart import WARM_START_2D, refuse_mesh
 from quickrank_tpu_torch.metrics.metrics import Metric
 
 
@@ -53,7 +53,9 @@ class MetaCleaver(LTRAlgorithm):
         or on this rank's block under ``mesh`` (a ``parallel.DataGroup``).
         Returns ``{"iterations": [...], "best_train", "best_valid",
         "final_size"}``."""
-        refuse_mesh(mesh, "MetaCleaver.learn(mesh=...)")
+        # every round after the first warm-starts the learner, which JAX
+        # refuses under feature-axis sharding (mart.py:738-743)
+        refuse_mesh(mesh, "MetaCleaver.learn(mesh=...)", one_d=WARM_START_2D)
         device = mesh.device if mesh is not None else resolve_device(device)
         verbose = verbose and (mesh is None or mesh.rank == 0)
         metric = metric or self.default_metric()

@@ -61,6 +61,7 @@ class _ObliviousFit:
         fid, thr, tbin, leafidx = fit_oblivious_tree(
             sd.binned, grad, smask, sd.thresholds, self.treedepth,
             min_leaf_support=self.minleafsupport, group=tr.group, num_docs=cfg.num_docs,
+            feat=tr.feat,
         )
         L = 2 ** self.treedepth
         tree = oblivious_to_tree(

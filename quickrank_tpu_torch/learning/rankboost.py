@@ -91,6 +91,10 @@ from quickrank_tpu_torch.ops.histogram import (
 #: and S (a sum over ~1e7 pairs) by ~1e27, inside float32
 _SCORE_CLAMP = 20.0
 _MAX_LABEL_LEVELS = 64
+#: JAX's refusal of a 2-D mesh (rankboost.py:156-159), with its reason
+#: (PARITY.md "known exclusions")
+ONE_D = ("RANKBOOST supports 1-D (data) meshes only: its weak-ranker search is "
+         "already feature-vectorized per shard (PARITY.md known exclusions)")
 #: docs a block of the card's scoring product holds (bounds its [docs, T]
 #: float64 bit matrix to 256 MB at 256 weak rankers)
 _SCORE_BLOCK_CELLS = 1 << 25
@@ -227,7 +231,7 @@ class RankBoost(LTRAlgorithm):
         ``best_T`` and each round's wall seconds (``iter_seconds``, ended by
         the round's metric read)."""
         global HOST_SYNCS
-        refuse_mesh(mesh, "RankBoost.learn(mesh=...)")
+        refuse_mesh(mesh, "RankBoost.learn(mesh=...)", one_d=ONE_D)
         metric = metric or self.default_metric()
         levels = [float(x) for x in np.unique(train.labels)]
         if len(levels) > _MAX_LABEL_LEVELS:

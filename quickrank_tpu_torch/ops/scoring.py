@@ -18,9 +18,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.binning import gather_bins
+from quickrank_tpu_torch.ops.binning import bin_columns, gather_bins
 from quickrank_tpu_torch.trees.structs import EnsembleTensors, Tree
 
 
@@ -122,6 +123,100 @@ def descend_tree_binned(binned: torch.Tensor, tree: Tree,
         nxt = torch.where(x <= tree.threshold_bin[node], left[node], right[node])
         node = torch.where(tree.is_leaf[node], node, nxt)
     return node
+
+
+#: node tests a 64-bit word of :func:`delta_owned` carries (the sign bit
+#: stays clear)
+_WORD_BITS = 63
+#: int64 words one all-reduce of :func:`delta_owned` carries at most (32
+#: MiB; a block holds at least one doc and one slot)
+OWNED_WORDS = 1 << 22
+#: (doc, node test) elements :func:`delta_owned` compares at a time
+_OWNED_CHUNK = 1 << 24
+
+
+def _descend_owned(binned: torch.Tensor, fl: torch.Tensor, tb: torch.Tensor,
+                   fields: dict, bit: torch.Tensor, per_tree: int, feat,
+                   max_depth: int) -> torch.Tensor:
+    """Leaf node ids int64 ``[n, T]`` of ``T`` trees (``fields``, their
+    node arrays ``[T, M]``) for the ``n`` rows of ``binned``: this rank's
+    node tests, ``per_tree`` words a tree (``bit``: each internal node's
+    bit among its tree's), one all-reduce sum over the feature axis."""
+    n = binned.shape[0]
+    T = fl.shape[0]
+    t_i, j_i = torch.nonzero(fl >= 0, as_tuple=True)  # the tests this rank owns
+    word_of = t_i * per_tree + bit[t_i, j_i] // _WORD_BITS
+    shift = bit[t_i, j_i] % _WORD_BITS
+    col, thr = fl[t_i, j_i], tb[t_i, j_i]
+    words = torch.zeros((n, T * per_tree), dtype=torch.int64, device=binned.device)
+    step = max(1, _OWNED_CHUNK // max(n, 1))
+    for p0 in range(0, col.numel(), step):
+        p = slice(p0, p0 + step)
+        tests = bin_columns(binned, col[p]).long() <= thr[p]
+        words.index_add_(1, word_of[p], tests.long() << shift[p])
+    words = feat.comm.all_reduce_sum(words).view(n, T, per_tree)
+    left, right, is_leaf = fields["left"], fields["right"], fields["is_leaf"]
+    node = torch.zeros((n, T), dtype=torch.long, device=binned.device)
+    tree = torch.arange(T, device=binned.device)[None, :]
+    for _ in range(max_depth):
+        b = bit[tree, node]
+        word = words.gather(2, (b // _WORD_BITS)[..., None])[..., 0]
+        goes_left = ((word >> (b % _WORD_BITS)) & 1) > 0
+        nxt = torch.where(goes_left, left[tree, node], right[tree, node])
+        node = torch.where(is_leaf[tree, node], node, nxt)
+    return node
+
+
+def delta_owned(binned: torch.Tensor, ens: EnsembleTensors, slots, weights, feat,
+                max_depth: int, words: int = OWNED_WORDS) -> torch.Tensor:
+    """``sum_i weights[i] * tree_{slots[i]}(doc)`` f32 ``[N]`` when
+    ``binned`` is one block of a 2-D mesh's feature axis (``feat``, a
+    ``parallel.mesh.FeatureShard``) and the trees split on global feature
+    ids (JAX ops/scoring.py:116-160 and :248-267, ``descend_tree_binned``
+    and ``tree_delta_binned`` with ``feat_axis``).
+
+    Each rank computes the node tests ``bin <= threshold_bin`` of the
+    features it owns and packs them 63 to an int64 word (a tree's internal
+    nodes in order); an all-reduce sum over the feature axis gives every
+    rank every test, since each bit is set by at most its owner, so the sum
+    is the OR, exactly.  The descent then reads the bits locally.  The work
+    goes in blocks of docs, and within one in blocks of slots in order, one
+    all-reduce of at most ``words`` int64 a block, so memory is bounded by
+    ``words`` and not by docs x slots.  Each doc's Kahan chain of
+    :func:`score_ensemble` runs over the slots in ``slots``' order: the
+    leaves are the whole matrix's, so the sum is bitwise the QuickScorer
+    scores of the same trees over the whole bin matrix, as K1 is bitwise
+    the compensated descent."""
+    dev = binned.device
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=ens.feature.device)
+    fields = {k: getattr(ens, k).index_select(0, idx).to(dev)
+              for k in ("feature", "threshold_bin", "left", "right", "is_leaf", "leaf_value")}
+    for k in ("left", "right"):
+        fields[k] = fields[k].long()
+    inner = ~fields["is_leaf"]
+    # an internal node's bit in its tree (a leaf reads a bit it then ignores)
+    bit = (torch.cumsum(inner.long(), dim=1) - 1).clamp(min=0)
+    per_tree = max(1, -(-int(inner.sum(1).max()) // _WORD_BITS)) if len(idx) else 1
+    fl = torch.where(inner, feat.local_ids(fields["feature"]), -1)  # -1: another rank's
+    tb = fields["threshold_bin"].long()
+    w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+    N, T = binned.shape[0], len(idx)
+    tc = max(1, min(T, words // max(N * per_tree, 1)))
+    nc = max(1, min(N, words // (tc * per_tree)))
+    out = torch.zeros(N, dtype=torch.float32, device=dev)
+    for d0 in range(0, N, nc):
+        rows = binned[d0:d0 + nc]
+        s = torch.zeros(rows.shape[0], dtype=torch.float32, device=dev)
+        c = torch.zeros_like(s)
+        for j0 in range(0, T, tc):
+            j = slice(j0, j0 + tc)
+            node = _descend_owned(rows, fl[j], tb[j], {k: v[j] for k, v in fields.items()},
+                                  bit[j], per_tree, feat, max_depth)
+            for i in range(node.shape[1]):
+                leaf = fields["leaf_value"][j0 + i]
+                s, c = kahan_add(s, c, w[j0 + i], leaf[node[:, i]])
+        out[d0:d0 + nc] = s
+    return out
 
 
 def tree_delta_binned(binned: torch.Tensor, tree: Tree,

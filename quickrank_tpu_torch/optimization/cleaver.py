@@ -43,6 +43,7 @@ from quickrank_tpu_torch.data.dataset import Dataset, rank_block
 from quickrank_tpu_torch.learning.base import resolve_device
 from quickrank_tpu_torch.learning.linear import Fold, LineSearch
 from quickrank_tpu_torch.learning.mart import refuse_mesh
+from quickrank_tpu_torch.parallel.mesh import data_group
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.scoring import fma_f32
 
@@ -181,7 +182,8 @@ class Cleaver:
         """Per-tree score dataset, rows docs and columns trees
         (Driver::extract_partial_scores, driver.cc:411-446).  Under a
         ``group``, this rank's block of ``ds`` only (a ``BlockDataset``):
-        each rank extracts its own rows."""
+        each rank extracts its own rows (a 2-D mesh's data axis's).  """
+        group = data_group(group)
         if group is not None:
             ds = rank_block(ds, group.world_size, group.rank)
         P = algo.partial_scores_dataset(ds, device=device)
@@ -197,14 +199,18 @@ class Cleaver:
         ``parallel.DataGroup``, this rank works on its block of the folds
         (of ``ptrain`` / ``pvalid`` too, unless they are ``BlockDataset``
         blocks already) on the group's device, and every rank prunes the
-        same set.  Returns ``info``: metrics and tree counts before and
-        after, the pruned slots, and the seconds of the extraction, the
-        selection and each line search."""
+        same set.  Under a ``parallel.mesh.Mesh2D`` it works over the data
+        axis (the per-tree scores have no feature axis; JAX's ``Fold`` takes
+        the mesh's first axis): the ranks of a query block run the same
+        pruning.  Returns ``info``: metrics and tree counts before and after,
+        the pruned slots, and the seconds of the extraction, the selection
+        and each line search."""
         import time
 
         refuse_mesh(mesh, "Cleaver.optimize(mesh=...)")
-        device = mesh.device if mesh is not None else resolve_device(device)
         verbose = verbose and (mesh is None or mesh.rank == 0)
+        mesh = data_group(mesh)
+        device = mesh.device if mesh is not None else resolve_device(device)
         metric = metric or algo.default_metric()
         info: dict = {}
         t0 = time.time()

@@ -4,7 +4,9 @@ with ``torch.multiprocessing``, each joining the group through a
 launches never race for a TCP port).
 
 ``run_ranks(target, n, args)`` runs ``target(group, *args)`` in every rank
-and returns the ranks' results in rank order.  ``target`` must be a
+and returns the ranks' results in rank order; with ``num_feat_shards=k > 1``
+it runs ``n * k`` ranks of a 2-D data x feature mesh, and ``group`` is the
+rank's ``parallel.mesh.Mesh2D``.  ``target`` must be a
 module-level function (it is pickled by name).  Each rank writes its result,
 or the traceback of what it raised, to a file in that directory, so nothing
 passes through a pipe that could fill.  The launcher waits until every rank
@@ -27,17 +29,22 @@ from typing import Callable, Optional, Sequence
 
 def _rank_main(rank: int, world_size: int, init_method: str, device: str,
                backend: Optional[str], target: Callable, args: Sequence,
-               out_dir: str) -> None:
+               out_dir: str, num_feat_shards: int = 1) -> None:
     import torch
 
-    from quickrank_tpu_torch.parallel.mesh import leave, make_mesh
+    from quickrank_tpu_torch.parallel.mesh import leave, make_mesh, make_mesh_2d
 
     if torch.device(device).type == "cpu":
         # the ranks share the host's cores
         torch.set_num_threads(1)
     group = None
     try:
-        group = make_mesh(world_size, rank, init_method, device=device, backend=backend)
+        if num_feat_shards > 1:
+            group = make_mesh_2d(world_size // num_feat_shards, num_feat_shards, rank,
+                                 init_method, device=device, backend=backend)
+        else:
+            group = make_mesh(world_size, rank, init_method, device=device,
+                              backend=backend)
         result = target(group, *args)
         with open(os.path.join(out_dir, f"rank{rank}.pkl.tmp"), "wb") as f:
             pickle.dump(result, f)
@@ -51,19 +58,21 @@ def _rank_main(rank: int, world_size: int, init_method: str, device: str,
         leave(group)
 
 
-def run_ranks(target: Callable, world_size: int, args: Sequence = (),
+def run_ranks(target: Callable, num_shards: int, args: Sequence = (),
               device: str = "cuda", backend: Optional[str] = None,
-              deadline: Optional[float] = None) -> list:
-    """Run ``target(group, *args)`` in ``world_size`` spawned ranks (see the
-    module docstring) and return their results in rank order."""
+              deadline: Optional[float] = None, num_feat_shards: int = 1) -> list:
+    """Run ``target(group, *args)`` in ``num_shards * num_feat_shards``
+    spawned ranks (see the module docstring) and return their results in
+    rank order."""
     import torch.multiprocessing as mp
 
+    world_size = num_shards * num_feat_shards
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="qr_ranks_") as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world_size, init_method, device, backend, target,
-                                   tuple(args), tmp),
+                                   tuple(args), tmp, num_feat_shards),
                              name=f"rank{r}", daemon=True)
                  for r in range(world_size)]
         for p in procs:

@@ -29,6 +29,17 @@ the default on CUDA and gloo on the CPU;
 gloo on CUDA stages each reduction through the host, and is the only
 backend that lets two ranks share one card (NCCL refuses two ranks on one
 device).
+
+The 2-D data x feature mesh (:func:`make_mesh_2d`, JAX mesh.py:104-126)
+adds a second axis: ``num_shards x num_feat_shards`` ranks, rank ``r`` at
+``(d, f) = divmod(r, num_feat_shards)``, as JAX reshapes its devices
+``(data, feat)`` row-major.  A rank holds query block ``d`` and feature
+block ``f`` of the bin matrix.  Its :class:`Mesh2D` holds two
+:class:`DataGroup` views: ``data``, the ranks of its feature block (the
+histograms, leaf sums, the scale's max bits and every metric gather go
+over it: feature ranks hold the same docs), and ``feat``, the ranks of its
+query block (split candidates are gathered and routing bits combined over
+it, :class:`FeatureShard`).
 """
 
 from __future__ import annotations
@@ -121,6 +132,112 @@ class DataGroup:
 
 
 @dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's view of a 2-D data x feature mesh: ``world`` (every rank,
+    the default group), ``data`` (the ranks that share this rank's feature
+    block; its rank is the query block ``d``) and ``feat`` (the ranks that
+    share its query block; its rank is the feature block ``f``)."""
+
+    world: DataGroup
+    data: DataGroup
+    feat: DataGroup
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def num_shards(self) -> int:
+        return self.data.world_size
+
+    @property
+    def num_feat_shards(self) -> int:
+        return self.feat.world_size
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureShard:
+    """This rank's block of the feature axis of a 2-D mesh, as
+    ``learning/mart.py::TrainData.build`` lays it out: global feature
+    columns ``[lo, lo + width)`` (``width`` = JAX's ``f_blk``, the padding at
+    the global end), behind one *stats column*, a copy of global column 0.
+    So a rank's bin block is ``[N, 1 + width]``: the histogram kernels run on
+    it as they run on a whole matrix, and every node's (count, sum, sum of
+    squares) is read from column 0's histogram on every rank, the values one
+    rank reads over all features, bit for bit (a node's deviance decides
+    which leaf splits next).  The stats column is never a split candidate.
+
+    The growers' two collectives over ``comm`` (the feature group):
+    :meth:`best` gathers each rank's best candidate and takes the global
+    first maximum (the lower rank wins a tie: the lower global feature id,
+    as one rank's argmax does); :meth:`route` combines the routing bits the
+    owners of the split features computed."""
+
+    comm: DataGroup
+    width: int
+
+    @property
+    def index(self) -> int:
+        return self.comm.rank
+
+    @property
+    def size(self) -> int:
+        return self.comm.world_size
+
+    @property
+    def lo(self) -> int:
+        return self.index * self.width
+
+    @property
+    def global_width(self) -> int:
+        return self.width * self.size
+
+    def local_mask(self, global_mask: torch.Tensor) -> torch.Tensor:
+        """A mask over the global padded width ``[..., size * width]`` to
+        this rank's columns ``[..., 1 + width]`` (False on the stats column)."""
+        block = global_mask[..., self.lo:self.lo + self.width]
+        off = torch.zeros(block.shape[:-1] + (1,), dtype=torch.bool, device=block.device)
+        return torch.cat([off, block], dim=-1)
+
+    def to_global(self, f_local: torch.Tensor) -> torch.Tensor:
+        return f_local + (self.lo - 1)
+
+    def local_ids(self, f_global: torch.Tensor) -> torch.Tensor:
+        """This rank's column of each global feature id, -1 where another
+        rank owns it (or where there is none: a leaf's -1)."""
+        rel = f_global.long() - self.lo
+        return torch.where((rel >= 0) & (rel < self.width), rel + 1, -1)
+
+    def best(self, has: torch.Tensor, gain: torch.Tensor, f_local: torch.Tensor,
+             t: torch.Tensor, *extra: torch.Tensor):
+        """The global winner of each of ``m`` local candidates ``[m]`` (or
+        0-d): one gather of (has, gain, global feature, bin, *extra) as
+        float64, which holds float32 values and ids exactly.  Returns
+        ``(has_any, gain, f_global, t, *extra)`` of the first maximum over
+        the ranks of the gains of the ranks that have a candidate, each the
+        input's shape."""
+        cols = [has.double(), torch.where(has, gain.double(), float("-inf")),
+                self.to_global(f_local.long()).double(), t.double()]
+        cols += [x.double() for x in extra]
+        every = self.comm.all_gather(torch.stack(cols, dim=-1))  # [k, ..., c]
+        win = torch.argmax(every[..., 1], dim=0)  # the first maximum
+        sel = every.gather(0, win[None, ..., None].expand((1,) + every.shape[1:]))[0]
+        has_any = every[..., 0].amax(dim=0) > 0
+        out = [has_any, sel[..., 1].float(), sel[..., 2].long(), sel[..., 3].long()]
+        return tuple(out + [sel[..., 4 + i].to(x.dtype) for i, x in enumerate(extra)])
+
+    def route(self, bits: torch.Tensor) -> torch.Tensor:
+        """The OR over the feature group of each rank's routing bits (a doc's
+        bit is set only by the owner of its split feature): one all-reduce
+        max of uint8."""
+        return self.comm.all_reduce_max(bits.to(torch.uint8)) > 0
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockOrder:
     """Where the real entries of every rank's block (its queries, or its
     docs) sit in their global order: rank order, then block order, which is
@@ -203,6 +320,27 @@ def make_mesh(num_shards: int, rank: int, init_method: str, device: str = "cuda"
     return DataGroup(rank=rank, world_size=num_shards, device=dev, backend=backend)
 
 
+def make_mesh_2d(num_shards: int, num_feat_shards: int, rank: int, init_method: str,
+                 device: str = "cuda", backend: Optional[str] = None,
+                 one_host: bool = True) -> Mesh2D:
+    """Join rank ``rank`` of a ``num_shards * num_feat_shards``-rank world
+    (:func:`make_mesh`'s arguments) and return its :class:`Mesh2D`: rank
+    ``r`` is ``(d, f) = divmod(r, num_feat_shards)`` (JAX mesh.py:124).
+    Every rank builds every subgroup, in the same order
+    (``torch.distributed.new_group`` is collective)."""
+    n, k = int(num_shards), int(num_feat_shards)
+    world = make_mesh(n * k, rank, init_method, device=device, backend=backend,
+                      one_host=one_host)
+    d, f = divmod(rank, k)
+    data = [dist.new_group([dd * k + ff for dd in range(n)], backend=world.backend,
+                           timeout=TIMEOUT) for ff in range(k)]
+    feat = [dist.new_group([dd * k + ff for ff in range(k)], backend=world.backend,
+                           timeout=TIMEOUT) for dd in range(n)]
+    return Mesh2D(world=world,
+                  data=dataclasses.replace(world, rank=d, world_size=n, group=data[f]),
+                  feat=dataclasses.replace(world, rank=f, world_size=k, group=feat[d]))
+
+
 def init_distributed(coordinator_address: str, num_processes: int, process_id: int,
                      device: str = "cuda", backend: Optional[str] = None) -> DataGroup:
     """Multi-host initialization (JAX mesh.py:128): join process
@@ -213,6 +351,31 @@ def init_distributed(coordinator_address: str, num_processes: int, process_id: i
     Each process then loads its own query block (``parallel/multihost.py``)."""
     return make_mesh(num_processes, process_id, f"tcp://{coordinator_address}",
                      device=device, backend=backend, one_host=False)
+
+
+def init_distributed_2d(coordinator_address: str, num_shards: int, num_feat_shards: int,
+                        process_id: int, device: str = "cuda",
+                        backend: Optional[str] = None) -> Mesh2D:
+    """:func:`init_distributed` of a 2-D mesh (JAX multihost.py:136-190):
+    process ``process_id`` of ``num_shards * num_feat_shards`` joins its
+    :class:`Mesh2D`.  Each host runs whole data rows: the
+    ``num_feat_shards`` processes of a query block load the same block
+    (``parallel/multihost.py`` checks it), so the feature collectives stay
+    on one host."""
+    return make_mesh_2d(num_shards, num_feat_shards, process_id,
+                        f"tcp://{coordinator_address}", device=device, backend=backend,
+                        one_host=False)
+
+
+def data_group(mesh) -> Optional[DataGroup]:
+    """The query-sharded group of ``mesh``: a :class:`DataGroup` itself, or
+    a :class:`Mesh2D`'s data axis; None for None."""
+    return mesh.data if isinstance(mesh, Mesh2D) else mesh
+
+
+def feature_sharded(mesh) -> bool:
+    """Whether ``mesh`` shards the feature axis over more than one rank."""
+    return isinstance(mesh, Mesh2D) and mesh.num_feat_shards > 1
 
 
 def leave(group: Optional[DataGroup]) -> None:
@@ -279,11 +442,14 @@ def score_rows_sharded(model, feats: np.ndarray, devices: Sequence) -> np.ndarra
     return shards.gather(shards.launch())
 
 
-def score_rows_group(model, feats: np.ndarray, group: DataGroup) -> np.ndarray:
+def score_rows_group(model, feats: np.ndarray, group) -> np.ndarray:
     """Scores of ``feats``' rows under a query-sharded group (JAX driver.py:
     337-341): every rank scores its :func:`row_block` on its own device, and
     one gather gives every rank all the scores in row order.  Scoring has no
-    cross-doc coupling, so they are one device's scores bit for bit."""
+    cross-doc coupling, so they are one device's scores bit for bit.  A 2-D
+    mesh scores over all its ranks as one flat doc axis (its ``world``)."""
+    if isinstance(group, Mesh2D):
+        group = group.world
     n = feats.shape[0]
     block = row_block(feats, group.world_size, group.rank)
     mine = torch.from_numpy(np.ascontiguousarray(model.score_dataset(block, group.device)))

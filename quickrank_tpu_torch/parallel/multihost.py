@@ -16,6 +16,12 @@ at set-up, on the padded shard geometry and the threshold tables.
 
 Training then runs the unchanged sharded step; its collectives are those of
 ``parallel/mesh.py``.
+
+Under a 2-D data x feature mesh (a ``parallel.mesh.Mesh2D``, JAX
+multihost.py:136-190) each host runs whole data rows: the processes of one
+query block (its feature axis) load the same block, which is checked, and
+agree with the other blocks over the data axis; each keeps its feature
+block of the bin matrix.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from quickrank_tpu_torch.data.dataset import Dataset, _round_up
 from quickrank_tpu_torch.ops.binning import FLT_MAX, build_thresholds
-from quickrank_tpu_torch.parallel.mesh import DataGroup
+from quickrank_tpu_torch.parallel.mesh import DataGroup, Mesh2D, data_group
 
 
 def process_query_block(ds: Dataset, num_processes: int, process_id: int) -> Dataset:
@@ -87,28 +93,48 @@ def global_thresholds(local_features: np.ndarray, nthresholds: int,
     return merge_threshold_candidates(all_thr.numpy())
 
 
-def build_train_data_multihost(local_ds: Dataset, group: DataGroup, nthresholds: int,
+def _digest(*arrays) -> int:
+    h = 0
+    for a in arrays:
+        h = zlib.crc32(np.ascontiguousarray(a).tobytes(), h)
+    return h
+
+
+def build_train_data_multihost(local_ds: Dataset, group, nthresholds: int,
                                thresholds: Optional[np.ndarray] = None):
     """This process's ``TrainData`` over its own query block ``local_ds``:
     the processes agree on the padded geometry (the largest block's queries,
     padded rows and longest query; one gather) and on the threshold tables
     (``thresholds`` as given, the same on every process, or
     :func:`global_thresholds`).  Mart-family learners take it in place of a
-    dataset (``learn(train_data, ..., mesh=group)``)."""
+    dataset (``learn(train_data, ..., mesh=group)``).  ``group`` may be a
+    ``Mesh2D``: the processes of one query block must then hold the same
+    ``local_ds`` (every host runs whole data rows), or it raises."""
     from quickrank_tpu_torch.learning.mart import TrainData
 
+    data = data_group(group)
+    world = group.world if isinstance(group, Mesh2D) else group
+    if isinstance(group, Mesh2D):
+        mine = _digest(local_ds.features, local_ds.labels, local_ds.query_offsets)
+        seen = group.feat.all_gather(torch.tensor([mine], dtype=torch.int64))
+        if not bool((seen == seen[0]).all()):
+            raise ValueError(
+                "build_train_data_multihost: 2-D multi-host mesh: each process must own "
+                "whole data rows — the processes of one query block must load the same "
+                f"block, but their blocks differ (crc32 per process: {seen[:, 0].tolist()})"
+            )
     counts = local_ds.docs_per_query()
     local = torch.tensor([len(counts), _round_up(int(counts.sum()) + 1, 1024),
                           int(counts.max()), local_ds.num_docs], dtype=torch.int64)
-    dims = group.all_gather(local)
+    dims = data.all_gather(local)
     force = tuple(int(x) for x in dims[:, :3].max(dim=0).values)
     if thresholds is None:
-        thresholds = global_thresholds(local_ds.features, nthresholds, group)
+        thresholds = global_thresholds(local_ds.features, nthresholds, data)
     else:
         # tables given by the callers must be the same bytes everywhere, or
         # the ranks would grow different trees without an error
-        digest = zlib.crc32(np.ascontiguousarray(thresholds, np.float32).tobytes())
-        seen = group.all_gather(torch.tensor([digest], dtype=torch.int64))
+        digest = _digest(np.asarray(thresholds, np.float32))
+        seen = world.all_gather(torch.tensor([digest], dtype=torch.int64))
         if not bool((seen == seen[0]).all()):
             raise ValueError(
                 "build_train_data_multihost: the threshold tables differ between "

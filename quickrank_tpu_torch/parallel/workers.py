@@ -14,10 +14,19 @@ rank of a group and returns what the launcher gathers.
     holds the sharded growers against a reference given the same gradients;
   * :func:`multihost_rank`: the multi-host data path on this host (each
     rank loads only its query block, ``parallel/multihost.py``), then
-    training;
+    training; :func:`layout_rank`: its ``TrainData`` beside the one
+    ``TrainData.build`` lays out from the whole dataset;
+  * :func:`descend_rank`: a model's weighted trees summed over this rank's
+    block of a 2-D mesh by the owners' node tests, beside the QuickScorer
+    sum over the data axis's whole bin matrix;
   * :func:`batch_rank`: several of the above in one launch;
   * :func:`fail_rank`: one rank raises while the others wait in a
     collective (the launcher's failure path).
+
+Under a 2-D data x feature mesh (``run_ranks(..., num_feat_shards=k)``) the
+rank's ``group`` is its ``parallel.mesh.Mesh2D``, and a spec's ``mesh``
+(``(num_shards, num_feat_shards)``) runs the job on a smaller mesh inside
+the launch (:func:`sub_mesh`).
 
 Datasets travel as paths of ``.npz`` files (:func:`save_dataset`), so that
 large folds are not pickled through the launcher.
@@ -25,6 +34,7 @@ large folds are not pickled through the launcher.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -32,7 +42,7 @@ import numpy as np
 import torch
 
 from quickrank_tpu_torch.data.dataset import Dataset
-from quickrank_tpu_torch.parallel.mesh import DataGroup
+from quickrank_tpu_torch.parallel.mesh import DataGroup, Mesh2D, data_group
 
 
 def save_dataset(ds: Dataset, path: str) -> str:
@@ -65,6 +75,32 @@ def solo_group(group: DataGroup) -> DataGroup:
 
     subs = [dist.new_group([r], backend=group.backend) for r in range(group.world_size)]
     return dataclasses.replace(group, rank=0, world_size=1, group=subs[group.rank])
+
+
+def mesh_shape(group) -> tuple:
+    """``(num_shards, num_feat_shards)`` of a ``DataGroup`` or a ``Mesh2D``."""
+    if isinstance(group, Mesh2D):
+        return group.num_shards, group.num_feat_shards
+    return group.world_size, 1
+
+
+def sub_mesh(mesh, shape) -> object:
+    """The mesh of ``shape`` (num_shards, num_feat_shards) inside the launch
+    of ``mesh``: ``mesh`` itself; its data axis (``n x 1``, a ``DataGroup``:
+    the ranks of one feature block); or its feature axis over a one-rank
+    data axis (``1 x k``: the ranks of one query block, each such block
+    running the job on all the data).  Every rank makes every rank's
+    one-rank group."""
+    shape = tuple(shape)
+    if not isinstance(mesh, Mesh2D) or shape == mesh_shape(mesh):
+        if shape != mesh_shape(mesh):
+            raise ValueError(f"no {shape} mesh inside a {mesh_shape(mesh)} launch")
+        return mesh
+    if shape == (mesh.num_shards, 1):
+        return mesh.data
+    if shape == (1, mesh.num_feat_shards):
+        return Mesh2D(world=mesh.feat, data=solo_group(mesh.world), feat=mesh.feat)
+    raise ValueError(f"no {shape} mesh inside a {mesh_shape(mesh)} launch")
 
 
 def _cleaver(kwargs: dict):
@@ -129,13 +165,41 @@ def _data(spec: dict, group: DataGroup, nthresholds: int, cache: Optional[dict])
     from quickrank_tpu_torch.learning.mart import TrainData
 
     cache = {} if cache is None else cache
-    key = (spec["train"], nthresholds, group.world_size)
+    key = (spec["train"], nthresholds, mesh_shape(group))
     if key not in cache:
         cache[key] = TrainData.build(load_dataset(spec["train"]), nthresholds, group=group)
     vkey = ("valid", spec.get("valid"))
     if vkey not in cache:
         cache[vkey] = load_dataset(spec.get("valid"))
     return cache[key], cache[vkey]
+
+
+@contextlib.contextmanager
+def k4_timed(on: bool = True):
+    """With ``on``, every K4 launch (``kernel_histogram.node_histogram_int``,
+    which every K4 entry goes through) between two CUDA events: yields the
+    list of event pairs it fills, else None."""
+    if not on:
+        yield None
+        return
+    from quickrank_tpu_torch.ops import kernel_histogram
+
+    events = []
+    k4 = kernel_histogram.node_histogram_int
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k4(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    kernel_histogram.node_histogram_int = timed
+    try:
+        yield events
+    finally:
+        kernel_histogram.node_histogram_int = k4
 
 
 def train_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> dict:
@@ -156,6 +220,8 @@ def train_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> di
     grouped = spec.get("grouped", True)
     if spec.get("solo"):
         group = solo_group(group)
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
     if isinstance(model, Mart):
         tr, valid = _data(spec, group, model.nthresholds, cache)
         if not grouped:
@@ -163,12 +229,16 @@ def train_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> di
     else:
         tr, valid = load_dataset(spec["train"]), load_dataset(spec.get("valid"))
     _reset_counters()
-    hist = model.learn(tr, valid, metric_factory(spec.get("metric", "NDCG@10")),
-                       verbose=False, device=group.device, mesh=group if grouped else None)
+    with k4_timed(spec.get("k4_ms", False)) as k4_events:
+        hist = model.learn(tr, valid, metric_factory(spec.get("metric", "NDCG@10")),
+                           verbose=False, device=group.device, mesh=group if grouped else None)
     keep = ("train", "valid", "best_iteration", "iter_seconds", "init_seconds",
-            "dropped", "epoch_seconds", "iteration_seconds", "iterations")
+            "dropped", "rescored", "epoch_seconds", "iteration_seconds", "iterations")
     out = {"rank": group.rank, "history": {k: hist[k] for k in keep if k in hist},
            **_counters()}
+    if k4_events is not None:
+        torch.cuda.synchronize(group.device)
+        out["k4_ms"] = sum(a.elapsed_time(b) for a, b in k4_events)
     if hasattr(model, "best_weights"):
         out["weights"] = model.get_weights()
     else:
@@ -186,6 +256,8 @@ def optimize_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) ->
     from quickrank_tpu_torch.metrics.metrics import metric_factory
 
     grouped = spec.get("grouped", True)
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
     cleaver = _cleaver(spec["cleaver"])
     _reset_counters()
     info = cleaver.optimize(LTRAlgorithm.load(spec["model"]), load_dataset(spec["train"]),
@@ -205,10 +277,13 @@ def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> lis
     from quickrank_tpu_torch.trees.grow import leaf_outputs
 
     model = _learner(spec)
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
     tr, _ = _data(spec, group, model.nthresholds, cache)
     cfg = model._grow_config(tr.num_bins, tr.num_real_features, tr.num_docs)
     n = tr.padded.num_docs_padded
-    rows = slice(group.rank * n, (group.rank + 1) * n)
+    block = data_group(group).rank
+    rows = slice(block * n, (block + 1) * n)
     with np.load(spec["gradients"]) as z:
         grads, weights = z["grad"][:, rows], z["weight"][:, rows]
     dev = tr.step.binned.device
@@ -220,7 +295,7 @@ def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> lis
         tree, node, done = model._fit_and_assign(tr, g, smask, cfg,
                                                  model._generator(m, 1), weights=w)
         if not done:
-            tree = leaf_outputs(tree, node, g, smask, weights=w, group=group,
+            tree = leaf_outputs(tree, node, g, smask, weights=w, group=tr.group,
                                 num_docs=cfg.num_docs)
         out.append({"tree": {k: v.cpu().numpy() for k, v in vars(tree).items()
                              if isinstance(v, torch.Tensor)},
@@ -230,9 +305,10 @@ def grow_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> lis
 
 def multihost_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> dict:
     """:func:`train_rank` through the multi-host data path: this rank keeps
-    only its ``process_query_block`` of ``spec["train"]`` and builds its
-    ``TrainData`` with ``build_train_data_multihost`` (with
-    ``spec.get("thresholds")`` as given, else the merged tables)."""
+    only its ``process_query_block`` of ``spec["train"]`` (its data axis's,
+    under a 2-D mesh) and builds its ``TrainData`` with
+    ``build_train_data_multihost`` (with ``spec.get("thresholds")`` as given,
+    else the merged tables)."""
     from quickrank_tpu_torch.metrics.metrics import metric_factory
     from quickrank_tpu_torch.parallel.multihost import (
         build_train_data_multihost,
@@ -240,7 +316,10 @@ def multihost_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -
     )
 
     model = _learner(spec)
-    local = process_query_block(load_dataset(spec["train"]), group.world_size, group.rank)
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
+    data = data_group(group)
+    local = process_query_block(load_dataset(spec["train"]), data.world_size, data.rank)
     td = build_train_data_multihost(local, group, model.nthresholds,
                                     thresholds=spec.get("thresholds"))
     hist = model.learn(td, load_dataset(spec.get("valid")),
@@ -248,6 +327,80 @@ def multihost_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -
                        mesh=group)
     return {"rank": group.rank, "history": {k: hist[k] for k in ("train", "valid")},
             "trees": ensemble_arrays(model), "local_docs": local.num_docs}
+
+
+def layout_rank(group, spec: dict, cache: Optional[dict] = None) -> dict:
+    """This rank's ``TrainData`` of ``spec["train"]`` (tables
+    ``spec["thresholds"]``) four ways: from the multi-host path (its
+    ``process_query_block`` only) and from ``TrainData.build`` over the whole
+    dataset, each under ``group`` and under its data axis alone (``mesh`` /
+    ``data``): the step tensors, host tables and block geometry as host
+    arrays; under a 2-D mesh also the multi-host path's refusal when the
+    ranks of a query block pass different blocks (``mismatch``)."""
+    from quickrank_tpu_torch.learning.mart import TrainData
+    from quickrank_tpu_torch.parallel.multihost import (
+        build_train_data_multihost,
+        process_query_block,
+    )
+
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
+    data = data_group(group)
+    ds = load_dataset(spec["train"])
+    local = process_query_block(ds, data.world_size, data.rank)
+    nthr, thr = spec["nthresholds"], spec["thresholds"]
+    out = {}
+    for where, g in (("mesh", group), ("data", data)):
+        for name, td in (
+                ("multihost", build_train_data_multihost(local, g, nthr, thresholds=thr)),
+                ("whole", TrainData.build(ds, nthr, thresholds=thr, group=g))):
+            lay = {k: getattr(td.step, k).cpu().numpy() for k in
+                   ("binned", "labels", "doc_mask", "doc_ids", "nvalid", "thresholds")}
+            lay.update(host_thresholds=td.thresholds, num_docs=td.num_docs,
+                       feat=(td.feat.lo, td.feat.width) if td.feat is not None else None)
+            out[(name, where)] = lay
+    if data is not group:
+        # the ranks of a query block must load the same block: here each
+        # loads another, which every rank refuses alike
+        try:
+            build_train_data_multihost(
+                process_query_block(ds, data.world_size,
+                                    (data.rank + group.feat.rank) % data.world_size),
+                group, nthr, thresholds=thr)
+            out["mismatch"] = None
+        except ValueError as e:
+            out["mismatch"] = str(e)
+    return out
+
+
+def descend_rank(group, spec: dict, cache: Optional[dict] = None) -> dict:
+    """The trees ``spec["slots"]`` of the model saved at ``spec["model"]``,
+    weighted by ``spec["weights"]``, summed over this rank's rows of
+    ``spec["train"]``: by the owners' node tests over this rank's feature
+    block (``ops/scoring.py::delta_owned``, the DART delta of a 2-D mesh),
+    and by the QuickScorer tables over the data axis's bin matrix (the
+    delta of a 1-D group, ``learning/dart.py::DropTable``); ``chunked``:
+    the owners' sum again for each all-reduce budget of ``spec["words"]``
+    (int64 words a block)."""
+    from quickrank_tpu_torch.learning.base import LTRAlgorithm
+    from quickrank_tpu_torch.learning.dart import DropTable
+    from quickrank_tpu_torch.learning.mart import rebin_ensemble
+    from quickrank_tpu_torch.ops.binning import scorer_rows
+    from quickrank_tpu_torch.ops.scoring import delta_owned
+
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
+    model = LTRAlgorithm.load(spec["model"])
+    tr, _ = _data(spec, group, model.nthresholds, cache)
+    whole, _ = _data(spec, data_group(group), model.nthresholds, cache)
+    ens = rebin_ensemble(model.ensemble, tr.thresholds, force=True).to(tr.step.binned.device)
+    md = model._descend_depth()
+    owned = delta_owned(tr.step.binned, ens, spec["slots"], spec["weights"], tr.feat, md)
+    tables = DropTable(ens, tr.step.binned.device).delta(
+        spec["slots"], np.asarray(spec["weights"], np.float32), scorer_rows(whole.step.binned))
+    chunked = {w: delta_owned(tr.step.binned, ens, spec["slots"], spec["weights"], tr.feat,
+                              md, words=w).cpu().numpy() for w in spec.get("words", ())}
+    return {"owned": owned.cpu().numpy(), "qs": tables.cpu().numpy(), "chunked": chunked}
 
 
 def sample_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> list:
@@ -261,6 +414,8 @@ def sample_rank(group: DataGroup, spec: dict, cache: Optional[dict] = None) -> l
 
     if spec.get("solo"):
         group = solo_group(group)
+    if spec.get("mesh"):
+        group = sub_mesh(group, spec["mesh"])
     model = Mart(**spec["kwargs"])
     tr, _ = _data(spec, group, model.nthresholds, cache)
     sd = tr.step

@@ -15,6 +15,17 @@ holds a shard of the docs; the node histograms and the leaf sums are
 reduced over the ranks (``ops/histogram.py``), and every decision is taken
 from the reduced values, so every rank grows the same tree.
 
+Under a 2-D data x feature mesh (``feat``, a ``parallel.mesh.FeatureShard``;
+JAX grow.py:220-282) ``binned`` is this rank's feature block behind the
+stats column: the histograms cover the block (reduced over the data axis
+only), the feature mask is drawn over the global padded width and sliced,
+each rank's best candidate is gathered over the feature axis and the first
+maximum wins (``FeatureShard.best``), and the owner of the split feature
+computes the routing bits, which the others take from one all-reduce
+(``FeatureShard.route``).  The split's value comes from the global
+threshold table every rank holds, so it needs no collective.  The split
+still costs one host read.
+
 Reference semantics kept:
   * split priority = node deviance sum g^2 - (sum g)^2 / count (rt.cc:59-76);
   * gain = lsum^2/lcount + rsum^2/rcount over splits whose children both
@@ -33,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.binning import bin_columns
+from quickrank_tpu_torch.ops.binning import bin_columns, gather_bins
 from quickrank_tpu_torch.ops.histogram import (
     doc_channels,
     group_histogram,
@@ -138,9 +149,47 @@ def _best_split(hist_node: torch.Tensor, feat_mask: torch.Tensor, minls: int):
     return tuple(x[0] for x in _best_splits(hist_node[None], feat_mask[None], minls))
 
 
+def feature_masks(generator: Optional[torch.Generator], F: int, nfs: int, count: int,
+                  feat=None) -> torch.Tensor:
+    """``count`` per-split feature masks ``[count, F]`` drawn over ``F``
+    columns (the global padded width under ``feat``, then sliced to this
+    rank's block behind the stats column)."""
+    masks = torch.stack([_feature_sample_mask(generator, F, nfs) for _ in range(count)])
+    return masks if feat is None else feat.local_mask(masks)
+
+
+def global_width(binned: torch.Tensor, feat=None) -> int:
+    """The bin matrix's global padded width (this rank's block is narrower
+    under ``feat``)."""
+    return binned.shape[1] if feat is None else feat.global_width
+
+
+def route_bits(binned: torch.Tensor, f: torch.Tensor, t: torch.Tensor, feat=None,
+               right: bool = False) -> torch.Tensor:
+    """Each doc's routing bit at its own split (feature ``f[n]``, bin
+    ``t[n]``, global ids), or at one split for every doc (``f`` an int or
+    0-d): ``bin <= t`` (left), or ``bin > t`` with ``right``.  Under
+    ``feat`` the owner of each doc's feature computes its bit and the
+    feature axis takes it from one all-reduce."""
+    def read(cols):
+        if isinstance(cols, int):
+            return bin_columns(binned, cols)
+        if cols.dim() == 0:  # one split, on the device: read nothing back
+            return bin_columns(binned, cols.reshape(1))[:, 0]
+        return gather_bins(binned, cols)
+
+    if feat is None:
+        x = read(f)
+        return x > t if right else x <= t
+    fl = feat.local_ids(torch.as_tensor(f))
+    x = read(fl.clamp(min=0))
+    mine = (x > t) if right else (x <= t)
+    return feat.route(mine & (fl >= 0))
+
+
 def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
              thresholds: torch.Tensor, cfg: GrowConfig,
-             generator: Optional[torch.Generator] = None, group=None):
+             generator: Optional[torch.Generator] = None, group=None, feat=None):
     """Grow one tree on binned docs.
 
     binned: [N, F] bin ids on the wire (uint8, uint16 or int32); grad: f32
@@ -152,7 +201,9 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
     node_of_doc int32 [N]).  Every doc is routed, masked ones too, so the
     caller can update scores from ``leaf_value[node_of_doc]``.  With
     ``group`` the docs are this rank's shard and the histograms are
-    reduced over the ranks."""
+    reduced over the ranks; with ``feat`` the columns are this rank's
+    feature block (the module docstring) and ``thresholds`` the global
+    table."""
     global HOST_SYNCS
     N, F = binned.shape
     dev = binned.device
@@ -185,7 +236,8 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
     parent = np.full(max_nodes, -1, np.int64)
     n_nodes, taken = 1, 0
     node_of_doc = torch.zeros(N, dtype=torch.int32, device=dev)
-    nfs = cfg.num_feature_samples(F)
+    F_global = global_width(binned, feat)
+    nfs = cfg.num_feature_samples(F_global)
 
     while True:
         heap = active & ~frozen
@@ -194,9 +246,11 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
             break
         heap_t = torch.from_numpy(heap).to(dev)
         leaf_t = torch.argmax(torch.where(heap_t, deviance, NEG_INF))
-        feat_mask = _feature_sample_mask(generator, F, nfs).to(dev)
+        feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
         h_leaf = hist[leaf_t]
-        has_split, f_star, t_star, _ = _best_split(h_leaf, feat_mask, minls)
+        has_split, f_star, t_star, gain = _best_split(h_leaf, feat_mask, minls)
+        if feat is not None:
+            has_split, _, f_star, t_star = feat.best(has_split, gain, f_star, t_star)
         # the split's one host sync
         leaf, has_split, f_star, t_star, positive = torch.stack([
             leaf_t, has_split.long(), f_star, t_star, (deviance[leaf_t] > 0).long()
@@ -210,7 +264,7 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
             taken += 1
             continue
         a, b = n_nodes, n_nodes + 1
-        goes_left = bin_columns(binned, f_star) <= t_star
+        goes_left = route_bits(binned, f_star, t_star, feat)
         in_leaf = node_of_doc == leaf
         node_of_doc = torch.where(
             in_leaf, torch.where(goes_left, a, b), node_of_doc
@@ -233,15 +287,19 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
     nodes = dict(feature=feature, threshold=threshold, threshold_bin=threshold_bin,
                  left=left, right=right)
     return _finish_tree(binned, cfg, nodes, node_of_doc, deviance, depth,
-                        parent, n_nodes)
+                        parent, n_nodes, feat)
 
 
 def _finish_tree(binned, cfg: GrowConfig, nodes: dict, node_of_doc, deviance,
-                 depth, parent, n_nodes: int):
+                 depth, parent, n_nodes: int, feat=None):
     """The grown tree (host arrays of the five split fields) as a ``Tree`` on
     ``binned``'s device, after the optional leaf collapse; a collapse moves
-    docs, so they are routed again through the pruned tree."""
+    docs, so they are routed again through the pruned tree (over the whole
+    feature axis: refused under ``feat``, as in JAX grow.py:315-318)."""
     max_nodes = cfg.max_nodes
+    if cfg.collapse_factor > 0 and feat is not None:
+        raise NotImplementedError(
+            "collapse-leaves-factor under feature sharding not supported")
     nodes["is_leaf"] = nodes["feature"] < 0
     if cfg.collapse_factor > 0:
         _collapse_leaves(nodes, deviance.cpu().numpy(), depth, parent, n_nodes,

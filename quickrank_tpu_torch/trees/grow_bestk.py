@@ -25,7 +25,10 @@ Ties in deviance go to the lower node id (a stable descending sort), as
 ``jax.lax.top_k`` orders them.  Feature sampling draws one mask per popped
 rank from the host generator, ``fit_tree``'s schedule at k = 1.  Under a
 query-sharded group a round's histograms are reduced over the ranks
-(``ops/histogram.py``), as in ``fit_tree``.
+(``ops/histogram.py``), as in ``fit_tree``.  Under a 2-D mesh (``feat``;
+JAX grow_bestk.py:141-224) the round's k candidates are gathered over the
+feature axis in one collective, and the owners' routing bits combined in
+another, as ``fit_tree`` does for one split.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.binning import gather_bins
 from quickrank_tpu_torch.ops.histogram import doc_channels, histogram_scale, node_histograms_t
 from quickrank_tpu_torch.trees import grow
 from quickrank_tpu_torch.trees.grow import (
@@ -43,21 +45,24 @@ from quickrank_tpu_torch.trees.grow import (
     GrowConfig,
     _best_splits,
     _deviance,
-    _feature_sample_mask,
     _finish_tree,
     _node_stats,
+    feature_masks,
+    global_width,
+    route_bits,
 )
 
 
 def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
                    doc_mask: torch.Tensor, thresholds: torch.Tensor,
                    cfg: GrowConfig, k: int,
-                   generator: Optional[torch.Generator] = None, group=None):
+                   generator: Optional[torch.Generator] = None, group=None, feat=None):
     """Grow one tree, splitting up to ``k`` heap leaves per histogram pass.
 
     Arguments and result as :func:`trees.grow.fit_tree` (a tree without leaf
     values, and node_of_doc int32 [N] over all docs, this rank's under
-    ``group``); ``k`` is clamped to [1, nleaves - 1]."""
+    ``group``; ``feat``: this rank's feature block); ``k`` is clamped to
+    [1, nleaves - 1]."""
     N, F = binned.shape
     dev = binned.device
     B = cfg.num_bins
@@ -91,7 +96,8 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
     parent = np.full(max_nodes, -1, np.int64)
     n_nodes, taken = 1, 0
     node_of_doc = torch.zeros(N, dtype=torch.int32, device=dev)
-    nfs = cfg.num_feature_samples(F)
+    F_global = global_width(binned, feat)
+    nfs = cfg.num_feature_samples(F_global)
 
     while True:
         heap = active & ~frozen
@@ -102,9 +108,10 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
         sel_dev, sel_ids = torch.sort(torch.where(heap_t, deviance, NEG_INF),
                                       descending=True, stable=True)
         sel_dev, sel_ids = sel_dev[:k], sel_ids[:k]
-        masks = torch.stack([_feature_sample_mask(generator, F, nfs)
-                             for _ in range(k)]).to(dev)
-        has_split, f_star, t_star, _ = _best_splits(hist[sel_ids], masks, minls)
+        masks = feature_masks(generator, F_global, nfs, k, feat).to(dev)
+        has_split, f_star, t_star, gain = _best_splits(hist[sel_ids], masks, minls)
+        if feat is not None:
+            has_split, _, f_star, t_star = feat.best(has_split, gain, f_star, t_star)
         # the round's one host sync; a rank beyond |heap| holds -inf
         sel, has_split, f_star, t_star, positive, in_heap = torch.stack([
             sel_ids, has_split.long(), f_star, t_star, (sel_dev > 0).long(),
@@ -143,7 +150,7 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
             tables, [max_nodes] + [n_sel + 1] * 4)
         slot = slot_of_node_t[node_of_doc.long()]
         in_sel = slot < n_sel
-        goes_right = gather_bins(binned, f_tab[slot]).long() > t_tab[slot]
+        goes_right = route_bits(binned, f_tab[slot], t_tab[slot], feat, right=True)
         node_of_doc = torch.where(
             in_sel, a_tab[slot] + goes_right.long(), node_of_doc).to(torch.int32)
         left_hist = hists_of(
@@ -169,4 +176,4 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
     nodes = dict(feature=feature, threshold=threshold, threshold_bin=threshold_bin,
                  left=left, right=right)
     return _finish_tree(binned, cfg, nodes, node_of_doc, deviance, depth,
-                        parent, n_nodes)
+                        parent, n_nodes, feat)

@@ -15,6 +15,13 @@ split column with a one-hot matmul on the TPU; the port gathers it.  There
 is no host sync.  Under a query-sharded group each level's histograms are
 reduced over the ranks (``ops/histogram.py``); the leaf values come from
 them, so they need no other collective.
+
+Under a 2-D mesh (``feat``; JAX grow_level.py:98-220) a level's candidates,
+one a node, are gathered over the feature axis together with each
+candidate's left and total sums (so every rank takes the owner's values),
+and the owners' routing bits are combined in one all-reduce: two feature
+collectives a level.  A node that stops keeps the totals of the stats
+column, global column 0 (JAX takes shard 0's, :219-220).
 """
 
 from __future__ import annotations
@@ -24,9 +31,15 @@ from typing import Optional
 
 import torch
 
-from quickrank_tpu_torch.ops.binning import gather_bins
 from quickrank_tpu_torch.ops.histogram import histogram_scale, node_histograms_t, prefix_sum
-from quickrank_tpu_torch.trees.grow import EPS, NEG_INF, GrowConfig, _feature_sample_mask
+from quickrank_tpu_torch.trees.grow import (
+    EPS,
+    NEG_INF,
+    GrowConfig,
+    feature_masks,
+    global_width,
+    route_bits,
+)
 from quickrank_tpu_torch.trees.structs import Tree
 
 
@@ -34,13 +47,14 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
                        depth: int, cfg: GrowConfig,
                        generator: Optional[torch.Generator] = None,
-                       weights: Optional[torch.Tensor] = None, group=None):
+                       weights: Optional[torch.Tensor] = None, group=None, feat=None):
     """Grow a depth-``depth`` tree breadth-first in heap layout (node i has
     children 2i+1 and 2i+2; leaves at [2^depth - 1, 2^(depth+1) - 1)).
 
     Returns (tree with leaf values, node_of_doc int32 [N] over all docs).
     Leaf values are the mean pseudoresponse, or the Newton step
-    sum(lambda)/sum(w) when ``weights`` is given."""
+    sum(lambda)/sum(w) when ``weights`` is given.  ``thresholds`` is the
+    global table (on ``binned``'s device), also under ``feat``."""
     N, F = binned.shape
     dev = binned.device
     B = cfg.num_bins
@@ -58,14 +72,15 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     leaf_num = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
     leaf_den = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
     pos = torch.zeros(N, dtype=torch.long, device=dev)
-    nfs = cfg.num_feature_samples(F)
+    F_global = global_width(binned, feat)
+    nfs = cfg.num_feature_samples(F_global)
 
     for d in range(depth):
         n_nodes = 2 ** d
         base = n_nodes - 1
         hist = node_histograms_t(binned, chan_t, pos, n_nodes, B, group=group,
                                  scale=scale)  # [nodes, F, B, C]
-        feat_mask = _feature_sample_mask(generator, F, nfs).to(dev)
+        feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
 
         cum = prefix_sum(hist, 2)
         lc = cum[..., 0]
@@ -100,11 +115,14 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
         stop_num = cum[:, 0, -1, 1]
         stop_den = cum[:, 0, -1, 2] if newton else cum[:, 0, -1, 0]
 
+        if feat is not None:
+            # the winners over the feature axis, with the owners' sums
+            has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den = feat.best(
+                has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den)
         can = has_valid & (best > 0)
         thr_val = thresholds[f_star, t_star]
         # routing bit of every doc at its own node's split
-        f_doc = f_star[pos]
-        bit = (gather_bins(binned, f_doc).long() > t_star[pos]).long()
+        bit = route_bits(binned, f_star[pos], t_star[pos], feat, right=True).long()
 
         ids = base + torch.arange(n_nodes, device=dev)
         tree.feature[ids] = torch.where(can, f_star, -1).to(torch.int32)

@@ -22,7 +22,10 @@ comparison bits (src/io/generate_oblivious.cc:306-312).
 
 Under a query-sharded group (``parallel/mesh.py``) each level's histograms
 and the leaf sums are reduced over the ranks (JAX oblivious.py:126-127,
-208-209); sharding the feature axis is ROADMAP.md §A item 10b part 4.
+208-209).  Under a 2-D mesh (``feat``, JAX oblivious.py:144-175) a level
+gathers each rank's best (feature, threshold) of its block over the feature
+axis, every rank takes the first maximum as the shared test, and the
+owner's ``bin > t`` bits reach the others through one all-reduce.
 """
 
 from __future__ import annotations
@@ -33,13 +36,13 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from quickrank_tpu_torch.ops.binning import bin_columns
 from quickrank_tpu_torch.ops.histogram import (
     histogram_scale,
     node_histograms_t,
     prefix_sum,
     tree_sum,
 )
+from quickrank_tpu_torch.trees.grow import route_bits
 from quickrank_tpu_torch.trees.structs import Tree
 
 NEG_INF = float("-inf")
@@ -153,14 +156,15 @@ class ObliviousEnsemble:
 def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
                        doc_mask: torch.Tensor, thresholds: torch.Tensor,
                        depth: int, min_leaf_support: int = 1, group=None,
-                       num_docs: int = 0):
+                       num_docs: int = 0, feat=None):
     """Level-synchronous fit (ot.cc:46-175).
 
     Returns ``(fid [D] i32, thr [D] f32, thr_bin [D] i32, node_of_doc [N]
     i32 in [0, 2^D))`` on ``binned``'s device.  Every doc is routed; the mask
     only gates the statistics.  There is no host sync.  ``num_docs`` counts
     the real docs among the rows (0: all), for the card's fixed-point
-    scale."""
+    scale.  Under ``feat`` ``binned`` is this rank's feature block and
+    ``thresholds`` the global table."""
     N = binned.shape[0]
     dev = binned.device
     B = thresholds.shape[1]
@@ -187,6 +191,8 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
         node_gain = ls * ls / torch.clamp(lc, min=1.0) + rs * rs / torch.clamp(rc, min=1.0)
         ok = (lc >= min_leaf_support) & (rc >= min_leaf_support)
         valid = ok.all(dim=0)  # [F, B]: must hold in every fringe node
+        if feat is not None:
+            valid[0] = False  # the stats column is no candidate
         # nodes summed in XLA's order, so equal histograms give equal splits
         total_gain = tree_sum(node_gain.movedim(0, -1))
         gain = torch.where(valid, total_gain, NEG_INF).reshape(-1)
@@ -195,11 +201,19 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
         flat = torch.argmax(gain).reshape(1)
         f_star = flat // B
         t_star = flat % B
-        can = alive & valid.any() & (gain[flat][0] > 0)
-        bit = (bin_columns(binned, f_star)[:, 0] > t_star).to(torch.int32)
+        has, best = valid.any(), gain[flat][0]
+        if feat is None:
+            thr_d = thresholds.reshape(-1)[flat][0]
+        else:
+            # the shared test: the first maximum over the feature axis
+            has, best, f_star, t_star = feat.best(has, best, f_star[0], t_star[0])
+            thr_d = thresholds[f_star, t_star]
+            f_star, t_star = f_star.reshape(1), t_star.reshape(1)
+        bit = route_bits(binned, f_star[0], t_star[0], feat, right=True).to(torch.int32)
+        can = alive & has & (best > 0)
         node = torch.where(can, 2 * node + bit, 2 * node)
         fid[d] = torch.where(can, f_star[0], 0)
-        thr[d] = torch.where(can, thresholds.reshape(-1)[flat][0], FLT_MAX)
+        thr[d] = torch.where(can, thr_d, FLT_MAX)
         thr_bin[d] = torch.where(can, t_star[0], B)
         alive = can
 

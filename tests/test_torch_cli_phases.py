@@ -66,16 +66,19 @@ def test_restart_train_and_partial_saves(svml_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--num-feat-shards", "2"], "item 10"),
-    # --num-shards trains every learner; with a feature axis (the 2-D mesh)
-    # it is refused whatever the learner
-    (["--num-shards", "2", "--num-feat-shards", "2", "--algo", "RANDOMFOREST"], "item 10"),
-    (["--num-shards", "4", "--num-feat-shards", "2", "--algo", "RANKBOOST"], "item 10"),
+    # the 2-D mesh (--num-feat-shards) trains the Mart family and DART; the
+    # combinations JAX excludes are refused with its messages
+    (["--num-feat-shards", "2", "--algo", "COORDASC"], "COORDASC supports 1-D"),
+    (["--num-shards", "2", "--num-feat-shards", "2", "--collapse-leaves-factor", "0.5"],
+     "--collapse-leaves-factor is not supported"),
+    (["--num-shards", "4", "--num-feat-shards", "2", "--algo", "RANKBOOST"],
+     "RANKBOOST supports 1-D"),
     (["--model-file", "m.xml", "--code-file", "m.c", "--generator", "stablehlo"], "item 9"),
 ], ids=["extra2-item 10", "extra4-item 10", "extra6-item 10", "extra7-item 9"])  # stable ids
 def test_unported_flags_raise_naming_their_item(svml_dir, tmp_path, extra, item):
-    """Flags whose modules are not ported are parsed and refused, naming the
-    ROADMAP.md item, before any data is read."""
+    """Flags whose modules are not ported (naming the ROADMAP.md item) and
+    the 2-D mesh's excluded combinations (JAX's messages) are parsed and
+    refused before any data is read."""
     with pytest.raises(NotImplementedError, match=item):
         port_main(_flags(svml_dir, tmp_path / "x.xml", extra + ["--device", "cpu"]))
     assert not (tmp_path / "x.xml").exists()

@@ -57,7 +57,7 @@ def test_option_tables_match_jax():
     assert ADAPTIVE_TYPES == jax_dart.ADAPTIVE_TYPES
     with pytest.raises(ValueError, match="unknown DART option"):
         Dart(sample_type="NOPE")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="DataGroup .* or a parallel.mesh.Mesh2D"):
         Dart(ntrees=2).learn(None, mesh=object())
 
 

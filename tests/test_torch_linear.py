@@ -288,5 +288,6 @@ def test_linear_scores_and_quickscore(folds, tmp_path):
 
 def test_mesh_refused(folds):
     for ranker in (PL.CoordinateAscent(), PL.LineSearch()):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError,
+                           match="DataGroup .* or a parallel.mesh.Mesh2D"):
             ranker.learn(folds[0], mesh=object(), device="cpu")

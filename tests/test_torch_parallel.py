@@ -751,21 +751,23 @@ def test_scale_counts_real_docs_across_a_power_of_two(folds):
 
 @pytest.mark.parametrize("what", ["num-feat-shards"])
 def test_unsharded_modules_refuse_a_group_naming_item_10b(folds, what, tmp_path):
-    """The 2-D data x feature mesh, all that is not sharded, raises before
-    touching data, naming ROADMAP.md §A item 10b part 4: nothing falls back
-    to one device."""
+    """The 2-D data x feature mesh (ROADMAP.md §A item 10b part 4) refuses
+    what JAX refuses, before touching data, with JAX's message: a linear
+    ranker never falls back to one device or to the data axis."""
     from quickrank_tpu_torch import driver
 
-    with pytest.raises(NotImplementedError, match="item 10b part 4"):
-        driver.run(dict(num_feat_shards=2, train=str(tmp_path / "never-read.svml")))
+    with pytest.raises(NotImplementedError, match=r"LINESEARCH supports 1-D \(data\)"):
+        driver.run(dict(num_feat_shards=2, algo="LINESEARCH",
+                        train=str(tmp_path / "never-read.svml")))
 
 
 @pytest.mark.parametrize("name", ["LambdaMart", "RankBoost", "CoordinateAscent"])
 def test_a_mesh_that_is_not_a_group_raises_naming_item_10b_part_4(folds, name):
-    """``learn(mesh=...)`` takes a ``DataGroup``; any other mesh (a 2-D one)
-    raises before touching data, naming ROADMAP.md §A item 10b part 4."""
+    """``learn(mesh=...)`` takes a ``DataGroup`` or (since §A item 10b part
+    4) a ``Mesh2D``; any other object raises before touching data, naming
+    both."""
     ds = _port_ds(folds[0])
-    with pytest.raises(NotImplementedError, match="item 10b part 4"):
+    with pytest.raises(NotImplementedError, match="DataGroup .* or a parallel.mesh.Mesh2D"):
         getattr(PL, name)().learn(ds, mesh=("data", "feature"), device="cpu")
 
 

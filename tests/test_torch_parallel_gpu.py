@@ -1,7 +1,7 @@
 """The histogram kernels under a given scale, as query sharding calls them
 (``ops/kernel_histogram.py``: ``node_histogram_int``, ``histogram_int``,
 ``to_float``): their plain version on the CPU, and on the card (``gpu``: ``chip_smoke.py`` phase 31 and phase
-32's best-first case at a small size, phase 38's RankBoost too); the per-query sum kernel
+32's best-first case at a small size, phase 38's RankBoost and phase 46's 2-D mesh too); the per-query sum kernel
 (``ops/kernel_query_sum.py``) against its plain version, and a query's
 lambdas in two batches.  No JAX here, so the ``gpu`` tests run
 on a host without it: ``python -m pytest tests/test_torch_parallel_gpu.py -m gpu
@@ -108,6 +108,37 @@ def test_two_gloo_ranks_on_one_card_equal_one_rank(tmp_path):
     for k, v in one["trees"].items():
         assert np.array_equal(v, two["trees"][k]), k
     assert two["history"]["train"] == one["history"]["train"]
+
+
+@pytest.mark.gpu
+def test_feature_mesh_on_one_card_equals_the_unsharded_run(tmp_path):
+    """``chip_smoke.py`` phase 46's best-first case at 400 queries: a 1 x 2
+    and a 2 x 2 gloo mesh sharing the card (one launch of four ranks, the
+    1 x 2 mesh run by each query block's pair) grow the unsharded run's
+    trees node for node, leaf values bit for bit, with its train NDCG@10,
+    on every rank (K4 on each rank's feature block)."""
+    dev = _card()
+    from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
+    from quickrank_tpu_torch.learning import LambdaMart
+    from quickrank_tpu_torch.metrics import Ndcg
+    from quickrank_tpu_torch.parallel.workers import ensemble_arrays
+
+    ds = make_ranking_dataset(num_queries=400, seed=3)
+    train = save_dataset(ds, str(tmp_path / "train.npz"))
+    kw = dict(ntrees=4, nleaves=16, seed=1)
+    one = LambdaMart(**kw)
+    hist = one.learn(ds, None, Ndcg(10), verbose=False, device=dev)
+    want = ensemble_arrays(one)
+    jobs = [("train_rank", dict(learner="LambdaMart", kwargs=kw, train=train, mesh=shape))
+            for shape in ((1, 2), (2, 2))]
+    out = run_ranks(batch_rank, 2, args=(jobs,), device="cuda", backend="gloo",
+                    deadline=DEADLINE, num_feat_shards=2)
+    for r in out:
+        for run in r:
+            for k, v in want.items():
+                assert np.asarray(v).tobytes() == np.asarray(run["trees"][k]).tobytes(), k
+            assert run["history"]["train"] == hist["train"]
+            assert run["launches"]["node_histogram"] > 0
 
 
 @pytest.mark.gpu

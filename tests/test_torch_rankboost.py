@@ -225,13 +225,14 @@ def test_no_discordant_pairs_is_finite():
 
 
 def test_refusals():
-    """More than 64 label levels (JAX's message) and a mesh (item 10)."""
+    """More than 64 label levels (JAX's message) and a mesh that is neither
+    a DataGroup nor a Mesh2D."""
     rng = np.random.default_rng(1)
     ds = Dataset.from_arrays(rng.standard_normal((130, 3)).astype(np.float32),
                              np.arange(130, dtype=np.float32), np.repeat([1, 2], 65))
     with pytest.raises(ValueError, match="130 distinct labels"):
         RankBoost(ntrees=1).learn(ds, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="DataGroup .* or a parallel.mesh.Mesh2D"):
         RankBoost(ntrees=1).learn(ds, device="cpu", mesh=object())
     jds = JaxDataset.from_arrays(ds.features, ds.labels, np.repeat([1, 2], 65))
     with pytest.raises(ValueError, match="130 distinct labels"):

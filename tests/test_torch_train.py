@@ -195,10 +195,12 @@ def test_unported_settings_raise(setting, item, splits):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 10"), (dict(warm_start=True), None),
+    pytest.param(dict(mesh=object()), "DataGroup .* or a parallel.mesh.Mesh2D",
+                 id="kw0-item 10"),
+    (dict(warm_start=True), None),
     pytest.param(dict(partial_save=5), None, id="kw2-item 9")])
 def test_unported_learn_options_raise(kw, item, splits):
-    """A mesh raises; a warm start without a model (``item`` None) trains
+    """A mesh that is neither a DataGroup nor a Mesh2D raises; a warm start without a model (``item`` None) trains
     from scratch, as in the JAX package, and so does ``partial_save`` without
     a basename to save under (once ROADMAP item 9)."""
     lm = LambdaMart(ntrees=1)

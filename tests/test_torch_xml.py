@@ -127,7 +127,8 @@ def test_unported_types_raise_not_implemented(tmp_path):
 
 def test_learn_is_not_ported():
     """Training is ported for best-first (dataset order and node-clustered),
-    best-k and level-wise growth; a mesh still refuses, naming its ROADMAP
-    item, before touching data."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    best-k and level-wise growth, on one device, a query-sharded group or a
+    2-D mesh; a mesh of another kind refuses, naming the two it takes,
+    before touching data."""
+    with pytest.raises(NotImplementedError, match="DataGroup .* or a parallel.mesh.Mesh2D"):
         LambdaMart(cluster="on").learn(None, mesh=object())
