@@ -74,7 +74,12 @@ best@255, its carried scores against the saved model's kernel scores, and
 the QuickScorer kernel's u16 entry on the wire; best@4095, bestk@1023,
 level@1023, oblivious@1023, DART, a warm start and RankBoost, each against
 the CPU; and best@1023 unsharded, as a one-rank group and as two gloo ranks,
-equal bit for bit.  Phase 6 also holds the fixed-order
+equal bit for bit.  The scorer export (phase 49, ``io/export.py``):
+``torch.export`` archives of phase 1's 1000-tree model, a 1000 x depth-4
+model, a linear and phase 27's RankBoost model, exported on the CPU and
+loaded on the card, the tree archives bitwise the QuickScorer kernel and the
+others bitwise the CPU archive at 131,072 x 136, timed beside the kernel;
+and quicklearn ``--generator pt2``.  Phase 6 also holds the fixed-order
 per-query sum kernel (``csrc/query_sum.cu``, not a TPU kernel) against its
 plain version and times it beside the float64 sum it replaced.  The
 wrappers' launch counters show that each path ran its kernels; every kernel is timed beside
@@ -2981,6 +2986,68 @@ def main() -> int:
     else:
         print(f"  SKIPPED: a 2 x 2 NCCL mesh needs 4 CUDA devices, this machine has {cards} "
               "(NCCL refuses two ranks on one card)")
+
+    # -- phase 49: the AOT scorer export (io/export.py, --generator pt2) -----------
+    phase(f"49: torch.export archives of phase 1's 1000 x 16-leaf model, a 1000 x depth-4 "
+          f"model, a linear and phase 27's RankBoost model, loaded on {card} at {N_DOCS} x "
+          f"{N_FEATURES}; quicklearn --generator pt2")
+    from quickrank_tpu_torch.io import export
+
+    rng49 = np.random.default_rng(49)
+    linear49 = CoordinateAscent()
+    linear49.best_weights = rng49.standard_normal(N_FEATURES)
+    models49 = {"1000x16 leaves": qs_tables[(1000, 16)][0], "1000xd4": pf_tables[(1000, 4)][0],
+                "linear": linear49, "RankBoost": rb}
+    export49 = {}
+    for label, model in models49.items():
+        if label.startswith("1000x"):
+            model = LambdaMart(ntrees=1000, nleaves=16)
+            model.ensemble = models49[label]
+        t0 = time.perf_counter()
+        blob = export.export_scorer(model, num_features=N_FEATURES)
+        t1 = time.perf_counter()
+        scorer = export.load_scorer(blob)
+        t2 = time.perf_counter()
+        kernel_qs.LAUNCHES = 0
+        got = scorer(X)
+        require(kernel_qs.LAUNCHES == 0, f"export {label}: the archive launched K1")
+        require(got.shape == (N_DOCS,) and np.isfinite(got).all(), f"export {label}: bad output")
+        if label.startswith("1000x"):
+            # the archive's QuickScorer scan against K1 (a comparison launch)
+            tables49 = ensemble_to_qs(models49[label]).to(dev)
+            want = kernel_qs.score_qs(X, tables49).cpu().numpy()
+            k1_ms = time_ms(lambda: kernel_qs.score_qs(X, tables49), reps=20)
+            vs = "K1"
+        else:
+            want = export.load_scorer(blob, device="cpu")(X_host)
+            k1_ms = None
+            vs = "the CPU archive"
+        require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                f"export {label}: {int((got != want).sum())} of {N_DOCS} docs differ from {vs}")
+        Xd = X.clone()
+        art_ms = time_ms(lambda: scorer(Xd), reps=2)
+        export49[label] = (t1 - t0, len(blob), t2 - t1, art_ms, k1_ms)
+        print(f"  {label}: bitwise {vs} on {N_DOCS} docs; no kernel launched")
+    with tempfile.TemporaryDirectory() as tmp:
+        xml49, pt2 = os.path.join(tmp, "m.xml"), os.path.join(tmp, "m.pt2")
+        model = LambdaMart(ntrees=100, nleaves=64)
+        model.ensemble = qs_tables[(100, 64)][0]
+        model.save(xml49)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--model-file", xml49, "--code-file", pt2, "--generator", "pt2"])
+        require(rc == 0 and os.path.getsize(pt2) > 0, "quicklearn --generator pt2 failed")
+        got = export.load_scorer(pt2)(X)
+        want = kernel_qs.score_qs(X, ensemble_to_qs(LambdaMart.load(xml49).ensemble).to(dev))
+        require(np.array_equal(got.view(np.int32), want.cpu().numpy().view(np.int32)),
+                "quicklearn --generator pt2: the archive differs from K1 on the saved model")
+        print(f"  quicklearn --generator pt2 on a 100 x 64-leaf XML model: "
+              f"{os.path.getsize(pt2)} bytes, bitwise K1 on the saved model")
+    print(f"  export on {card} (export s, archive bytes, load s, artifact ms a round at "
+          f"{N_DOCS} x {N_FEATURES}, K1 ms on the same model): "
+          + "; ".join(f"{k} {v[0]:.3f} s, {v[1]} B, {v[2]:.3f} s, {v[3]:.4f} ms"
+                      + (f" against K1 {v[4]:.4f} ms ({v[3] / v[4]:.1f}x)" if v[4] else "")
+                      for k, v in export49.items()))
+    del Xd
 
     def row(name, source, replaces, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda",

@@ -7,14 +7,17 @@ nvcc on first use (``ops/_cuda.py``).  A wrapper given a CPU tensor runs the
 kernel's plain PyTorch version; given a CUDA tensor it launches the kernel
 or raises.
 
-Ported so far: scoring (``quickscore``: SVML and XML model I/O, the
+Ported: scoring (``quickscore``: SVML and XML model I/O, the
 QuickScorer, perfect-tree and oblivious bit-OR kernels), training of
 ``Mart``/``LambdaMart`` (best-first, best-k and level-wise growth, warm
 start), ``ObliviousMart``/``ObliviousLambdaMart`` and ``Dart`` on the
 histogram kernels, the linear rankers ``CoordinateAscent``/``LineSearch``,
 and post-learning pruning (``optimization.Cleaver``, ``MetaCleaver``) on
-the QuickScorer kernel's per-tree scores.  Entry points run on the CUDA card
-unless given ``device="cpu"``.  ROADMAP.md lists what follows.
+the QuickScorer kernel's per-tree scores, and every other learner of the
+JAX package; query-sharded and data x feature sharded training
+(``parallel/``); the C code generators and the scorer export
+(``io/export.py``: a ``torch.export`` archive that serves with torch
+alone).  Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 
 from quickrank_tpu_torch.learning import (  # noqa: F401

@@ -3,8 +3,9 @@
 The flag surface of the reference binary (src/quicklearn.cc:142-504, defaults
 :97-140) with the JAX package's names and defaults, across its option groups:
 training general, tree-based, meta-LtR, DART, selective sampling, CA/LS,
-optimization, testing and code generation.  Every flag is parsed; those whose
-modules are not ported yet raise in ``driver.run``, naming their ROADMAP.md item.
+optimization, testing and code generation.  Every flag is parsed; ``--generator
+pt2`` writes a ``torch.export`` archive of the scorer, and ``--generator
+stablehlo`` (JAX's ``jax.export`` artifact) is refused in ``driver.run``.
 ``--device`` (cuda or cpu, default cuda) takes the place of ``--platform``:
 without a CUDA device ``--device cuda`` is an error, never a CPU run.
 ``--num-shards N`` trains in N ranks (``driver.run``), ``--num-feat-shards K``
@@ -152,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
     cg.add_argument("--model-file", help="XML model to translate")
     cg.add_argument("--code-file", help="output source file")
     cg.add_argument("--generator", default="condop",
-                    help="[condop|oblivious|vpred|stablehlo]")
+                    help="[condop|oblivious|vpred|pt2]")
     return p
 
 

@@ -25,8 +25,9 @@ feature axis of the growers: ``--num-shards N`` x K ranks of a 2-D data x
 feature mesh (JAX driver.py:203-235), whose excluded combinations
 (RankBoost, the linear rankers, ``--restart-train``,
 ``--collapse-leaves-factor``) are refused before anything runs, with JAX's
-messages.  What is not ported (the ``stablehlo`` generator) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+messages.  ``--generator pt2`` writes the scorer as a ``torch.export``
+archive (``io/export.py``); ``--generator stablehlo``, the JAX package's
+``jax.export`` artifact, is refused before anything runs, with the reason.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from quickrank_tpu_torch.data.dataset import (
     shard_and_pad,
 )
 from quickrank_tpu_torch.data.svml import read_svml, write_svml
+from quickrank_tpu_torch.io.codegen import STABLEHLO_REFUSED
 from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.learning.factory import ltr_algorithm_factory, meta_factory
 from quickrank_tpu_torch.metrics.metrics import metric_factory
@@ -55,12 +57,6 @@ from quickrank_tpu_torch.optimization.factory import optimization_factory
 from quickrank_tpu_torch.parallel.mesh import score_rows_group
 from quickrank_tpu_torch.utils.profiling import phase_timer, trace
 
-_EXPORT_ITEM = "§A item 9 (CLIs and export)"
-#: what is not ported: (parameter, the value refused or None for any) ->
-#: ROADMAP.md item
-UNPORTED = {
-    ("generator", "stablehlo"): _EXPORT_ITEM,
-}
 #: the learners that train on a 1-D (data) mesh only (JAX driver.py:213-218)
 NO_2D = ("RANKBOOST", "COORDASC", "LINESEARCH")
 
@@ -132,14 +128,9 @@ def _partial_fold(algo, ds: Optional[Dataset], path: Optional[str], device,
     return pds
 
 
-def _refuse_unported(p: dict) -> None:
-    for (name, value), item in UNPORTED.items():
-        got = p.get(name)
-        if got and (value is None or str(got).lower() == value):
-            flag = f"--{name.replace('_', '-')}" + (f" {value}" if value else "")
-            raise NotImplementedError(
-                f"{flag} is not ported to quickrank_tpu_torch yet: ROADMAP.md {item}"
-            )
+def _refuse_stablehlo(p: dict) -> None:
+    if str(p.get("generator") or "").lower() == "stablehlo":
+        raise NotImplementedError(f"--generator stablehlo: {STABLEHLO_REFUSED}")
 
 
 def _refuse_2d(p: dict) -> None:
@@ -178,7 +169,7 @@ def run(params: dict) -> dict:
     ``num_feat_shards`` ranks of a 2-D mesh.  ``deadline`` (seconds, no
     flag) bounds their launch."""
     p = params
-    _refuse_unported(p)
+    _refuse_stablehlo(p)
     shards = int(p.get("num_shards") or 0)
     feat = int(p.get("num_feat_shards") or 0)
     if feat > 1:
@@ -376,13 +367,18 @@ def run_rank(params: dict, group) -> dict:
 
     # -- codegen phase (driver.cc:199-223) -----------------------------------
     if p.get("code_file") and p.get("model_file") and lead:
-        from quickrank_tpu_torch.io import codegen
+        from quickrank_tpu_torch.io import codegen, export
 
         generator = p.get("generator", "condop")
         with timed("codegen"):
-            code = codegen.generate(LTRAlgorithm.load(p["model_file"]), generator)
-            with open(p["code_file"], "w") as f:
-                f.write(code)
+            model = LTRAlgorithm.load(p["model_file"])
+            if generator.lower() == export.GENERATOR_NAME:
+                # the scorer as a torch.export archive, not C source
+                export.export_scorer(model, path=p["code_file"])
+            else:
+                code = codegen.generate(model, generator)
+                with open(p["code_file"], "w") as f:
+                    f.write(code)
         if verbose:
             print(f"# {generator} code saved to {p['code_file']}")
 

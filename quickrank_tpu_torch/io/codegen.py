@@ -15,8 +15,9 @@ The reference's three model translators:
 
 Each works from the model's dense tensors (no XML navigation); for the same
 model the output is the JAX package's byte for byte.  The JAX package's
-fourth generator, ``stablehlo`` (its ``io/export.py``), has no counterpart
-here: ROADMAP.md §A item 9.
+fourth generator, ``stablehlo`` (its ``io/export.py``), is refused: its
+counterpart here is ``pt2`` (``io/export.py``), a ``torch.export`` archive
+that ``driver.py`` writes as bytes, not C source.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ def _fmt_thr(x: float) -> str:
     return s
 
 
+#: why ``--generator stablehlo`` is refused (``driver.py`` says it too)
+STABLEHLO_REFUSED = (
+    "StableHLO is written by jax.export, which quickrank_tpu_torch does not depend on; "
+    "--generator pt2 writes the same scorer as a torch.export archive"
+)
+
+
 def generate(model, generator: str = "condop") -> str:
     generator = generator.lower()
     if generator == "condop":
@@ -42,9 +50,11 @@ def generate(model, generator: str = "condop") -> str:
     if generator == "vpred":
         return generate_vpred(model)
     if generator == "stablehlo":
-        raise NotImplementedError(
-            "the stablehlo generator (the JAX package's io/export.py) is not "
-            "ported to quickrank_tpu_torch: ROADMAP.md §A item 9 (CLIs and export)"
+        raise NotImplementedError(f"the stablehlo generator: {STABLEHLO_REFUSED}")
+    if generator == "pt2":
+        raise ValueError(
+            "the pt2 generator writes a torch.export archive (bytes, not C source): "
+            "call quickrank_tpu_torch.io.export.export_scorer"
         )
     raise ValueError(f"unknown generator {generator!r}")
 

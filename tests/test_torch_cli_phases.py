@@ -73,12 +73,14 @@ def test_restart_train_and_partial_saves(svml_dir, tmp_path):
      "--collapse-leaves-factor is not supported"),
     (["--num-shards", "4", "--num-feat-shards", "2", "--algo", "RANKBOOST"],
      "RANKBOOST supports 1-D"),
-    (["--model-file", "m.xml", "--code-file", "m.c", "--generator", "stablehlo"], "item 9"),
+    # --generator stablehlo: refused with its reason (pt2 is the port's archive)
+    (["--model-file", "m.xml", "--code-file", "m.c", "--generator", "stablehlo"],
+     "StableHLO is written by jax.export.*--generator pt2"),
 ], ids=["extra2-item 10", "extra4-item 10", "extra6-item 10", "extra7-item 9"])  # stable ids
 def test_unported_flags_raise_naming_their_item(svml_dir, tmp_path, extra, item):
-    """Flags whose modules are not ported (naming the ROADMAP.md item) and
-    the 2-D mesh's excluded combinations (JAX's messages) are parsed and
-    refused before any data is read."""
+    """--generator stablehlo (with its reason) and the 2-D mesh's excluded
+    combinations (JAX's messages) are parsed and refused before any data is
+    read."""
     with pytest.raises(NotImplementedError, match=item):
         port_main(_flags(svml_dir, tmp_path / "x.xml", extra + ["--device", "cpu"]))
     assert not (tmp_path / "x.xml").exists()

@@ -99,10 +99,18 @@ def test_compiled_code_scores_the_model(models, splits, tmp_path, name, generato
 
 
 def test_stablehlo_generator_is_refused(models):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """stablehlo is refused with the reason and the pointer to pt2."""
+    with pytest.raises(NotImplementedError,
+                       match="StableHLO is written by jax.export.*--generator pt2"):
         codegen.generate(LTRAlgorithm.load(models["mart"]), "stablehlo")
     with pytest.raises(ValueError, match="unknown generator"):
         codegen.generate(LTRAlgorithm.load(models["mart"]), "nosuch")
+
+
+def test_pt2_generator_points_to_export(models):
+    """pt2 is an archive that io/export.py writes as bytes, not C source."""
+    with pytest.raises(ValueError, match="torch.export archive.*export_scorer"):
+        codegen.generate(LTRAlgorithm.load(models["mart"]), "pt2")
 
 
 @pytest.mark.parametrize("generator", ["condop", "oblivious", "vpred"])
