@@ -162,10 +162,12 @@ int main(void) {
 """
 #: trees, depth, docs, features of the oblivious scoring shapes; the first
 #: is the JAX package's headline workload (bench.py:74-86), the third ends
-#: mid-block and has dead levels, and the rows of the last are too wide to
-#: stage in shared memory
+#: mid-block and has dead levels, the rows of the fourth are too wide to
+#: stage in shared memory, and the last two are deeper than a staged leaf
+#: table (depth 12): K3 reads their leaves from global memory
 OBLIVIOUS_CASES = [(1000, 4, N_DOCS, N_FEATURES), (200, 6, N_DOCS, N_FEATURES),
-                   (37, 3, 100003, N_FEATURES), (64, 4, 8192, 700)]
+                   (37, 3, 100003, N_FEATURES), (64, 4, 8192, 700),
+                   (1000, 13, 32768, N_FEATURES), (200, 14, 32768, N_FEATURES)]
 #: published peaks of one H100 SXM: HBM bytes/s, float32 operations/s
 #: outside the tensor cores (integer compares and mask ANDs count at it too)
 HBM_BYTES_PER_S = 3.35e12
@@ -2564,8 +2566,9 @@ def main() -> int:
     from quickrank_tpu_torch.ops import binning
 
     phase(f"42: K4 and K5 on the u16 bin wire of {train_ds.num_docs} docs x {N_FEATURES} "
-          f"features at 1,023, 4,095 and 16,383 thresholds (the last past shared memory), "
-          f"against node_histogram_fixed; u8, u16 and int32 wires of the same ids")
+          f"features at 1,023, 4,095 and 16,383 thresholds (the last past shared memory: the "
+          f"wide-bin path), against node_histogram_fixed; u8, u16 and int32 wires of the same "
+          f"ids")
     gen = torch.Generator(device="cpu").manual_seed(5)  # phase 5's draws
     wide42 = {}
     td1023 = None
@@ -2585,19 +2588,34 @@ def main() -> int:
             n_root = int(tdw.step.doc_mask.sum())
             rows = tdw.step.doc_mask.nonzero()[:, 0]
         bits = kernel_histogram.channel_max_bits(vt)
+        bits5 = kernel_histogram.channel_max_bits(vals.T)
         past = kernel_histogram.past_shared_memory(3, B)
+        wide_before = dict(kernel_histogram.WIDE_LAUNCHES)
         for k, pos in ((1, pos_root), (4, pos4)):
+            want = kernel_histogram.node_histogram_fixed_int(bw, vt, pos, B, 0, k, bits, N)
             acc = kernel_histogram.node_histogram_int(bw, vt, pos, B, 0, k, bits, N)
-            require(torch.equal(acc, kernel_histogram.node_histogram_fixed_int(
-                bw, vt, pos, B, 0, k, bits, N)),
-                f"K4 u16 {B} bins, k={k}: int64 sums differ from node_histogram_fixed_int")
+            require(torch.equal(acc, want), f"K4 u16 {B} bins, k={k}: int64 sums differ from "
+                    "node_histogram_fixed_int")
             got = kernel_histogram.node_histogram(bw, vt, pos, B, 0, k)
             require(torch.equal(got, kernel_histogram.node_histogram_fixed(bw, vt, pos, B, 0, k)),
                     f"K4 u16 {B} bins, k={k}: differs from node_histogram_fixed")
+        want = kernel_histogram.node_histogram_fixed_int(bw, vals.T.contiguous(), None, B, 0, 1,
+                                                         bits5, N)
+        require(torch.equal(kernel_histogram.histogram_int(bw, vals, B, bits5, N), want),
+                f"K5 u16 {B} bins: int64 sums differ from node_histogram_fixed_int")
+        del want
+        # K4's four launches above (int64 and float, k = 1 and 4) and K5's one
+        # take the wide-bin path on 16,383 thresholds (C = 3 and 2), the block
+        # path below
+        took = {n_: kernel_histogram.WIDE_LAUNCHES[n_] - wide_before[n_] for n_ in wide_before}
+        require(took == ({"node_histogram": 4, "histogram": 1} if past else
+                         {"node_histogram": 0, "histogram": 0}),
+                f"K4 and K5 at {B} bins: wide-bin launches {took}, past shared memory {past}")
         k5 = kernel_histogram.histogram(bw, vals, B)
         require(torch.equal(k5, kernel_histogram.node_histogram_fixed(
             bw, vals.T.contiguous(), None, B, 0, 1)), f"K5 u16 {B} bins: differs from "
             "node_histogram_fixed")
+        k5_err = float((k5.double() - kernel_histogram.histogram_plain(bw, vals, B)).abs().max())
         got = kernel_histogram.node_histogram(bw, vt, pos_root, B, 0, 1)
         plain = kernel_histogram.node_histogram_plain(bw, vt, pos_root, B, 0, 1)
         v64 = vt.double()
@@ -2632,7 +2650,8 @@ def main() -> int:
                        n_root * W * 3)
         k5_bnd = bound_ms(N * W * 2 + nbytes_of(vals) + W * B * 2 * 8, N * W * 2)
         wide42[B] = dict(ms=ms, ms4=ms4, plain_ms=plain_ms, lib_ms=lib_ms, bound=bnd,
-                         err=err, k5_ms=k5_ms, k5_bound=k5_bnd, past=past)
+                         err=err, k5_ms=k5_ms, k5_bound=k5_bnd, past=past, k5_err=k5_err,
+                         k5_plain_ms=k5_plain_ms, k5_lib_ms=k5_lib_ms)
         print(f"  {B} bins (binning {time.perf_counter() - t0:.1f} s; past shared memory: "
               f"{past}): K4 and K5 bitwise node_histogram_fixed (k = 1 and 4); on {card}: K4 "
               f"root {ms:.4f} ms, k=4 {ms4:.4f}, plain {plain_ms:.4f}, index_add_ "
@@ -2654,8 +2673,9 @@ def main() -> int:
 
     # the wide-bin path's histogram launches: counted from here to the end of
     # phase 45 (no launch in between compares a histogram kernel)
-    for name in kernel_histogram.LAUNCHES:
-        kernel_histogram.LAUNCHES[name] = 0
+    for counters in (kernel_histogram.LAUNCHES, kernel_histogram.WIDE_LAUNCHES):
+        for name in counters:
+            counters[name] = 0
     phase(f"43: LambdaMART best@1023, 4 trees at {train_ds.num_queries} + "
           f"{valid_ds.num_queries} queries on {card}, beside phase 6's best@255")
     # K4's int64 sums between CUDA events (its device time a tree)
@@ -2708,11 +2728,13 @@ def main() -> int:
     require(root[0] == root[1], "best@1023: root split differs between card and CPU")
     require(diff <= 1e-3, f"best@1023: train NDCG@10 differs by {diff}")
 
-    phase(f"44: best@4095, bestk@1023, level@1023, oblivious@1023, DART, a warm start and "
-          f"RankBoost at {ds36[0].num_queries} + {ds36[1].num_queries} queries on {card}, "
-          f"each against the CPU on {CPU_QUERIES} queries")
+    phase(f"44: best@4095, best@16383, bestk@1023, level@1023, oblivious@1023, DART, a warm "
+          f"start and RankBoost at {ds36[0].num_queries} + {ds36[1].num_queries} queries on "
+          f"{card}, each against the CPU on {CPU_QUERIES} queries")
     wide44 = {
         "best@4095": (LambdaMart, dict(nleaves=16, nthresholds=4095, seed=1)),
+        # past one block's shared memory: K4 on csrc/histogram_wide.cu
+        "best@16383": (LambdaMart, dict(nleaves=16, nthresholds=16383, seed=1)),
         "bestk@1023": (LambdaMart, dict(nleaves=16, nthresholds=1023, seed=1, growth="bestk")),
         "level@1023": (LambdaMart, dict(nleaves=16, nthresholds=1023, seed=1, growth="level",
                                         max_depth=4)),
@@ -2821,8 +2843,14 @@ def main() -> int:
           f"({s45[1] / s45[0]:.2f}x), 2 ranks {s45[2]:.4f}; collectives a tree (rank 0) 1 rank "
           f"{collectives(grp, PART3_TREES)}, 2 ranks {collectives(pair[0], PART3_TREES)}")
     wide_launches = {k: v + group45_launches[k] for k, v in kernel_histogram.LAUNCHES.items()}
+    # of those, the launches of csrc/histogram_wide.cu (best@16383 takes it;
+    # every group run here has 1,024 bins, the block path)
+    wide_path_launches = dict(kernel_histogram.WIDE_LAUNCHES)
     print(f"  launches on the wide-bin path (phases 43-45, group ranks included): "
-          f"{wide_launches}; qs_score (u16 entry) {wide_qs_launches}")
+          f"{wide_launches}, of them on csrc/histogram_wide.cu {wide_path_launches}; "
+          f"qs_score (u16 entry) {wide_qs_launches}")
+    require(wide_path_launches["node_histogram"] > 0,
+            "no wide-bin run launched csrc/histogram_wide.cu")
     require(all(v > 0 for v in wide_launches.values()) and wide_qs_launches > 0,
             f"a kernel of the wide-bin path was not launched: {wide_launches}, qs_score "
             f"{wide_qs_launches}")
@@ -3104,6 +3132,18 @@ def main() -> int:
             wide42[1024]["plain_ms"], wide42[1024]["bound"], library_ms=wide42[1024]["lib_ms"]),
         row("qs_score_u16", "qs_score.cu", "pallas_qs.py:100", wide_qs_launches, 0.0, k1w_ms,
             k1w_plain_ms, k1w_bound),
+        # the regime past one block's shared memory (phase 42 at 16,384 bins,
+        # on csrc/histogram_wide.cu), K4's root pass and K5 (C = 2, every
+        # row); launches: csrc/histogram_wide.cu's on the wide-bin runs
+        # (phases 43-45: best@16383; K5 has no caller at more than 256 bins)
+        row("node_histogram_u16_tiled", "histogram_wide.cu", "pallas_histogram.py:183",
+            wide_path_launches["node_histogram"], wide42[16384]["err"], wide42[16384]["ms"],
+            wide42[16384]["plain_ms"], wide42[16384]["bound"],
+            library_ms=wide42[16384]["lib_ms"]),
+        row("histogram_u16_tiled", "histogram_wide.cu", "pallas_histogram.py:278",
+            wide_path_launches["histogram"], wide42[16384]["k5_err"], wide42[16384]["k5_ms"],
+            wide42[16384]["k5_plain_ms"], wide42[16384]["k5_bound"],
+            library_ms=wide42[16384]["k5_lib_ms"]),
     ]}
     print(f"  s/tree at {train_ds.num_queries} queries on {card}: best@255 "
           f"{train_runs['best'][1]:.4f}, level@255 {train_runs['level'][1]:.4f}, bestk@255 "

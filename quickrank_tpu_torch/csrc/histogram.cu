@@ -64,12 +64,12 @@
 // bins, u16 up to 65,536, int32 beyond), one id a lane, widened in
 // registers.  Where even one feature's cells do not fit a block of 32
 // threads (C * B * 8 bytes past ~227 KB: more than ~9,600 bins at C = 3),
-// the bin axis is cut into tiles: block (g * tiles + j, i, s) holds the
-// cells of bins [j * tile_bins, (j + 1) * tile_bins) of one feature, runs
-// the same compact and add steps over every doc, and skips an id outside
-// its tile.  Each tile reads the node ids, values and bins again; the sums
-// are integers, so the cells are the bits one block holding every bin
-// would give.
+// histogram_launch takes the wide-bin path of histogram_wide.cu instead: a
+// CTA a tile of one feature's bins whose threads add their own docs
+// straight into its cells (that file's header has the layout, the
+// measurements that chose it and its bound).  Both paths give the same
+// int64 sums; histogram_takes_wide_path tells which one a launch takes.
+// The block kernel's tile arguments are always one tile.
 //
 // The scale is an input.  A launch takes the channels' max-bits words and
 // the doc count n of the scale, writes the int64 accumulator, and
@@ -93,10 +93,10 @@
 // global int64 accumulator with global atomics, and a last pass converts to
 // float32.  A bin id >= num_bins is dropped per element.
 //
-// What bounds it on an H100: per pass it reads the u8 bins of the docs in
-// range (N x W bytes, 410 MB at 2.56M docs x 160 columns, when all are in
-// range: 0.13 ms) and does one or two shared-memory atomics per (doc,
-// feature, channel): 1.2e9 adds, about 2e9 atomics, at 2.56M docs x 160 x
+// What bounds the block path on an H100: per pass it reads the u8 bins of
+// the docs in range (N x W bytes, 410 MB at 2.56M docs x 160 columns, when
+// all are in range: 0.13 ms) and does one or two shared-memory atomics per
+// (doc, feature, channel): 1.2e9 adds, about 2e9 atomics, at 2.56M docs x 160 x
 // 3.  The histograms of 32 features fill an SM's shared memory, so one
 // block of 32 warps is all an SM holds: the kernel is bound by the latency
 // of its bin reads and of its atomics (scripts/profile_torch_kernels.py on
@@ -112,26 +112,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "histogram.cuh"
+
 namespace {
 
 // scripts/profile_torch_kernels.py times other values of the next three
 constexpr int kMaxThreads = 1024;         // threads a block, and docs its list holds
 constexpr int kMaxWaves = 8;              // waves of resident blocks a launch, at most
 constexpr int kMinThreads = 32;
-constexpr int kMaxChannels = 8;
+constexpr int kMaxChannels = qr::kHistMaxChannels;
 constexpr int kDocsInFlight = 4;          // docs a warp reads bins of at a time
 constexpr int kDocsPerThread = 4;         // docs a thread scans a round
-constexpr int kSmemMax = 232448;          // one block's dynamic maximum
 constexpr int kSmemPerSm = 233472;        // shared memory of one SM
 
-__device__ inline int channel_shift(unsigned int maxbits, int64_t n) {
-  const float m = __uint_as_float(maxbits);
-  if (!(m > 0.f) || maxbits >= 0x7f800000u) return 0;  // all zero, or non-finite
-  int e;
-  frexpf(m, &e);                                      // m < 2^e
-  const int nb = 64 - __clzll(static_cast<unsigned long long>(n));  // n < 2^nb
-  return 62 - e - nb;
-}
+using qr::channel_shift;
 
 // cell += v (mod 2^64) for each of one doc's C channels, in shared memory
 // with 32-bit atomics: a 64-bit shared atomicAdd compiles to a
@@ -379,33 +373,22 @@ cudaError_t launch(const BinT* binned, int64_t n, int64_t width, int features,
                    const unsigned int* maxbits, int64_t n_scale,
                    unsigned long long* acc, cudaStream_t stream) {
   if (n > 0xffffffffll) return cudaErrorInvalidValue;  // the list's doc indices
+  // features a block: the most, up to a warp's 32, whose cells fit beside
+  // the doc list of at least 256 threads; the kernel's bin tiles are not
+  // used (tiles = 1): the wide-bin path takes every bin axis past shared
+  // memory
   int log2_fpb = 5;
   int threads = kMaxThreads;
-  int tiles = 1;
-  int tile_bins = num_bins;
-  if (smem_bytes(kMinThreads, 0, num_bins, C) > kSmemMax) {
-    // past shared memory: one feature a block, 256 threads, and the bin
-    // axis cut into the fewest even tiles whose cells fit; a block adds the
-    // ids of its tile and skips the others (integer sums, so the cells are
-    // the same bits as one block's would be)
-    log2_fpb = 0;
-    threads = 256;
-    const size_t room = (kSmemMax - smem_bytes(threads, 0, 0, C)) / 8;  // cell words
-    const int most = static_cast<int>((room - 1) / 32 * 32) / C;        // bins a tile
-    tiles = (num_bins + most - 1) / most;
-    tile_bins = (num_bins + tiles - 1) / tiles;
-  } else {
-    // features a block: the most, up to a warp's 32, whose cells fit beside
-    // the doc list of at least 256 threads
-    while (log2_fpb > 0 && (1 << (log2_fpb - 1)) >= features) --log2_fpb;
-    while (smem_bytes(threads, log2_fpb, num_bins, C) > kSmemMax) {
-      if (threads > 256) threads /= 2;
-      else if (log2_fpb > 0) --log2_fpb, threads = kMaxThreads;
-      else threads /= 2;  // down to kMinThreads, which fits
-    }
-    // several blocks an SM where they fit: 512 threads each
-    if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
+  const int tiles = 1;
+  const int tile_bins = num_bins;
+  while (log2_fpb > 0 && (1 << (log2_fpb - 1)) >= features) --log2_fpb;
+  while (smem_bytes(threads, log2_fpb, num_bins, C) > qr::kHistSmemMax) {
+    if (threads > 256) threads /= 2;
+    else if (log2_fpb > 0) --log2_fpb, threads = kMaxThreads;
+    else threads /= 2;  // down to kMinThreads, which fits
   }
+  // several blocks an SM where they fit: 512 threads each
+  if (smem_bytes(512, log2_fpb, num_bins, C) + 1024 <= kSmemPerSm / 2) threads = 512;
   const size_t smem = smem_bytes(threads, log2_fpb, tile_bins, C);
 
   cudaError_t err = cudaSuccess;  // the caller has cleared acc
@@ -483,6 +466,12 @@ bool bad_shape(int channels, int k, int num_bins, int features, int64_t width) {
          features < 1 || features > width;
 }
 
+// Whether one feature's cells overflow the smallest block, so that only
+// the wide-bin path takes the launch.
+bool past_shared_memory(int num_bins, int channels) {
+  return smem_bytes(kMinThreads, 0, num_bins, channels) > static_cast<size_t>(qr::kHistSmemMax);
+}
+
 }  // namespace
 
 // acc[f, b, i*C + c] = the fixed-point sum over docs d with pos[d] == n0 + i
@@ -492,20 +481,26 @@ bool bad_shape(int channels, int k, int num_bins, int features, int64_t width) {
 // largest |value| bits of channel c) and n_scale (the doc count of the
 // scale).  binned holds bin_bytes-wide ids (1: uint8, 2: uint16, 4: int32).  acc is
 // int64 [features * num_bins * k * C], cleared first; histogram_to_float
-// converts it.  Launches on `stream`; returns the first CUDA error.
+// converts it.  The block path takes the launch, or the wide-bin path
+// (histogram_wide.cu) past one block's shared memory; both give the same
+// bits.  Launches on `stream`; returns the first CUDA error.
 extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
                                 int64_t width, int features, const float* values,
                                 int channels, int64_t stride_c, int64_t stride_n,
                                 const int32_t* pos, int n0, int k, int num_bins,
                                 const unsigned int* maxbits, int64_t n_scale,
                                 unsigned long long* acc, void* stream) {
-  if (bad_shape(channels, k, num_bins, features, width) || n_scale < 0)
+  if (bad_shape(channels, k, num_bins, features, width) || n_scale < 0 || n > 0xffffffffll)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t ncells = static_cast<int64_t>(features) * num_bins * k * channels;
   cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * ncells, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bin_bytes == 1)
+  if (past_shared_memory(num_bins, channels))
+    err = qr::histogram_wide_launch(binned, bin_bytes, n, width, features, values, channels,
+                                    stride_c, stride_n, pos, n0, k, num_bins, maxbits, n_scale,
+                                    acc, s);
+  else if (bin_bytes == 1)
     err = launch_channels(channels, static_cast<const uint8_t*>(binned), n, width, features,
                           values, stride_c, stride_n, pos, n0, k, num_bins, maxbits,
                           n_scale, acc, s);
@@ -520,6 +515,13 @@ extern "C" int histogram_launch(const void* binned, int bin_bytes, int64_t n,
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// 1 where histogram_launch takes the wide-bin path for `channels` channels
+// and `num_bins` bins, else 0: what ops/kernel_histogram.py counts its
+// launches by.
+extern "C" int histogram_takes_wide_path(int channels, int num_bins) {
+  return past_shared_memory(num_bins, channels) ? 1 : 0;
 }
 
 // out[i] = float(double(acc[i]) / scale of channel i % channels), the scale

@@ -31,11 +31,20 @@
 // docs (u8 bin ids against int32 bin thresholds), the form the bin matrix
 // has on the card.
 //
+// Any depth.  Up to depth 12 a tree's tables fit a model tile.  From depth
+// 13 one tree's leaf table alone (2^13 float32) fills kModelTile, so the
+// tiles hold only fid and thr and a thread reads its leaf, wleaf[t, idx],
+// from global memory (kLeafStaged = false): the L2 serves it, since the
+// docs of a block read the same tree's table at once.  The terms and their
+// order are the same, so that path is bitwise the plain version too.  The
+// leaf index is a 32-bit int, so the kernel takes depths 1..31.
+//
 // What bounds it on an H100: the least the card could take is the feature
 // matrix once over HBM (71 MB, 0.02 ms at 131,072 x 136).  The kernel is
 // bound instead by shared-memory loads, about 3 D + 1 a tree and warp, at
-// two blocks (8 warps) an SM.  Later work: depth as a template parameter so
-// fid and thr load as one vector each, and several docs a thread.
+// two blocks (8 warps) an SM; past depth 12 by the leaf reads from L2, one
+// a tree and doc.  Later work: depth as a template parameter so fid and thr
+// load as one vector each, and several docs a thread.
 
 #include <algorithm>
 #include <cstdint>
@@ -46,9 +55,9 @@ namespace {
 constexpr int kThreads = 128;            // docs a block
 constexpr int kModelTile = 32 * 1024;    // model bytes staged at a time
 constexpr int kSmemMax = 232448;         // one block's dynamic maximum
-constexpr int kMaxDepth = 12;            // one tree's tables must fit a tile
+constexpr int kMaxDepth = 31;            // a leaf index is a 32-bit int
 
-template <typename X, typename Th, bool kStaged>
+template <typename X, typename Th, bool kStaged, bool kLeafStaged>
 __global__ void __launch_bounds__(kThreads)
 oblivious_score_kernel(const X* __restrict__ x, int64_t n, int f,
                        const int32_t* __restrict__ fid,
@@ -56,7 +65,7 @@ oblivious_score_kernel(const X* __restrict__ x, int64_t n, int f,
                        const float* __restrict__ wleaf, int trees, int depth,
                        int tile_trees, int pitch, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int leaves = 1 << depth;
+  const int leaves = kLeafStaged ? 1 << depth : 0;  // leaves a staged tree
   int32_t* s_fid = reinterpret_cast<int32_t*>(smem);
   Th* s_thr = reinterpret_cast<Th*>(s_fid + tile_trees * depth);
   float* s_leaf = reinterpret_cast<float*>(s_thr + tile_trees * depth);
@@ -98,18 +107,20 @@ oblivious_score_kernel(const X* __restrict__ x, int64_t n, int f,
           const X v = kStaged ? s_x[tf[d] * pitch + threadIdx.x] : __ldg(row + tf[d]);
           idx = (idx << 1) | (static_cast<Th>(v) > tt[d] ? 1 : 0);
         }
-        acc = __fadd_rn(acc, s_leaf[t * leaves + idx]);
+        acc = __fadd_rn(acc, kLeafStaged
+                                 ? s_leaf[t * leaves + idx]
+                                 : __ldg(wleaf + (static_cast<int64_t>(t0 + t) << depth) + idx));
       }
     }
   }
   if (live) out[doc] = acc;
 }
 
-template <typename X, typename Th, bool kStaged>
+template <typename X, typename Th, bool kStaged, bool kLeafStaged>
 int launch_kernel(const X* x, int64_t n, int f, const int32_t* fid, const Th* thr,
                   const float* wleaf, int trees, int depth, int tile_trees,
                   int pitch, size_t smem, float* out, cudaStream_t stream) {
-  auto kernel = oblivious_score_kernel<X, Th, kStaged>;
+  auto kernel = oblivious_score_kernel<X, Th, kStaged, kLeafStaged>;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -121,26 +132,42 @@ int launch_kernel(const X* x, int64_t n, int f, const int32_t* fid, const Th* th
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename X, typename Th>
-int launch(const void* x, int64_t n, int64_t f, const int32_t* fid,
-           const void* thr, const float* wleaf, int trees, int depth,
-           float* out, cudaStream_t stream) {
-  const int per_tree = depth * 8 + (1 << depth) * 4;
-  const int tile_trees = std::max(1, std::min(trees, kModelTile / per_tree));
-  const size_t model = static_cast<size_t>(tile_trees) * per_tree;
+template <typename X, typename Th, bool kLeafStaged>
+int launch_rows(const X* x, int64_t n, int64_t f, const int32_t* fid, const Th* thr,
+                const float* wleaf, int trees, int depth, int tile_trees, size_t model,
+                float* out, cudaStream_t stream) {
   // rows padded by one 32-bit word: the transposing writes of neighbouring
   // features then fall into neighbouring banks
   const int pitch = kThreads + 4 / static_cast<int>(sizeof(X));
   const size_t staged = model + static_cast<size_t>(f) * pitch * sizeof(X);
-  const X* xs = static_cast<const X*>(x);
-  const Th* th = static_cast<const Th*>(thr);
   const int fi = static_cast<int>(f);
   if (staged <= static_cast<size_t>(kSmemMax)) {
-    return launch_kernel<X, Th, true>(xs, n, fi, fid, th, wleaf, trees, depth,
-                                      tile_trees, pitch, staged, out, stream);
+    return launch_kernel<X, Th, true, kLeafStaged>(x, n, fi, fid, thr, wleaf, trees, depth,
+                                                   tile_trees, pitch, staged, out, stream);
   }
-  return launch_kernel<X, Th, false>(xs, n, fi, fid, th, wleaf, trees, depth,
-                                     tile_trees, pitch, model, out, stream);
+  return launch_kernel<X, Th, false, kLeafStaged>(x, n, fi, fid, thr, wleaf, trees, depth,
+                                                  tile_trees, pitch, model, out, stream);
+}
+
+template <typename X, typename Th>
+int launch(const void* x, int64_t n, int64_t f, const int32_t* fid,
+           const void* thr, const float* wleaf, int trees, int depth,
+           float* out, cudaStream_t stream) {
+  // a tile holds whole trees' tables; past depth 12 only their fid and thr
+  const int64_t per_tree = depth * 8 + (int64_t{4} << depth);
+  const bool leaf_staged = per_tree <= kModelTile;
+  const int64_t staged_tree = leaf_staged ? per_tree : depth * 8;
+  const int tile_trees =
+      static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(trees, kModelTile / staged_tree)));
+  const size_t model = static_cast<size_t>(tile_trees) * staged_tree;
+  const X* xs = static_cast<const X*>(x);
+  const Th* th = static_cast<const Th*>(thr);
+  if (leaf_staged) {
+    return launch_rows<X, Th, true>(xs, n, f, fid, th, wleaf, trees, depth, tile_trees, model,
+                                    out, stream);
+  }
+  return launch_rows<X, Th, false>(xs, n, f, fid, th, wleaf, trees, depth, tile_trees, model,
+                                   out, stream);
 }
 
 }  // namespace
@@ -148,7 +175,7 @@ int launch(const void* x, int64_t n, int64_t f, const int32_t* fid,
 // x_kind: 0 = float32 features against float32 thresholds; 1 = uint8 bin
 // ids against int32 bin thresholds.  Launches on `stream`;
 // returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for an
-// unknown x_kind, a depth outside [1, 12] or more than 2^31 - 1 features.
+// unknown x_kind, a depth outside [1, 31] or more than 2^31 - 1 features.
 extern "C" int oblivious_score(const void* x, int x_kind, int64_t n, int64_t f,
                                const int32_t* fid, const void* thr,
                                const float* wleaf, int trees, int depth,

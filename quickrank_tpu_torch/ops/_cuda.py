@@ -53,6 +53,8 @@ SIGNATURES = {
     # stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,
                          _I, _I, _P, _I64, _P, _P],
+    # channels, num_bins: 1 where histogram_launch takes the wide-bin path
+    "histogram_takes_wide_path": [_I, _I],
     # acc, ncells, channels, maxbits, n_scale, out, stream
     "histogram_to_float": [_P, _I64, _I, _P, _I64, _P, _P],
     # data, n, width, mode, dsta, dstb, stamp_z, stamp_o, fstar, tstar,

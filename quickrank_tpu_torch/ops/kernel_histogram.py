@@ -24,13 +24,17 @@ The plain version of the split is :func:`node_histogram_fixed_int` and
 :func:`fixed_to_float`.
 
 Bin ids come on the training wire (uint8 up to 256 bins, uint16 up to
-65,536, int32 beyond) and the sums do not depend on its width.  Where one
-feature's ``C * B`` cells do not fit a block's shared memory
-(:func:`past_shared_memory`), the kernel cuts the bin axis into tiles, one
-block a tile, with the same bits.
+65,536, int32 beyond) and the sums do not depend on its width.  A launch
+takes one of the paths of ``csrc/histogram.cu``, with the same bits: the
+block path holds whole bin axes of up to 32 features in one block's shared
+memory; past it (:func:`past_shared_memory`) the wide-bin path
+(``csrc/histogram_wide.cu``, :func:`wide_plan`) gives a CTA a tile of one
+feature's bins.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -45,30 +49,54 @@ from quickrank_tpu_torch.ops.histogram import (
 #: conversion); a run that must show its path went through the kernels
 #: sets them to 0 first and reads them after
 LAUNCHES = {"node_histogram": 0, "histogram": 0, "histogram_to_float": 0}
+#: of those K4 and K5 launches, the ones that took the wide-bin path
+#: (``csrc/histogram.cu::histogram_takes_wide_path``)
+WIDE_LAUNCHES = {"node_histogram": 0, "histogram": 0}
 
 #: most channels a kernel launch takes
 MAX_CHANNELS = 8
-#: shared memory one block may use; past it the kernel tiles the bin axis
-#: (:func:`past_shared_memory`)
+#: shared memory one block may use
 SMEM_MAX = _cuda.SMEM_MAX
 #: dtypes of the bin wire
 BIN_DTYPES = (torch.uint8, torch.uint16, torch.int32)
 
 
 def min_shared_bytes(channels: int, num_bins: int) -> int:
-    """Shared memory the kernel's smallest block takes (``csrc/histogram.cu``
-    ``smem_bytes``: one feature, a list of 32 docs): the cells as two 32-bit
-    halves, ``C * B`` words each rounded up to 1 mod 32, the list of doc
-    indices and fixed-point values, the scales and the warps' counts."""
+    """Shared memory the block path's smallest block takes
+    (``csrc/histogram.cu`` ``smem_bytes``: one feature, a list of 32 docs):
+    the cells as two 32-bit halves, ``C * B`` words each rounded up to 1
+    mod 32, the list of doc indices and fixed-point values, the scales and
+    the warps' counts."""
     stride = (num_bins * channels + 30) // 32 * 32 + 1
     return 32 * (8 * channels + 4) + 8 * MAX_CHANNELS + 8 * stride + 256
 
 
 def past_shared_memory(channels: int, num_bins: int) -> bool:
     """Whether one feature's cells overflow the smallest block's shared
-    memory, so that the kernel tiles the bin axis (``csrc/histogram.cu``):
-    more than about 9,600 bins at C = 3."""
+    memory, so that a launch takes the wide-bin path (``csrc/histogram.cu``
+    asks the same of ``smem_bytes``): from 9,633 bins at C = 3."""
     return min_shared_bytes(channels, num_bins) > SMEM_MAX
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How the wide-bin path lays out a launch (``csrc/histogram_wide.cu::
+    wide_plan``): a CTA holds one feature's bins ``[j * tile_bins, (j + 1) *
+    tile_bins)``, tile j of ``tiles``, in ``smem`` bytes of shared memory."""
+
+    tiles: int
+    tile_bins: int
+    smem: int
+
+
+def wide_plan(channels: int, num_bins: int) -> WidePlan:
+    """The wide-bin path's plan, as the kernel computes it: the fewest even
+    tiles whose cells (two 32-bit words a bin and channel) fit one CTA's
+    shared memory beside the scales."""
+    most = (SMEM_MAX - 8 * MAX_CHANNELS) // (8 * channels)
+    tiles = -(-num_bins // most)
+    tile_bins = -(-num_bins // tiles)
+    return WidePlan(tiles, tile_bins, 8 * MAX_CHANNELS + 8 * tile_bins * channels)
 
 
 def _check(name, binned, values, num_bins, channels):
@@ -124,7 +152,8 @@ def _launch(name, binned, values, stride_c, stride_n, pos, n0, k, num_bins, feat
     dev = binned.device
     N, W = binned.shape
     acc = torch.empty((features, num_bins, k * channels), dtype=torch.int64, device=dev)
-    rc = _cuda.library().histogram_launch(
+    lib = _cuda.library()
+    rc = lib.histogram_launch(
         binned.data_ptr(), binned.element_size(), N, W, features,
         values.data_ptr(), channels, stride_c, stride_n,
         pos.data_ptr() if pos is not None else None, n0, k, num_bins,
@@ -133,6 +162,8 @@ def _launch(name, binned, values, stride_c, stride_n, pos, n0, k, num_bins, feat
     )
     _cuda.check(rc, name)
     LAUNCHES[name] += 1
+    if lib.histogram_takes_wide_path(channels, num_bins):
+        WIDE_LAUNCHES[name] += 1
     return acc
 
 

@@ -4,7 +4,8 @@ and its plain version (``ops/oblivious.py``).
 Replaces quickrank_tpu/ops/pallas_oblivious.py::score_oblivious_pallas: the
 same plain float32 sum of ``wleaf[t, leafidx]`` over the trees.  Kernel and
 plain version add the same float32 terms in tree order, so they are bitwise
-equal on the card.
+equal on the card, at any depth: past depth 12 the kernel reads the leaf
+tables from global memory instead of staging them.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from quickrank_tpu_torch.trees.oblivious import ObliviousEnsemble
 #: through the kernel sets it to 0 first and reads it after
 LAUNCHES = 0
 
-#: deepest tree the kernel takes: one tree's tables must fit a staged tile
-MAX_DEPTH = 12
+#: deepest tree the kernel takes: its leaf index is a 32-bit int (a tree of
+#: depth 31 holds 2^31 leaves, 8 GB of float32)
+MAX_DEPTH = 31
 
 #: feature dtype -> the kernel's x_kind; uint8 holds bin ids (up to 256
 #: bins; the bin-space entry takes no wider ids, and has no caller)
@@ -65,7 +67,8 @@ def score_oblivious(features: torch.Tensor, ens: ObliviousEnsemble) -> torch.Ten
         )
     if not 1 <= ens.depth <= MAX_DEPTH:
         raise ValueError(
-            f"score_oblivious: depth {ens.depth}, the kernel takes 1..{MAX_DEPTH}"
+            f"score_oblivious: depth {ens.depth}, the kernel takes 1..{MAX_DEPTH} "
+            "(its leaf index is a 32-bit int)"
         )
     N, F = features.shape
     out = torch.empty(N, dtype=torch.float32, device=features.device)

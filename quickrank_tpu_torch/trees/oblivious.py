@@ -249,8 +249,8 @@ def oblivious_to_tree(fid: torch.Tensor, thr: torch.Tensor,
     idx = torch.arange(max_nodes, device=dev)
     internal = idx < n_internal
     # heap layout: node i sits at depth floor(log2(i + 1))
-    lvl = torch.tensor([min((i + 1).bit_length() - 1, D - 1) for i in range(max_nodes)],
-                       device=dev)
+    powers = 2 ** torch.arange(D + 1, device=dev)
+    lvl = (torch.searchsorted(powers, idx + 1, right=True) - 1).clamp(max=D - 1)
     return Tree(
         feature=torch.where(internal, fid[lvl], -1).to(torch.int32),
         threshold=torch.where(internal, thr[lvl], 0.0).to(torch.float32),

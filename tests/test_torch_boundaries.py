@@ -236,12 +236,16 @@ def _oblivious(T, D, F, seed, dead_tree=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,T,D,F", [(1, 30, 4, 24), (257, 30, 4, 24), (1000, 1, 4, 24),
                                      (1000, 30, 1, 24), (1000, 100, 8, 24),
-                                     (300, 7, 12, 24), (300, 30, 4, 700)])
+                                     (300, 7, 12, 24), (300, 30, 4, 700),
+                                     (300, 5, 13, 24), (300, 3, 14, 24),
+                                     (1000, 320, 13, 24), (300, 4, 13, 700)])
 def test_oblivious_kernel_matches_plain_on_card(cuda_device, N, T, D, F):
     """K3 bitwise against its plain version: one doc, one past two blocks,
     one tree, depth 1, depth 8 (several tiles of trees), depth 12 (one tree
     a tile), rows too wide to stage in shared memory, with an all-dead tree
-    where there is room for one."""
+    where there is room for one; and past depth 12, where the leaf tables
+    are read from global memory: depths 13 and 14, two tiles of levels
+    (320 trees; a tile holds 315 at depth 13), and unstaged rows."""
     ens = _oblivious(T, D, F, seed=N + T + D, dead_tree=1 if T > 1 else None)
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((N, F), dtype=np.float32))
     before = kernel_oblivious.LAUNCHES
@@ -254,8 +258,9 @@ def test_oblivious_kernel_matches_plain_on_card(cuda_device, N, T, D, F):
 
 
 @pytest.mark.gpu
-def test_oblivious_kernel_scores_bins_on_card(cuda_device):
-    ens = _oblivious(40, 4, 24, seed=3, dead_tree=2)
+@pytest.mark.parametrize("depth", [4, 14])
+def test_oblivious_kernel_scores_bins_on_card(cuda_device, depth):
+    ens = _oblivious(40, depth, 24, seed=3, dead_tree=2)
     bins = torch.from_numpy(np.random.default_rng(1).integers(0, 256, size=(999, 24))).to(
         torch.uint8)
     got = kernel_oblivious.score_oblivious(bins.to(cuda_device), ens.to(cuda_device))
@@ -280,14 +285,23 @@ def test_oblivious_kernel_threshold_equality_on_card(cuda_device):
 @pytest.mark.parametrize("bad", ["contiguous", "dtype", "int32-bins", "cpu-model", "deep"])
 def test_oblivious_kernel_refuses_on_card(cuda_device, bad):
     """What the kernel does not take raises; nothing falls to the plain
-    version."""
-    ens = _oblivious(3, 13 if bad == "deep" else 2, 8, seed=1)
+    version.  "deep": depth 32, past the kernel's 32-bit leaf index (its
+    2^32-leaf table a broadcast view, so nothing is allocated)."""
+    ens = _oblivious(3, 2, 8, seed=1)
+    ens = ens if bad == "cpu-model" else ens.to(cuda_device)
+    if bad == "deep":
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=cuda_device)
+        ens = ObliviousEnsemble(fid=zeros(3, 32, dtype=torch.int32), thr=zeros(3, 32),
+                                thr_bin=zeros(3, 32, dtype=torch.int32),
+                                leaf=zeros(1, 1).expand(3, 2 ** 32), weight=zeros(3),
+                                num_trees=3)
     X = torch.zeros((16, 8), device=cuda_device)
     X = {"contiguous": torch.zeros((8, 16), device=cuda_device).T, "dtype": X.double(),
          "int32-bins": X.int(), "cpu-model": X, "deep": X}[bad]
     before = kernel_oblivious.LAUNCHES
-    with pytest.raises(ValueError):
-        kernel_oblivious.score_oblivious(X, ens if bad == "cpu-model" else ens.to(cuda_device))
+    with pytest.raises(ValueError, match="depth 32" if bad == "deep" else ""):
+        kernel_oblivious.score_oblivious(X, ens)
     assert kernel_oblivious.LAUNCHES == before
 
 
@@ -363,8 +377,8 @@ def test_node_histogram_kernel_edges_on_card(cuda_device, case):
     [n0, n0 + k), fewer features than columns with payload bytes in the pad
     columns, a width that is no multiple of 16, int32 bin ids (with ids below
     0 and above num_bins, dropped), an empty matrix, and C * B at the most one
-    block's shared memory holds (32 bins more take the tiled path, with the
-    same bits as the reference)."""
+    block's shared memory holds (32 bins more take the wide-bin path, with
+    the same bits as the reference)."""
     W = 37 if case == "W % 16 != 0" else 40
     binned, vt, pos = _histogram_inputs(W=W)
     num_bins, n0, k, f_used = 256, 0, 4, 0
@@ -817,7 +831,7 @@ def _u16(ids: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("k", [1, 4])
 def test_histogram_kernels_on_the_u16_wire(cuda_device, num_bins, k):
     """K4 and K5 on u16 bin ids at 1,024 and 4,096 bins and past one block's
-    shared memory (16,384 bins at C = 3: the tiled path), bit for bit their
+    shared memory (16,384 bins at C = 3: the wide-bin path), bit for bit their
     fixed-point reference; ids past num_bins are dropped."""
     g = torch.Generator(device="cpu").manual_seed(num_bins + k)
     N, W = 3001, 40
@@ -835,6 +849,109 @@ def test_histogram_kernels_on_the_u16_wire(cuda_device, num_bins, k):
     assert torch.equal(k5, kernel_histogram.node_histogram_fixed(
         binned, vals.T.contiguous(), None, num_bins, 0, 1))
     assert bool(got[..., 0].sum() > 0)
+
+
+def _wide_inputs(num_bins, C, k, seed, N=3 * 4096 + 37, W=7):
+    """int32 ids in [0, num_bins + 8) (the last 8 dropped), C channel-major
+    values (channel 0 a 0/1 count), node ids in [0, k] (slot k in no pass)
+    for N docs, no multiple of a batch of a CTA's threads."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ids = torch.randint(0, num_bins + 8, (N, W), generator=g, dtype=torch.int32)
+    vt = torch.randn((C, N), generator=g)
+    vt[0] = (vt[0] > -1).float()
+    pos = torch.randint(0, k + 1, (N,), generator=g, dtype=torch.int32)
+    return ids, vt, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", [1024, 4096, 16384, 65536])
+@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 4])
+def test_wide_path_equals_fixed_reference(cuda_device, num_bins, C, k):
+    """K4 and K5 at 1,024 to 65,536 bins, on the path each launch takes (the
+    wide-bin path, ``csrc/histogram_wide.cu``, where ``past_shared_memory``:
+    C = 2 and 3 from 16,384 bins, C = 1 at 65,536), bit for bit
+    ``node_histogram_fixed_int``, on u16 ids and on the same ids as int32
+    (ids past num_bins dropped), N no multiple of a batch; the wide-bin
+    launches counted exactly there."""
+    ids, vt, pos = (t.to(cuda_device) for t in _wide_inputs(num_bins, C, k, num_bins + C + k))
+    N = ids.shape[0]
+    bits = kernel_histogram.channel_max_bits(vt)
+    before = dict(kernel_histogram.WIDE_LAUNCHES)
+    for wire in (_u16(ids.clamp(max=65535)), ids):
+        want = kernel_histogram.node_histogram_fixed_int(wire, vt, pos, num_bins, 0, k, bits, N)
+        want5 = kernel_histogram.node_histogram_fixed_int(wire, vt, None, num_bins, 0, 1, bits, N)
+        got = kernel_histogram.node_histogram_int(wire, vt, pos, num_bins, 0, k, bits, N)
+        assert torch.equal(got, want)
+        got5 = kernel_histogram.histogram_int(wire, vt.T.contiguous(), num_bins, bits, N)
+        assert torch.equal(got5, want5)
+        assert bool((want[..., 0] > 0).any())
+    wide = 2 if kernel_histogram.past_shared_memory(C, num_bins) else 0
+    assert wide == (2 if num_bins == 65536 or (num_bins == 16384 and C > 1) else 0)
+    assert kernel_histogram.WIDE_LAUNCHES == {
+        "node_histogram": before["node_histogram"] + wide, "histogram": before["histogram"] + wide}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one bin", "one bin of the last tile", "n0 > 0, f_used",
+                                  "block path, same bits", "no docs", "switch point"])
+def test_wide_path_edges_on_card(cuda_device, case):
+    """The wide-bin path at its edges, bit for bit its reference: every doc
+    in one bin (the worst case for same-address atomics) in the first and in
+    the last tile of 16,384 bins, node slots from n0 > 0 with f_used < W,
+    the block path's bits at 2,048 bins, an empty matrix; and the switch
+    point at C = 3, 9,632 bins on the block path and 9,633 on the wide-bin
+    path, each launch counted on its path."""
+    num_bins, C, k, n0, f_used = 16384, 3, 1, 0, 0
+    ids, vt, pos = _wide_inputs(num_bins, C, k, seed=7, N=20011, W=40)
+    if case == "one bin":
+        ids[:] = 3
+    elif case == "one bin of the last tile":
+        ids[:] = num_bins - 2
+    elif case == "n0 > 0, f_used":
+        k, n0, f_used = 3, 2, ids.shape[1] - 2
+        pos = torch.randint(0, 6, pos.shape, dtype=torch.int32)
+    elif case == "block path, same bits":
+        num_bins = 2048
+        ids = ids % 2052
+    elif case == "no docs":
+        ids, vt, pos = ids[:0], vt[:, :0].contiguous(), pos[:0]
+    ids, vt, pos = ids.to(cuda_device), vt.to(cuda_device), pos.to(cuda_device)
+    N = max(ids.shape[0], 1)
+    bits = kernel_histogram.channel_max_bits(vt)
+    sizes = (9632, 9633) if case == "switch point" else (num_bins,)
+    for num_bins in sizes:
+        wire = _u16(ids % (num_bins + 4))
+        want = kernel_histogram.node_histogram_fixed_int(wire, vt, pos, num_bins, n0, k, bits,
+                                                         N, f_used)
+        before = kernel_histogram.WIDE_LAUNCHES["node_histogram"]
+        got = kernel_histogram.node_histogram_int(wire, vt, pos, num_bins, n0, k, bits, N,
+                                                  f_used)
+        assert torch.equal(got, want), num_bins
+        wide = kernel_histogram.WIDE_LAUNCHES["node_histogram"] - before
+        assert wide == (0 if num_bins in (2048, 9632) else 1), num_bins
+    if case.startswith("one bin"):
+        b = int(ids[0, 0])
+        assert bool(want[:, b].any()) and not bool(want[:, :b].any()) and not bool(
+            want[:, b + 1:].any())
+    if case == "no docs":
+        assert not want.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", range(1, 9))
+def test_wide_path_switch_point_matches_the_c_plan(cuda_device, C):
+    """The launch's own choice of path (``histogram_takes_wide_path``, which
+    the launch counts follow) against the Python mirror
+    ``past_shared_memory`` on either side of its switch point, and at the
+    bin counts the wide-bin shapes use."""
+    lib = _cuda.library()
+    first = next(b for b in range(257, 1 << 17) if kernel_histogram.past_shared_memory(C, b))
+    for b in (256, first - 1, first, 16384, 65536):
+        assert bool(lib.histogram_takes_wide_path(C, b)) == kernel_histogram.past_shared_memory(
+            C, b), b
+    assert not lib.histogram_takes_wide_path(C, first - 1) and lib.histogram_takes_wide_path(
+        C, first)
 
 
 @pytest.mark.gpu

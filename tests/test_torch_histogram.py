@@ -272,12 +272,50 @@ def test_node_histogram_fixed_special_values(what):
 
 
 def test_wrapper_shared_memory_limit():
-    """Where the kernel's smallest block cannot hold one feature's C * B
-    cells, the kernel tiles the bin axis (``past_shared_memory``): not at
-    256 bins, from about 9,600 bins at C = 3."""
+    """Where the block path's smallest block cannot hold one feature's C * B
+    cells, a launch takes the wide-bin path (``past_shared_memory``): not at
+    256 bins, from 9,633 bins at C = 3."""
     assert kernel_histogram.min_shared_bytes(3, 256) < kernel_histogram.SMEM_MAX
     assert kernel_histogram.min_shared_bytes(8, 256) < kernel_histogram.SMEM_MAX
     assert kernel_histogram.min_shared_bytes(1, 1 << 15) > kernel_histogram.SMEM_MAX
     assert not kernel_histogram.past_shared_memory(3, 4096)
     assert kernel_histogram.past_shared_memory(3, 16384)
     assert kernel_histogram.past_shared_memory(1, 1 << 15)
+    past = [b for b in range(9000, 10000) if kernel_histogram.past_shared_memory(3, b)]
+    assert past == list(range(9633, 10000))  # C = 3: from 9,633 bins
+
+
+@pytest.mark.parametrize("C", range(1, 9))
+def test_wide_plan_tiles_every_bin_once(C):
+    """The wide-bin path's plan (``wide_plan``, the kernel's own
+    arithmetic) at every bin count from 257 to 65,536: the fewest even
+    tiles whose cells fit one CTA, every bin of a feature in exactly one
+    tile (so every (feature, bin) cell in exactly one CTA a node slot), no
+    CTA past ``SMEM_MAX``."""
+    smem_max = kernel_histogram.SMEM_MAX
+    per_bin = 8 * C  # two 32-bit words a bin and channel
+    for num_bins in range(257, 65537):
+        p = kernel_histogram.wide_plan(C, num_bins)
+        assert p.smem == 64 + per_bin * p.tile_bins <= smem_max
+        assert p.tiles * p.tile_bins >= num_bins > (p.tiles - 1) * p.tile_bins
+        # fewer tiles would not fit: the tile of ceil(B / (tiles - 1)) bins
+        if p.tiles > 1:
+            assert 64 + per_bin * -(-num_bins // (p.tiles - 1)) > smem_max
+    for num_bins in (257, 9973, 16384, 65536):
+        p = kernel_histogram.wide_plan(C, num_bins)
+        tile = np.arange(num_bins) // p.tile_bins
+        assert np.bincount(tile, minlength=p.tiles).max() <= p.tile_bins
+        assert tile.max() == p.tiles - 1
+
+
+def test_wide_plan_of_the_wide_bin_shapes():
+    """The plans the wide-bin training shapes take: at 16,384 bins 2 tiles
+    of 8,192 (C = 3, K4; C = 2, K5), at 4,096 bins one tile, at 65,536 bins
+    7 tiles (C = 3) and 5 (C = 2)."""
+    def plan(C, B):
+        p = kernel_histogram.wide_plan(C, B)
+        return p.tiles, p.tile_bins
+
+    assert plan(3, 16384) == (2, 8192) and plan(2, 16384) == (2, 8192)
+    assert plan(3, 4096) == (1, 4096) and plan(3, 29046) == (3, 9682)
+    assert plan(3, 65536) == (7, 9363) and plan(2, 65536) == (5, 13108)

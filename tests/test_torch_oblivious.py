@@ -107,6 +107,35 @@ def test_score_oblivious_matches_jax(T, D, F, N, dead, live):
     assert kernel_oblivious.LAUNCHES == before
 
 
+@pytest.mark.parametrize("D", [13, 14])
+def test_deep_models_match_jax_oblivious_scorer(D):
+    """Depths past 12 (the card's kernel reads such leaf tables from global
+    memory): the port's wrapper on the CPU, its plain path, against the JAX
+    learner's scorer off the TPU (``obliviousmart._oblivious_scorer``) on
+    the same numpy draws.  Scores within ``1e-5 * max(1, max|ref|)`` (JAX
+    sums through a one-hot matmul), and leaf indices exactly: each tree
+    alone with ``leaf[l] = l`` and weight 1 scores its own index."""
+    from quickrank_tpu.learning.obliviousmart import _oblivious_scorer
+
+    T, F, N = 4, 20, 300
+    d = _tables(T, D, F, seed=D, dead=True)
+    X = np.random.default_rng(D).normal(size=(N, F)).astype(np.float32)
+    jax_score = _oblivious_scorer(0)
+    got = kernel_oblivious.score_oblivious(torch.from_numpy(X),
+                                           obl.ObliviousEnsemble.from_numpy(d)).numpy()
+    ref = np.asarray(jax_score(jnp.asarray(X), _jax_ens(d)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+    want = _ref_index(X, d)
+    for t in range(T):
+        one = dict(fid=d["fid"][t:t + 1], thr=d["thr"][t:t + 1], thr_bin=d["thr_bin"][t:t + 1],
+                   leaf=np.arange(2 ** D, dtype=np.float32)[None], weight=np.ones(1, np.float32),
+                   num_trees=1)
+        port = kernel_oblivious.score_oblivious(torch.from_numpy(X),
+                                                obl.ObliviousEnsemble.from_numpy(one)).numpy()
+        np.testing.assert_array_equal(port, want[:, t].astype(np.float32))
+        np.testing.assert_array_equal(np.asarray(jax_score(jnp.asarray(X), _jax_ens(one))), port)
+
+
 def test_leaf_indices_equal_jax_exactly():
     """Leaf tables that encode the index (leaf[t, l] = l * 16^t, weight 1)
     make each scorer's sum spell out its leaf indices: exact in float32."""
