@@ -18,7 +18,7 @@ trained on it with both growers (the carried scores held against the saved
 model's kernel scores), and a short run on the card held against the same
 run on the CPU.  The oblivious path (phases 8-12): the bit-OR scoring kernel
 at 131,072 x 136 (1000 trees of depth 4 and other shapes, value and bin
-space), ObliviousLambdaMART trained on the 19,000 queries, saved and served
+space, each with the design its launch took), ObliviousLambdaMART trained on the 19,000 queries, saved and served
 through ``quickscore.main``, best-k growth beside best-first, a warm start
 whose rescore rides the QuickScorer kernel on the bin matrix, and the
 oblivious learner on the card against the CPU.  The node-clustered grower
@@ -168,6 +168,41 @@ int main(void) {
 OBLIVIOUS_CASES = [(1000, 4, N_DOCS, N_FEATURES), (200, 6, N_DOCS, N_FEATURES),
                    (37, 3, 100003, N_FEATURES), (64, 4, 8192, 700),
                    (1000, 13, 32768, N_FEATURES), (200, 14, 32768, N_FEATURES)]
+#: the u8 bin-space scoring shape: trees, depth, docs, features
+OBLIVIOUS_BINS_CASE = (1000, 4, N_DOCS, N_FEATURES)
+
+
+def oblivious_inputs(T, depth, n_docs, n_feat):
+    """(features f32 [n_docs, n_feat], ObliviousEnsemble) of an
+    OBLIVIOUS_CASES shape, on the host; at depth 3 with dead levels: the
+    last level of every other tree, and tree 1 whole."""
+    from quickrank_tpu_torch.trees.oblivious import FLT_MAX
+    from quickrank_tpu_torch.trees.random_ensemble import random_oblivious_ensemble
+
+    feats, obl = random_oblivious_ensemble(T, depth, n_feat, seed=0, num_docs=n_docs)
+    if depth == 3:
+        obl.thr[::2, -1] = FLT_MAX
+        obl.thr[1] = FLT_MAX
+    return feats, obl
+
+
+def oblivious_bins_inputs():
+    """(u8 bin ids [N_DOCS, N_FEATURES], ObliviousEnsemble) of
+    OBLIVIOUS_BINS_CASE, on the host: bins uniform in [0, 256), bin
+    thresholds in [0, 255), the tables of OBLIVIOUS_CASES' first shape."""
+    import numpy as np
+    import torch
+
+    from quickrank_tpu_torch.trees.random_ensemble import random_oblivious_ensemble
+
+    T, depth, n_docs, n_feat = OBLIVIOUS_BINS_CASE
+    rng8 = np.random.default_rng(8)
+    bins = torch.from_numpy(rng8.integers(0, 256, size=(n_docs, n_feat), dtype=np.uint8))
+    _, obl = random_oblivious_ensemble(T, depth, n_feat, seed=0, num_docs=1)
+    obl.thr_bin = torch.from_numpy(rng8.integers(0, 255, size=(T, depth)).astype(np.int32))
+    return bins, obl
+
+
 #: published peaks of one H100 SXM: HBM bytes/s, float32 operations/s
 #: outside the tensor cores (integer compares and mask ANDs count at it too)
 HBM_BYTES_PER_S = 3.35e12
@@ -315,7 +350,6 @@ def main() -> int:
     from quickrank_tpu_torch.trees.random_ensemble import (
         random_balanced_ensemble,
         random_bestfirst_ensemble,
-        random_oblivious_ensemble,
     )
 
     # exact float32 products in every plain-version matmul
@@ -822,7 +856,7 @@ def main() -> int:
     # -- phase 8: the oblivious bit-OR kernel against its plain version ----
     phase("8: oblivious_score against the plain version and the CPU descent")
     from quickrank_tpu_torch.ops import oblivious as plain_oblivious
-    from quickrank_tpu_torch.trees.oblivious import FLT_MAX, oblivious_to_tree
+    from quickrank_tpu_torch.trees.oblivious import oblivious_to_tree
     from quickrank_tpu_torch.trees.structs import EnsembleTensors
 
     def descent_of_oblivious(obl, feats):
@@ -834,14 +868,17 @@ def main() -> int:
                      float(obl.weight[t]))
         return score_ensemble(feats[:N_CHECK], ens, max_depth=obl.depth + 1).numpy()
 
+    def design_text(feats, obl):
+        dz = kernel_oblivious.design(feats, obl)
+        return (f"depth {'a template parameter' if dz['depth_path'] == 'template' else 'a runtime loop'}"
+                f", rows {dz['rows']}, {dz['trees_in_flight']} trees in flight, "
+                f"{dz['docs_per_thread']} docs a thread, {dz['docs_per_block']} a block")
+
     obl_err = 0.0
     obl_times = {}
     obl_bound = None
     for T, depth, n_docs, n_feat in OBLIVIOUS_CASES:
-        feats, obl = random_oblivious_ensemble(T, depth, n_feat, seed=0, num_docs=n_docs)
-        if depth == 3:  # dead levels: the last level of every other tree, and tree 1
-            obl.thr[::2, -1] = FLT_MAX
-            obl.thr[1] = FLT_MAX
+        feats, obl = oblivious_inputs(T, depth, n_docs, n_feat)
         Xo, obl_dev = torch.from_numpy(feats).to(dev), obl.to(dev)
         got = kernel_oblivious.score_oblivious(Xo, obl_dev)
         plain = plain_oblivious.score_oblivious(Xo, obl_dev)
@@ -863,20 +900,21 @@ def main() -> int:
         bound = bound_ms(nbytes_of(Xo, obl_dev.fid, obl_dev.thr, obl_dev.leaf) + n_docs * 4,
                          n_docs * T * (depth + 1))  # a compare a level, one add
         obl_bound = obl_bound or bound
-        print(f"    kernel {k:.4f} ms ({n_docs / k * 1e3:.4g} docs/s), plain {p:.4f} ms, "
-              f"bound {bound[0]:.4f} ms by {bound[1]}")
+        print(f"    {design_text(Xo, obl_dev)}: kernel {k:.4f} ms ({n_docs / k * 1e3:.4g} "
+              f"docs/s), plain {p:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
     # bin space on u8: thresholds are bin ids, routing is bin > thr_bin
-    rng8 = np.random.default_rng(8)
-    bins = torch.from_numpy(rng8.integers(0, 256, size=(N_DOCS, N_FEATURES), dtype=np.uint8))
-    _, obl = random_oblivious_ensemble(1000, 4, N_FEATURES, seed=0, num_docs=1)
-    obl.thr_bin = torch.from_numpy(rng8.integers(0, 255, size=(1000, 4)).astype(np.int32))
+    bins, obl = oblivious_bins_inputs()
     bins_dev, obl_dev = bins.to(dev), obl.to(dev)
     got = kernel_oblivious.score_oblivious(bins_dev, obl_dev)
     plain = plain_oblivious.score_oblivious_binned(bins_dev, obl_dev)
     require(torch.equal(got, plain), "oblivious bin space: kernel and plain version differ")
     k = time_ms(lambda: kernel_oblivious.score_oblivious(bins_dev, obl_dev), reps=20)
-    print(f"  oblivious 1000xd4 on u8 bins: bitwise equal to the plain version; kernel "
-          f"{k:.4f} ms")
+    bins_T, bins_depth, bins_docs, _ = OBLIVIOUS_BINS_CASE
+    bound = bound_ms(nbytes_of(bins_dev, obl_dev.fid, obl_dev.thr_bin, obl_dev.leaf)
+                     + bins_docs * 4, bins_docs * bins_T * (bins_depth + 1))
+    print(f"  oblivious {bins_T}xd{bins_depth} on u8 bins: bitwise equal to the plain version; "
+          f"{design_text(bins_dev, obl_dev)}: kernel {k:.4f} ms "
+          f"({bins_docs / k * 1e3:.4g} docs/s), bound {bound[0]:.4f} ms by {bound[1]}")
     del Xo, bins_dev, obl_dev, got, plain
 
     # -- phase 9: the oblivious slice end to end at full width --------------

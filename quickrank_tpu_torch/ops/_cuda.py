@@ -47,8 +47,10 @@ SIGNATURES = {
     "qs_partial_u16": [_P, _I64, _I64, _P, _I, _I, _I, _I, _I, _P, _P],
     # x, n, f, packed, trees, depth, stride_words, out, stream
     "perfect_score": [_P, _I64, _I64, _P, _I, _I, _I, _P, _P],
-    # x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
-    "oblivious_score": [_P, _I, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # x, x_kind, n, f, packed, trees, depth, out, stream
+    "oblivious_score": [_P, _I, _I64, _I64, _P, _I, _I, _P, _P],
+    # x_kind, f, trees, depth, design (int32 [5])
+    "oblivious_score_design": [_I, _I64, _I, _I, _P],
     # binned, bin_bytes, n, width, features, values, channels, stride_c,
     # stride_n, pos, n0, k, num_bins, maxbits, n_scale, acc, stream
     "histogram_launch": [_P, _I, _I64, _I64, _I, _P, _I, _I64, _I64, _P, _I,

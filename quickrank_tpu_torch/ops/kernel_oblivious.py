@@ -4,11 +4,14 @@ and its plain version (``ops/oblivious.py``).
 Replaces quickrank_tpu/ops/pallas_oblivious.py::score_oblivious_pallas: the
 same plain float32 sum of ``wleaf[t, leafidx]`` over the trees.  Kernel and
 plain version add the same float32 terms in tree order, so they are bitwise
-equal on the card, at any depth: past depth 12 the kernel reads the leaf
-tables from global memory instead of staging them.
+equal on the card, at any depth.  The kernel reads the tables as one packed
+record a tree (``ObliviousEnsemble.packed``, built once per table); past
+depth 12 it reads the leaves from global memory instead of staging them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -74,14 +77,28 @@ def score_oblivious(features: torch.Tensor, ens: ObliviousEnsemble) -> torch.Ten
     out = torch.empty(N, dtype=torch.float32, device=features.device)
     if N == 0:
         return out
-    thr = (ens.thr_bin if binned else ens.thr).contiguous()
-    fid = ens.fid.contiguous()
-    wleaf = ens.wleaf().contiguous()
+    packed = ens.packed(binned)
     rc = _cuda.library().oblivious_score(
-        features.data_ptr(), _KINDS[features.dtype], N, F, fid.data_ptr(),
-        thr.data_ptr(), wleaf.data_ptr(), ens.capacity, ens.depth,
-        out.data_ptr(), torch.cuda.current_stream(features.device).cuda_stream,
+        features.data_ptr(), _KINDS[features.dtype], N, F, packed.data_ptr(),
+        ens.capacity, ens.depth, out.data_ptr(),
+        torch.cuda.current_stream(features.device).cuda_stream,
     )
     _cuda.check(rc, "oblivious_score")
     LAUNCHES += 1
     return out
+
+
+def design(features: torch.Tensor, ens: ObliviousEnsemble) -> dict:
+    """The design a launch on these inputs takes, as the C side plans it:
+    ``depth_path`` ("template" for depths 1..12, else "runtime", leaves
+    read from global memory), ``rows`` ("staged" in shared memory or
+    "global"), ``trees_in_flight``, ``docs_per_thread``, ``docs_per_block``.
+    Needs the kernel library (a card's build)."""
+    buf = (ctypes.c_int * 5)()
+    rc = _cuda.library().oblivious_score_design(
+        _KINDS[features.dtype], features.shape[1], ens.capacity, ens.depth,
+        ctypes.addressof(buf))
+    _cuda.check(rc, "oblivious_score_design")
+    return {"depth_path": "template" if buf[0] else "runtime",
+            "rows": "staged" if buf[1] else "global", "trees_in_flight": buf[2],
+            "docs_per_thread": buf[3], "docs_per_block": buf[4]}

@@ -59,6 +59,42 @@ _DTYPES = {
 }
 
 
+def record_words(depth: int) -> int:
+    """32-bit words of a tree's record in the packed table: two a level and
+    one a leaf, rounded up to whole 16-byte vectors (24 at depth 4)."""
+    return -(-(2 * depth + 2 ** depth) // 4) * 4
+
+
+def pack_oblivious(fid: torch.Tensor, thr_table: torch.Tensor,
+                   wleaf: torch.Tensor) -> torch.Tensor:
+    """int32 ``[T, record_words(D)]``, the one table the CUDA kernel reads.
+    Per tree: D pairs ``{fid, threshold bits}`` (level d at words 2d,
+    2d + 1; ``thr_table`` is ``thr``, whose float32 bits are stored, or
+    ``thr_bin``), then the ``2^D`` float32 ``wleaf`` values as bits,
+    zero-padded to the record's length."""
+    T, D = fid.shape
+    out = torch.zeros((T, record_words(D)), dtype=torch.int32, device=fid.device)
+    pairs = out[:, : 2 * D].view(T, D, 2)
+    pairs[..., 0] = fid
+    pairs[..., 1] = thr_table.contiguous().view(torch.int32)
+    out[:, 2 * D: 2 * D + 2 ** D] = wleaf.contiguous().view(torch.int32)
+    return out
+
+
+def unpack_oblivious(packed: torch.Tensor, depth: int):
+    """The inverse of :func:`pack_oblivious`: ``(fid, threshold bits as
+    int32, wleaf)`` read back from the records (the tests hold the packing
+    to it)."""
+    T = packed.shape[0]
+    pairs = packed[:, : 2 * depth].reshape(T, depth, 2)
+    return (pairs[..., 0].contiguous(), pairs[..., 1].contiguous(),
+            packed[:, 2 * depth: 2 * depth + 2 ** depth].contiguous().view(torch.float32))
+
+
+#: the fields whose assignment drops the packed tables
+_TABLE_FIELDS = frozenset((*_DTYPES, "num_trees"))
+
+
 @dataclasses.dataclass
 class ObliviousEnsemble:
     """Stacked oblivious trees: ``fid`` i32 [T, D] split feature per level;
@@ -73,6 +109,15 @@ class ObliviousEnsemble:
     num_trees: int
     #: cache of :attr:`min_features`; ``to`` carries it, ``push`` clears it
     _min_features: Optional[int] = None
+    #: :meth:`packed`'s tables by ``binned``; dropped by ``push`` and by
+    #: assignment to a table or ``num_trees``, not carried by ``to``
+    _packed: Optional[dict] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def __setattr__(self, name, value):
+        if name in _TABLE_FIELDS:
+            object.__setattr__(self, "_packed", None)
+        object.__setattr__(self, name, value)
 
     @property
     def capacity(self) -> int:
@@ -127,6 +172,18 @@ class ObliviousEnsemble:
         return dataclasses.replace(
             self, **{k: getattr(self, k).to(device) for k in _DTYPES}
         )
+
+    def packed(self, binned: bool = False) -> torch.Tensor:
+        """The tables as the CUDA kernel reads them (:func:`pack_oblivious`,
+        with ``thr_bin`` where ``binned``), on the tables' device; built at
+        the first call and kept until ``push`` or an assignment to a table
+        or ``num_trees``.  A table written in place otherwise is not seen."""
+        if self._packed is None:
+            self._packed = {}
+        if binned not in self._packed:
+            self._packed[binned] = pack_oblivious(
+                self.fid, self.thr_bin if binned else self.thr, self.wleaf())
+        return self._packed[binned]
 
     def wleaf(self) -> torch.Tensor:
         """``leaf * (weight * live)[:, None]`` in float32, the table the

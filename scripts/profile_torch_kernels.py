@@ -24,9 +24,29 @@ times them at the shapes of the main paths.
    131,072 x 136 and at 1000 x depth 4 on 8,192 x 700 (rows too wide to
    stage); each held bitwise against the plain scorer, with K1 on the same
    depth-4 ensemble timed beside them.
+5. ``csrc/oblivious_score.cu`` (K3) rebuilt with 2, 4 and 8 trees in
+   flight (``kInFlight``, and ``kInFlightUnstaged`` for rows read from
+   global memory, at most 8) times 1, 2 and 4 docs a thread
+   (``kDocsPerThread``); with 16 trees in flight at one doc a thread (the
+   shipped kernel: 12, and 8 on rows read from global memory); with 1, 2,
+   4 and 16 trees in flight past depth 12 (``kInFlightDeep``; shipped: 8);
+   and on rows read from global memory with 32 and 128 docs a block
+   (``kDocsUnstaged``; shipped: 64) and with 16 trees in flight.  The
+   shapes are ``chip_smoke.py``'s OBLIVIOUS_CASES and its u8 bin-space
+   shape.  Beside them: this tree's launch through its wrapper
+   (``kernel_oblivious.score_oblivious``, the packed tables built), the
+   shipped kernel called alone, and with ``--parent DIR`` the checkout at
+   DIR's ``csrc/oblivious_score.cu`` (for example the parent commit, ``git
+   archive`` unpacked under ``local/``) built alone and called with its own
+   arguments (fid, thresholds and ``wleaf`` built once), and with ``wleaf``
+   rebuilt a call, as its wrapper did.  Every candidate is held bitwise
+   against the plain version before it is timed; times are the mean of two
+   passes over the candidates, the second in reverse order.
 
-Run from the repository root (about three minutes on an H100):
-    python scripts/profile_torch_kernels.py [--sections 1,2,3,4]
+Run from the repository root (about three minutes on an H100; section 5
+about four more):
+    python scripts/profile_torch_kernels.py [--sections 1,2,3,4,5]
+        [--parent local/parent]
 It prints one JSON object last, and writes it to ``--out`` when given.
 """
 
@@ -36,6 +56,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -310,6 +331,29 @@ def _k2_edits(lanes, k, all_tests=False):
             ("kAllTests = false;", f"kAllTests = {'true' if all_tests else 'false'};")]
 
 
+#: K3's variants: label -> edits of csrc/oblivious_score.cu
+def _k3_edits(k, p):
+    return [("kInFlight = 12;", f"kInFlight = {k};"),
+            ("kDocsPerThread = 1;", f"kDocsPerThread = {p};"),
+            ("kInFlightUnstaged = 8;", f"kInFlightUnstaged = {min(k, 8)};")]
+
+
+K3_VARIANTS = {
+    **{f"{k} in flight, {p} docs a thread": _k3_edits(k, p)
+       for k in (2, 4, 8) for p in (1, 2, 4)},
+    **{f"{k} in flight, 1 docs a thread": _k3_edits(k, 1) for k in (16,)},
+    **{f"{k} in flight past depth 12": [("kInFlightDeep = 8;", f"kInFlightDeep = {k};")]
+       for k in (1, 2, 4, 16)},
+    **{f"{docs} docs a block unstaged": [("kDocsUnstaged = 64;", f"kDocsUnstaged = {docs};")]
+       for docs in (32, 128)},
+    "16 in flight unstaged": [("kInFlightUnstaged = 8;", "kInFlightUnstaged = 16;")],
+}
+#: the parent's C entry: x, x_kind, n, f, fid, thr, wleaf, trees, depth, out, stream
+PARENT_K3_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
 K2_VARIANTS = {
     **{f"{lanes} a doc, {k} in flight": _k2_edits(lanes, k)
        for lanes in (1, 2, 4) for k in (1, 2, 4, 8)},
@@ -368,8 +412,10 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--queries", type=int, default=19000)
     p.add_argument("--out", help="also write the JSON report here")
-    p.add_argument("--sections", default="1,2,3,4",
+    p.add_argument("--sections", default="1,2,3,4,5",
                    help="comma-separated sections to run (default: all)")
+    p.add_argument("--parent", help="section 5: a checkout whose csrc/oblivious_score.cu "
+                   "is built alone and timed beside this tree's")
     args = p.parse_args()
     sections = {int(x) for x in args.sections.split(",")}
     if not torch.cuda.is_available():
@@ -425,12 +471,22 @@ def main() -> int:
     if 4 in sections:
         for name, edits in K2_VARIANTS.items():
             start_edited(("k2", name), "perfect_score.cu", edits)
+    if 5 in sections:
+        for name, edits in K3_VARIANTS.items():
+            start_edited(("k3", name), "oblivious_score.cu", edits)
+        if args.parent:
+            start(("k3", "parent"), os.path.join(
+                args.parent, "quickrank_tpu_torch", "csrc", "oblivious_score.cu"), [])
     libs, ptxas = {}, {}
     for key, (out, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
-        libs[key] = Variant(out, base, _cuda.SIGNATURES)
+        if key == ("k3", "parent"):
+            libs[key] = ctypes.CDLL(out).oblivious_score
+            libs[key].argtypes, libs[key].restype = PARENT_K3_ARGS, ctypes.c_int
+        else:
+            libs[key] = Variant(out, base, _cuda.SIGNATURES)
         ptxas[key] = err
 
     def with_lib(key, fn):
@@ -442,13 +498,15 @@ def main() -> int:
             _cuda._lib = base
 
     report = {"card": card, "k4_first_design_ms": {}, "k4_shipped_ms": {}, "k1_lanes": {},
-              "k2_variants": {}}
+              "k2_variants": {}, "k3": {}}
     if 1 in sections or 2 in sections:
         section_k4(args, sections, report, dev, with_lib, ptxas)
     if 3 in sections:
         section_k1(report, dev, with_lib, ptxas)
     if 4 in sections:
         section_k2(report, dev, with_lib, ptxas)
+    if 5 in sections:
+        section_k3(report, dev, libs, base, ptxas)
 
     text = json.dumps(report)
     if args.out:
@@ -667,6 +725,107 @@ def section_k2(report, dev, with_lib, ptxas):
     k1 = time_ms(lambda: kernel_qs.score_qs(X, qs), reps=20)
     report["k2_shipped_vs_k1_ms"] = {"perfect_score": shipped, "qs_score": k1}
     print(f"  the shipped K2 {shipped:.4f} ms, K1 on the same ensemble {k1:.4f} ms")
+
+
+def section_k3(report, dev, libs, base, ptxas):
+    """Section 5: K3's candidates on OBLIVIOUS_CASES and the u8 shape."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import (
+        OBLIVIOUS_BINS_CASE,
+        OBLIVIOUS_CASES,
+        oblivious_bins_inputs,
+        oblivious_inputs,
+    )
+    from quickrank_tpu_torch.ops import kernel_oblivious
+    from quickrank_tpu_torch.ops import oblivious as plain_oblivious
+
+    cases = {}
+    for T, depth, n_docs, n_feat in OBLIVIOUS_CASES:
+        feats, obl = oblivious_inputs(T, depth, n_docs, n_feat)
+        cases[f"{T} x depth {depth}, {n_docs} x {n_feat}"] = (
+            torch.from_numpy(feats).to(dev), obl.to(dev))
+    bins, obl = oblivious_bins_inputs()
+    T, depth, n_docs, n_feat = OBLIVIOUS_BINS_CASE
+    cases[f"{T} x depth {depth}, {n_docs} x {n_feat} u8"] = (bins.to(dev), obl.to(dev))
+
+    def entry(lib, X, obl, out):
+        """A raw call of a library's oblivious_score on the packed tables."""
+        kind = 0 if X.dtype == torch.float32 else 1
+        packed = obl.packed(kind == 1)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return lambda: _cuda_ok(lib.oblivious_score(
+            X.data_ptr(), kind, X.shape[0], X.shape[1], packed.data_ptr(), obl.capacity,
+            obl.depth, out.data_ptr(), stream))
+
+    def parent_entry(fn, X, obl, out, rebuild):
+        """A raw call of the parent's entry; with ``rebuild`` wleaf is built
+        anew each call, as the parent's wrapper built it."""
+        kind = 0 if X.dtype == torch.float32 else 1
+        thr = obl.thr_bin if kind else obl.thr
+        wleaf = obl.wleaf()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call():
+            w = obl.wleaf() if rebuild else wleaf
+            _cuda_ok(fn(X.data_ptr(), kind, X.shape[0], X.shape[1], obl.fid.data_ptr(),
+                        thr.data_ptr(), w.data_ptr(), obl.capacity, obl.depth,
+                        out.data_ptr(), stream))
+        return call
+
+    print("5. K3 by trees in flight and docs a thread, beside the parent's kernel: ms a "
+          "launch (mean of two passes, the second in reverse order)")
+    rows = {}
+    for case, (X, obl) in cases.items():
+        binned = X.dtype != torch.float32
+        want = (plain_oblivious.score_oblivious_binned if binned
+                else plain_oblivious.score_oblivious)(X, obl)
+        out = torch.empty(X.shape[0], dtype=torch.float32, device=dev)
+        calls = {"launch": lambda X=X, obl=obl: kernel_oblivious.score_oblivious(X, obl),
+                 "shipped": entry(base, X, obl, out)}
+        for key, lib in libs.items():
+            if key[0] != "k3":
+                continue
+            if key[1] == "parent":
+                calls["parent"] = parent_entry(lib, X, obl, out, False)
+                calls["parent, wleaf a call"] = parent_entry(lib, X, obl, out, True)
+            else:
+                calls[key[1]] = entry(lib, X, obl, out)
+        for name, call in calls.items():
+            out.fill_(float("nan"))
+            got = call() if name == "launch" else (call(), out)[1]
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K3 {name}, {case}: differs from the plain version on "
+                                   f"{int((got != want).sum())} docs")
+        order = list(calls)
+        ms = {name: [] for name in order}
+        for names in (order, order[::-1]):
+            for name in names:
+                ms[name].append(time_ms(calls[name], reps=20))
+        design = kernel_oblivious.design(X, obl)
+        rows[case] = {"design": design, "ms": {k: sum(v) / len(v) for k, v in ms.items()},
+                      "passes": ms}
+        print(f"  {case} (shipped: {design}):")
+        for name, v in ms.items():
+            print(f"    {name}: {sum(v) / len(v):.4f} ({v[0]:.4f}, {v[1]:.4f})")
+    report["k3"] = {"cases": rows,
+                    "ptxas": {k[1]: ptxas_report(v) for k, v in ptxas.items() if k[0] == "k3"}}
+    # printed: the depth-4 kernels and the parent's (all in the report)
+    for name, lines in report["k3"]["ptxas"].items():
+        print(f"  ptxas, {name}:")
+        shown = False
+        for line in lines:
+            if not line.startswith(" "):
+                shown = "oblivious_depth_kernel" not in line or re.search(r"I[fh]Li4E", line)
+            if shown:
+                print(f"      {line}")
+
+
+def _cuda_ok(rc):
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
 
 
 if __name__ == "__main__":

@@ -238,14 +238,18 @@ def _oblivious(T, D, F, seed, dead_tree=None):
                                      (1000, 30, 1, 24), (1000, 100, 8, 24),
                                      (300, 7, 12, 24), (300, 30, 4, 700),
                                      (300, 5, 13, 24), (300, 3, 14, 24),
-                                     (1000, 320, 13, 24), (300, 4, 13, 700)])
+                                     (1000, 320, 13, 24), (300, 4, 13, 700),
+                                     (1000, 343, 4, 24), (999, 1001, 4, 136),
+                                     (33, 2051, 1, 24), (5000, 1000, 4, 700)])
 def test_oblivious_kernel_matches_plain_on_card(cuda_device, N, T, D, F):
     """K3 bitwise against its plain version: one doc, one past two blocks,
     one tree, depth 1, depth 8 (several tiles of trees), depth 12 (one tree
     a tile), rows too wide to stage in shared memory, with an all-dead tree
-    where there is room for one; and past depth 12, where the leaf tables
-    are read from global memory: depths 13 and 14, two tiles of levels
-    (320 trees; a tile holds 315 at depth 13), and unstaged rows."""
+    where there is room for one; past depth 12, where the leaf tables are
+    read from global memory: depths 13 and 14, two tiles of levels (320
+    trees; a tile holds 315 at depth 13), and unstaged rows; and tree
+    counts that end a model tile or a group of trees in flight mid-way (a
+    depth-4 tile holds 341 records, a depth-1 tile 2,048)."""
     ens = _oblivious(T, D, F, seed=N + T + D, dead_tree=1 if T > 1 else None)
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((N, F), dtype=np.float32))
     before = kernel_oblivious.LAUNCHES
@@ -258,13 +262,63 @@ def test_oblivious_kernel_matches_plain_on_card(cuda_device, N, T, D, F):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [4, 14])
+@pytest.mark.parametrize("depth", [*range(1, 13), 14])
 def test_oblivious_kernel_scores_bins_on_card(cuda_device, depth):
-    ens = _oblivious(40, depth, 24, seed=3, dead_tree=2)
+    """u8 bin ids at every depth the kernel takes as a template parameter,
+    and past it; 999 docs end a block mid-way, 41 trees a group in flight."""
+    ens = _oblivious(41, depth, 24, seed=3, dead_tree=2)
     bins = torch.from_numpy(np.random.default_rng(1).integers(0, 256, size=(999, 24))).to(
         torch.uint8)
     got = kernel_oblivious.score_oblivious(bins.to(cuda_device), ens.to(cuda_device))
     assert torch.equal(got.cpu(), plain_oblivious.score_oblivious_binned(bins, ens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [24, 700])
+@pytest.mark.parametrize("D", range(1, 14))
+def test_oblivious_kernel_every_depth_on_card(cuda_device, D, F):
+    """Every depth the kernel takes as a template parameter (1..12), and 13
+    (the runtime-depth kernel), on staged rows (F = 24) and on rows read
+    from global memory (F = 700): 1,001 docs and 11 trees end a block, a
+    thread's docs and a group of trees in flight mid-way; one tree dead
+    past ``num_trees`` and one with every level dead."""
+    ens = _oblivious(11, D, F, seed=40 + D, dead_tree=3)
+    ens.num_trees = 10
+    X = torch.from_numpy(np.random.default_rng(D).standard_normal((1001, F), dtype=np.float32))
+    design = kernel_oblivious.design(X.to(cuda_device), ens)
+    assert design["depth_path"] == ("template" if D <= 12 else "runtime")
+    assert design["rows"] == ("staged" if F == 24 else "global")
+    got = kernel_oblivious.score_oblivious(X.to(cuda_device), ens.to(cuda_device))
+    assert torch.equal(got.cpu(), plain_oblivious.score_oblivious(X, ens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [24, 700])
+@pytest.mark.parametrize("D", [3, 7, 13])
+def test_oblivious_kernel_nan_inf_and_equality_on_card(cuda_device, D, F):
+    """NaN goes left, +inf right of every finite threshold, -inf left, and
+    a value equal to its threshold left, on the card as in the plain
+    version; the tables are written before the first launch packs them."""
+    ens = _oblivious(9, D, F, seed=D, dead_tree=4)
+    rng = np.random.default_rng(D + F)
+    X = torch.from_numpy(rng.standard_normal((700, F), dtype=np.float32))
+    cells = rng.integers(0, 700 * F, size=3 * 700)
+    flat = X.view(-1)
+    flat[cells[:700]] = float("nan")
+    flat[cells[700:1400]] = float("inf")
+    flat[cells[1400:]] = float("-inf")
+    for t in range(9):
+        for lvl in range(D):
+            X[(t * D + lvl) % 700, int(ens.fid[t, lvl])] = ens.thr[t, lvl]
+    X[600:610, :] = float("nan")
+    X[610:620, :] = float("inf")
+    got = kernel_oblivious.score_oblivious(X.to(cuda_device), ens.to(cuda_device))
+    want = plain_oblivious.score_oblivious(X, ens)
+    assert torch.equal(got.cpu(), want)
+    idx = plain_oblivious.leaf_index(X, ens.fid, ens.thr)
+    assert (idx[600:610] == 0).all()
+    live = [t for t in range(9) if t != 4]
+    assert (idx[610:620][:, live] == 2 ** D - 1).all()
 
 
 @pytest.mark.gpu

@@ -215,6 +215,74 @@ def test_ensemble_container():
         obl.ObliviousEnsemble.from_numpy(dict(d, leaf=d["leaf"][:, :3]))
 
 
+def _score_record(X, packed, depth):
+    """Scores read off the packed records alone: the records' levels, the
+    thresholds' float32 bits and their wleaf, summed in tree order."""
+    fid, thr_bits, wleaf = obl.unpack_oblivious(packed, depth)
+    idx = plain.leaf_index(X, fid, thr_bits.view(torch.float32))
+    acc = torch.zeros(X.shape[0], dtype=torch.float32)
+    for t in range(fid.shape[0]):
+        acc = acc + wleaf[t, idx[:, t]]
+    return acc
+
+
+@pytest.mark.parametrize("D", range(1, 15))
+def test_packed_record_unpacks_exactly(D):
+    """The kernel's table (``ObliviousEnsemble.packed``) holds fid, the
+    thresholds' bits (``thr`` in value space, ``thr_bin`` in bin space) and
+    ``wleaf`` exactly, dead trees past ``num_trees`` and dead levels
+    included, in whole 16-byte records zero-padded at the end."""
+    T, F, live = 7, 30, 5
+    d = _tables(T, D, F, seed=100 + D, dead=True, live=live)
+    ens = obl.ObliviousEnsemble.from_numpy(d)
+    wleaf = ens.wleaf()
+    assert (wleaf[live:] == 0).all()
+    S = obl.record_words(D)
+    assert S % 4 == 0 and 2 * D + 2 ** D <= S < 2 * D + 2 ** D + 4
+    for binned, thr in ((False, ens.thr.view(torch.int32)), (True, ens.thr_bin)):
+        packed = ens.packed(binned)
+        assert packed.dtype == torch.int32 and tuple(packed.shape) == (T, S)
+        assert ens.packed(binned) is packed  # built once
+        fid, thr_bits, wl = obl.unpack_oblivious(packed, D)
+        assert torch.equal(fid, ens.fid) and torch.equal(thr_bits, thr)
+        assert torch.equal(wl.view(torch.int32), wleaf.view(torch.int32))
+        assert (packed[:, 2 * D + 2 ** D:] == 0).all()
+    X = torch.from_numpy(np.random.default_rng(D).normal(size=(64, F)).astype(np.float32))
+    np.testing.assert_array_equal(_score_record(X, ens.packed(), D).numpy(),
+                                  plain.score_oblivious(X, ens).numpy())
+
+
+@pytest.mark.parametrize("change", ["push", "weight", "num_trees", "leaf"])
+def test_packed_tables_follow_the_ensemble(change):
+    """Changing the tables drops the packed records: ``push``, and an
+    assignment to ``weight``, ``num_trees`` or ``leaf``.  The records'
+    scores change, and equal those of a fresh ensemble of the new tables."""
+    T, D, F = 6, 3, 12
+    d = _tables(T, D, F, seed=7, live=4)
+    ens = obl.ObliviousEnsemble.from_numpy(d)
+    X = torch.from_numpy(np.random.default_rng(3).normal(size=(80, F)).astype(np.float32))
+    before = _score_record(X, ens.packed(), D)
+    binned_before = ens.packed(True).clone()
+    if change == "push":
+        e = _tables(1, D, F, seed=8)
+        ens.push(*(torch.from_numpy(e[k][0]) for k in ("fid", "thr", "thr_bin", "leaf")), 0.5)
+    elif change == "weight":
+        ens.weight = ens.weight * 2
+    elif change == "num_trees":
+        ens.num_trees = 2
+    else:
+        ens.leaf = -ens.leaf
+    fresh = obl.ObliviousEnsemble.from_numpy(
+        {k: (getattr(ens, k).numpy() if k != "num_trees" else ens.num_trees) for k in FIELDS})
+    after = _score_record(X, ens.packed(), D)
+    assert not torch.equal(after, before)
+    np.testing.assert_array_equal(after.numpy(), plain.score_oblivious(X, fresh).numpy())
+    assert torch.equal(ens.packed(True), fresh.packed(True))
+    assert not torch.equal(ens.packed(True), binned_before)
+    # ``to`` carries no packed table: the copy packs its own
+    assert ens.to("cpu")._packed is None
+
+
 @pytest.fixture(scope="module")
 def jax_problem():
     """JAX TrainData of 30 queries x 20 features and JAX's own LambdaMART
