@@ -297,7 +297,7 @@ class Dart(LambdaMart):
             raise NotImplementedError(WARM_START_2D)
         self._refuse_2d(mesh, False)
         metric = metric or self.default_metric()
-        t0 = time.time()
+        t0 = time.perf_counter()
         tr = self._train_data(train, device, mesh)
         device = tr.step.binned.device
         group = tr.group
@@ -388,17 +388,17 @@ class Dart(LambdaMart):
             T_host = T0
             w_host[:T0] = ens.weight[:T0].cpu().numpy()
             best_weights = w_host[:T0].copy()
-        init_time = time.time() - t0
+        init_time = time.perf_counter() - t0
         if verbose:
             print(f"# {self.NAME}: {self!r}")
-        t_train = time.time()
+        t_train = time.perf_counter()
         iter_seconds, dropped_per_iter, dropped_sets, delta_events = [], [], [], []
         m = 0
         while T_host - dropped_before_cleaning < self.ntrees:
             m += 1
             if va is not None and self.esr and m > best_iter + self.esr:
                 break
-            t_iter = time.time()
+            t_iter = time.perf_counter()
 
             if T_host >= cap:
                 # capacity guard: drop zero-weighted trees now, but keep the
@@ -569,7 +569,7 @@ class Dart(LambdaMart):
                 self.ensemble = ens.live().to("cpu")
                 self.save(f"{output_basename}.T{m + iter_offset}.xml")
                 self.ensemble = snapshot
-            iter_seconds.append(time.time() - t_iter)
+            iter_seconds.append(time.perf_counter() - t_iter)
             dropped_per_iter.append(len(dropped))
             dropped_sets.append([int(t) for t in dropped])
             if verbose and (m < 5 or m % 10 == 0 or best_improved):
@@ -594,7 +594,7 @@ class Dart(LambdaMart):
             "best_iteration": best_iter,
             "best_valid": best_va if va is not None else None,
             "init_seconds": init_time,
-            "train_seconds": time.time() - t_train,
+            "train_seconds": time.perf_counter() - t_train,
             "iter_seconds": iter_seconds,
             "dropped_per_iter": dropped_per_iter,
             "dropped": dropped_sets,

@@ -55,6 +55,7 @@ from quickrank_tpu_torch.ops.histogram import (
 )
 from quickrank_tpu_torch.ops.scoring import descend_tree_binned
 from quickrank_tpu_torch.trees.structs import Tree
+from quickrank_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 #: DBL_EPSILON guard of rt.cc:200
@@ -220,9 +221,10 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
         return masked_histogram_t(binned, chan_t, mask, B, group=group, scale=scale)
 
     hist = torch.zeros((max_nodes, F, B, 3), dtype=torch.float32, device=dev)
-    hist[0] = hist_of(doc_mask)
     deviance = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
-    deviance[0] = _deviance(*_node_stats(hist[0]))
+    with span("qr.grow.hist"):
+        hist[0] = hist_of(doc_mask)
+        deviance[0] = _deviance(*_node_stats(hist[0]))
 
     feature = np.full(max_nodes, -1, np.int32)
     threshold = np.zeros(max_nodes, np.float32)
@@ -244,17 +246,20 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
         hs = int(heap.sum())
         if not (hs > 0 and taken + hs < cfg.nleaves):
             break
-        heap_t = torch.from_numpy(heap).to(dev)
-        leaf_t = torch.argmax(torch.where(heap_t, deviance, NEG_INF))
-        feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
-        h_leaf = hist[leaf_t]
-        has_split, f_star, t_star, gain = _best_split(h_leaf, feat_mask, minls)
-        if feat is not None:
-            has_split, _, f_star, t_star = feat.best(has_split, gain, f_star, t_star)
-        # the split's one host sync
-        leaf, has_split, f_star, t_star, positive = torch.stack([
-            leaf_t, has_split.long(), f_star, t_star, (deviance[leaf_t] > 0).long()
-        ]).tolist()
+        with span("qr.grow.split"):
+            heap_t = torch.from_numpy(heap).to(dev)
+            # kept 1-element, so that indexing with it reads nothing back to
+            # the host (a 0-d index tensor is read back, a sync of its own)
+            leaf_t = torch.argmax(torch.where(heap_t, deviance, NEG_INF)).reshape(1)
+            feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
+            h_leaf = hist[leaf_t][0]
+            has_split, f_star, t_star, gain = _best_split(h_leaf, feat_mask, minls)
+            if feat is not None:
+                has_split, _, f_star, t_star = feat.best(has_split, gain, f_star, t_star)
+            decision = torch.stack([
+                leaf_t[0], has_split.long(), f_star, t_star, (deviance[leaf_t][0] > 0).long()])
+        with span("qr.grow.readback"):  # the split's one host sync
+            leaf, has_split, f_star, t_star, positive = decision.tolist()
         HOST_SYNCS += 1
         can_split = bool(has_split and positive)
         if cfg.max_depth:
@@ -264,16 +269,18 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
             taken += 1
             continue
         a, b = n_nodes, n_nodes + 1
-        goes_left = route_bits(binned, f_star, t_star, feat)
-        in_leaf = node_of_doc == leaf
-        node_of_doc = torch.where(
-            in_leaf, torch.where(goes_left, a, b), node_of_doc
-        ).to(torch.int32)
-        left_hist = hist_of(in_leaf & goes_left & doc_mask)
-        hist[a] = left_hist
-        hist[b] = h_leaf - left_hist
-        deviance[a] = _deviance(*_node_stats(hist[a]))
-        deviance[b] = _deviance(*_node_stats(hist[b]))
+        with span("qr.grow.route"):
+            goes_left = route_bits(binned, f_star, t_star, feat)
+            in_leaf = node_of_doc == leaf
+            node_of_doc = torch.where(
+                in_leaf, torch.where(goes_left, a, b), node_of_doc
+            ).to(torch.int32)
+        with span("qr.grow.hist"):
+            left_hist = hist_of(in_leaf & goes_left & doc_mask)
+            hist[a] = left_hist
+            hist[b] = h_leaf - left_hist
+            deviance[a] = _deviance(*_node_stats(hist[a]))
+            deviance[b] = _deviance(*_node_stats(hist[b]))
         feature[leaf] = f_star
         threshold[leaf] = thr_host[f_star, t_star]
         threshold_bin[leaf] = t_star
@@ -302,8 +309,9 @@ def _finish_tree(binned, cfg: GrowConfig, nodes: dict, node_of_doc, deviance,
             "collapse-leaves-factor under feature sharding not supported")
     nodes["is_leaf"] = nodes["feature"] < 0
     if cfg.collapse_factor > 0:
-        _collapse_leaves(nodes, deviance.cpu().numpy(), depth, parent, n_nodes,
-                         cfg.collapse_factor)
+        with span("qr.grow.readback"):
+            deviance = deviance.cpu().numpy()
+        _collapse_leaves(nodes, deviance, depth, parent, n_nodes, cfg.collapse_factor)
     tree = Tree.from_numpy(dict(nodes, leaf_value=np.zeros(max_nodes, np.float32)),
                            device=binned.device)
     if cfg.collapse_factor > 0:

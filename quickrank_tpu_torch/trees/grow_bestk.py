@@ -51,6 +51,7 @@ from quickrank_tpu_torch.trees.grow import (
     global_width,
     route_bits,
 )
+from quickrank_tpu_torch.utils.profiling import span
 
 
 def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
@@ -112,11 +113,12 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
         has_split, f_star, t_star, gain = _best_splits(hist[sel_ids], masks, minls)
         if feat is not None:
             has_split, _, f_star, t_star = feat.best(has_split, gain, f_star, t_star)
-        # the round's one host sync; a rank beyond |heap| holds -inf
-        sel, has_split, f_star, t_star, positive, in_heap = torch.stack([
+        decision = torch.stack([
             sel_ids, has_split.long(), f_star, t_star, (sel_dev > 0).long(),
-            (sel_dev > NEG_INF).long(),
-        ]).tolist()
+            (sel_dev > NEG_INF).long()])
+        # the round's one host sync; a rank beyond |heap| holds -inf
+        with span("qr.grow.readback"):
+            sel, has_split, f_star, t_star, positive, in_heap = decision.tolist()
         grow.HOST_SYNCS += 1
         budget = cfg.nleaves - (taken + hs)
         splits = []  # (leaf, feature, bin), in deviance-rank order

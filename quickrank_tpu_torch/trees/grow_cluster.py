@@ -52,6 +52,7 @@ from quickrank_tpu_torch.trees.grow import (
     _finish_tree,
     _node_stats,
 )
+from quickrank_tpu_torch.utils.profiling import span
 
 #: payload byte columns, relative to the end of the work buffer
 _GRAD = -8   # ..-4: the gradient's float32 bytes, little-endian
@@ -182,15 +183,17 @@ def fit_tree_clustered(binned: torch.Tensor, grad: torch.Tensor,
         if not (hs > 0 and taken + hs < cfg.nleaves):
             break
         heap_t = torch.from_numpy(heap).to(dev)
-        leaf_t = torch.argmax(torch.where(heap_t, deviance, NEG_INF))
+        # kept 1-element, so that indexing with it reads nothing back
+        leaf_t = torch.argmax(torch.where(heap_t, deviance, NEG_INF)).reshape(1)
         feat_mask = _feature_sample_mask(generator, W, nfs)[:F_real].to(dev)
-        h_leaf = hist[leaf_t]
+        h_leaf = hist[leaf_t][0]
         has_split, f_star, t_star, _ = _best_split(h_leaf, feat_mask, minls)
+        decision = torch.stack([
+            leaf_t[0], has_split.long(), f_star, t_star, (deviance[leaf_t][0] > 0).long(),
+            run_tile[leaf_t][0], run_ntiles[leaf_t][0]])
         # the split's one host sync; the leaf's run rides it
-        leaf, has_split, f_star, t_star, positive, rs, rn = torch.stack([
-            leaf_t, has_split.long(), f_star, t_star, (deviance[leaf_t] > 0).long(),
-            run_tile[leaf_t], run_ntiles[leaf_t],
-        ]).tolist()
+        with span("qr.grow.readback"):
+            leaf, has_split, f_star, t_star, positive, rs, rn = decision.tolist()
         grow.HOST_SYNCS += 1
         can_split = bool(has_split and positive)
         if cfg.max_depth:

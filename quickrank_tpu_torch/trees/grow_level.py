@@ -41,6 +41,7 @@ from quickrank_tpu_torch.trees.grow import (
     route_bits,
 )
 from quickrank_tpu_torch.trees.structs import Tree
+from quickrank_tpu_torch.utils.profiling import span
 
 
 def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
@@ -76,72 +77,73 @@ def fit_tree_levelwise(binned: torch.Tensor, grad: torch.Tensor,
     nfs = cfg.num_feature_samples(F_global)
 
     for d in range(depth):
-        n_nodes = 2 ** d
-        base = n_nodes - 1
-        hist = node_histograms_t(binned, chan_t, pos, n_nodes, B, group=group,
-                                 scale=scale)  # [nodes, F, B, C]
-        feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
+        with span("qr.grow.level"):
+            n_nodes = 2 ** d
+            base = n_nodes - 1
+            hist = node_histograms_t(binned, chan_t, pos, n_nodes, B, group=group,
+                                     scale=scale)  # [nodes, F, B, C]
+            feat_mask = feature_masks(generator, F_global, nfs, 1, feat)[0].to(dev)
 
-        cum = prefix_sum(hist, 2)
-        lc = cum[..., 0]
-        ls = cum[..., 1]
-        tc = cum[:, :, -1:, 0]
-        ts = cum[:, :, -1:, 1]
-        rc = tc - lc
-        rs = ts - ls
-        gain = ls * ls / torch.clamp(lc, min=1.0) + rs * rs / torch.clamp(rc, min=1.0)
-        valid = (lc >= minls) & (rc >= minls) & feat_mask[None, :, None]
-        gain = torch.where(valid, gain, NEG_INF)
-        flat = torch.argmax(gain.reshape(n_nodes, -1), dim=1)  # [nodes]
-        f_star = flat // B
-        t_star = flat % B
+            cum = prefix_sum(hist, 2)
+            lc = cum[..., 0]
+            ls = cum[..., 1]
+            tc = cum[:, :, -1:, 0]
+            ts = cum[:, :, -1:, 1]
+            rc = tc - lc
+            rs = ts - ls
+            gain = ls * ls / torch.clamp(lc, min=1.0) + rs * rs / torch.clamp(rc, min=1.0)
+            valid = (lc >= minls) & (rc >= minls) & feat_mask[None, :, None]
+            gain = torch.where(valid, gain, NEG_INF)
+            flat = torch.argmax(gain.reshape(n_nodes, -1), dim=1)  # [nodes]
+            f_star = flat // B
+            t_star = flat % B
 
-        def take(arr):  # [nodes, F, B] -> the winner's entry per node
-            return arr.reshape(n_nodes, -1).gather(1, flat[:, None])[:, 0]
+            def take(arr):  # [nodes, F, B] -> the winner's entry per node
+                return arr.reshape(n_nodes, -1).gather(1, flat[:, None])[:, 0]
 
-        def total(arr):  # [nodes, F] -> the winner feature's entry
-            return arr.gather(1, f_star[:, None])[:, 0]
+            def total(arr):  # [nodes, F] -> the winner feature's entry
+                return arr.gather(1, f_star[:, None])[:, 0]
 
-        best = take(gain)
-        has_valid = valid.reshape(n_nodes, -1).any(dim=1)
-        l_grad = take(ls)
-        t_grad = total(ts[:, :, 0])
-        if newton:
-            l_den = take(cum[..., 2])
-            t_den = total(cum[:, :, -1, 2])
-        else:
-            l_den, t_den = take(lc), total(tc[:, :, 0])
-        # a node that stops here keeps its own totals (feature 0's column)
-        stop_num = cum[:, 0, -1, 1]
-        stop_den = cum[:, 0, -1, 2] if newton else cum[:, 0, -1, 0]
+            best = take(gain)
+            has_valid = valid.reshape(n_nodes, -1).any(dim=1)
+            l_grad = take(ls)
+            t_grad = total(ts[:, :, 0])
+            if newton:
+                l_den = take(cum[..., 2])
+                t_den = total(cum[:, :, -1, 2])
+            else:
+                l_den, t_den = take(lc), total(tc[:, :, 0])
+            # a node that stops here keeps its own totals (feature 0's column)
+            stop_num = cum[:, 0, -1, 1]
+            stop_den = cum[:, 0, -1, 2] if newton else cum[:, 0, -1, 0]
 
-        if feat is not None:
-            # the winners over the feature axis, with the owners' sums
-            has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den = feat.best(
-                has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den)
-        can = has_valid & (best > 0)
-        thr_val = thresholds[f_star, t_star]
-        # routing bit of every doc at its own node's split
-        bit = route_bits(binned, f_star[pos], t_star[pos], feat, right=True).long()
+            if feat is not None:
+                # the winners over the feature axis, with the owners' sums
+                has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den = feat.best(
+                    has_valid, best, f_star, t_star, l_grad, l_den, t_grad, t_den)
+            can = has_valid & (best > 0)
+            thr_val = thresholds[f_star, t_star]
+            # routing bit of every doc at its own node's split
+            bit = route_bits(binned, f_star[pos], t_star[pos], feat, right=True).long()
 
-        ids = base + torch.arange(n_nodes, device=dev)
-        tree.feature[ids] = torch.where(can, f_star, -1).to(torch.int32)
-        tree.threshold[ids] = torch.where(can, thr_val, 0.0)
-        tree.threshold_bin[ids] = torch.where(can, t_star, -1).to(torch.int32)
-        tree.left[ids] = torch.where(can, 2 * ids + 1, 0).to(torch.int32)
-        tree.right[ids] = torch.where(can, 2 * ids + 2, 0).to(torch.int32)
-        tree.is_leaf[ids] = ~can
-        leaf_num[ids] = torch.where(can, 0.0, stop_num)
-        leaf_den[ids] = torch.where(can, 0.0, stop_den)
-        if d == depth - 1:
-            leaf_num[2 * ids + 1] = torch.where(can, l_grad, 0.0)
-            leaf_den[2 * ids + 1] = torch.where(can, l_den, 0.0)
-            leaf_num[2 * ids + 2] = torch.where(can, t_grad - l_grad, 0.0)
-            leaf_den[2 * ids + 2] = torch.where(can, t_den - l_den, 0.0)
-        # docs of a node that stops keep routing left (bit 0), the
-        # perfect-tree embedding's convention
-        bit = torch.where(can[pos], bit, 0)
-        pos = 2 * pos + bit
+            ids = base + torch.arange(n_nodes, device=dev)
+            tree.feature[ids] = torch.where(can, f_star, -1).to(torch.int32)
+            tree.threshold[ids] = torch.where(can, thr_val, 0.0)
+            tree.threshold_bin[ids] = torch.where(can, t_star, -1).to(torch.int32)
+            tree.left[ids] = torch.where(can, 2 * ids + 1, 0).to(torch.int32)
+            tree.right[ids] = torch.where(can, 2 * ids + 2, 0).to(torch.int32)
+            tree.is_leaf[ids] = ~can
+            leaf_num[ids] = torch.where(can, 0.0, stop_num)
+            leaf_den[ids] = torch.where(can, 0.0, stop_den)
+            if d == depth - 1:
+                leaf_num[2 * ids + 1] = torch.where(can, l_grad, 0.0)
+                leaf_den[2 * ids + 1] = torch.where(can, l_den, 0.0)
+                leaf_num[2 * ids + 2] = torch.where(can, t_grad - l_grad, 0.0)
+                leaf_den[2 * ids + 2] = torch.where(can, t_den - l_den, 0.0)
+            # docs of a node that stops keep routing left (bit 0), the
+            # perfect-tree embedding's convention
+            bit = torch.where(can[pos], bit, 0)
+            pos = 2 * pos + bit
 
     value = torch.where(leaf_den >= EPS, leaf_num / torch.clamp(leaf_den, min=EPS), 0.0)
     tree = dataclasses.replace(tree, leaf_value=torch.where(tree.is_leaf, value, 0.0))

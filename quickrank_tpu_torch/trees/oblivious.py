@@ -44,6 +44,7 @@ from quickrank_tpu_torch.ops.histogram import (
 )
 from quickrank_tpu_torch.trees.grow import route_bits
 from quickrank_tpu_torch.trees.structs import Tree
+from quickrank_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 FLT_MAX = float(np.float32(3.4028235e38))
@@ -238,41 +239,42 @@ def fit_oblivious_tree(binned: torch.Tensor, grad: torch.Tensor,
     alive = torch.ones((), dtype=torch.bool, device=dev)
 
     for d in range(depth):
-        hist = node_histograms_t(binned, chan_t, node, 2 ** d, B, group=group,
-                                 scale=scale)  # [nodes, F, B, 2]
-        cum = prefix_sum(hist, 2)
-        lc = cum[..., 0]
-        ls = cum[..., 1]
-        rc = cum[:, :, -1:, 0] - lc
-        rs = cum[:, :, -1:, 1] - ls
-        node_gain = ls * ls / torch.clamp(lc, min=1.0) + rs * rs / torch.clamp(rc, min=1.0)
-        ok = (lc >= min_leaf_support) & (rc >= min_leaf_support)
-        valid = ok.all(dim=0)  # [F, B]: must hold in every fringe node
-        if feat is not None:
-            valid[0] = False  # the stats column is no candidate
-        # nodes summed in XLA's order, so equal histograms give equal splits
-        total_gain = tree_sum(node_gain.movedim(0, -1))
-        gain = torch.where(valid, total_gain, NEG_INF).reshape(-1)
-        # first maximum, as jnp.argmax; kept 1-element so that indexing
-        # with it reads nothing back to the host
-        flat = torch.argmax(gain).reshape(1)
-        f_star = flat // B
-        t_star = flat % B
-        has, best = valid.any(), gain[flat][0]
-        if feat is None:
-            thr_d = thresholds.reshape(-1)[flat][0]
-        else:
-            # the shared test: the first maximum over the feature axis
-            has, best, f_star, t_star = feat.best(has, best, f_star[0], t_star[0])
-            thr_d = thresholds[f_star, t_star]
-            f_star, t_star = f_star.reshape(1), t_star.reshape(1)
-        bit = route_bits(binned, f_star[0], t_star[0], feat, right=True).to(torch.int32)
-        can = alive & has & (best > 0)
-        node = torch.where(can, 2 * node + bit, 2 * node)
-        fid[d] = torch.where(can, f_star[0], 0)
-        thr[d] = torch.where(can, thr_d, FLT_MAX)
-        thr_bin[d] = torch.where(can, t_star[0], B)
-        alive = can
+        with span("qr.grow.level"):
+            hist = node_histograms_t(binned, chan_t, node, 2 ** d, B, group=group,
+                                     scale=scale)  # [nodes, F, B, 2]
+            cum = prefix_sum(hist, 2)
+            lc = cum[..., 0]
+            ls = cum[..., 1]
+            rc = cum[:, :, -1:, 0] - lc
+            rs = cum[:, :, -1:, 1] - ls
+            node_gain = ls * ls / torch.clamp(lc, min=1.0) + rs * rs / torch.clamp(rc, min=1.0)
+            ok = (lc >= min_leaf_support) & (rc >= min_leaf_support)
+            valid = ok.all(dim=0)  # [F, B]: must hold in every fringe node
+            if feat is not None:
+                valid[0] = False  # the stats column is no candidate
+            # nodes summed in XLA's order, so equal histograms give equal splits
+            total_gain = tree_sum(node_gain.movedim(0, -1))
+            gain = torch.where(valid, total_gain, NEG_INF).reshape(-1)
+            # first maximum, as jnp.argmax; kept 1-element so that indexing
+            # with it reads nothing back to the host
+            flat = torch.argmax(gain).reshape(1)
+            f_star = flat // B
+            t_star = flat % B
+            has, best = valid.any(), gain[flat][0]
+            if feat is None:
+                thr_d = thresholds.reshape(-1)[flat][0]
+            else:
+                # the shared test: the first maximum over the feature axis
+                has, best, f_star, t_star = feat.best(has, best, f_star[0], t_star[0])
+                thr_d = thresholds[f_star, t_star]
+                f_star, t_star = f_star.reshape(1), t_star.reshape(1)
+            bit = route_bits(binned, f_star[0], t_star[0], feat, right=True).to(torch.int32)
+            can = alive & has & (best > 0)
+            node = torch.where(can, 2 * node + bit, 2 * node)
+            fid[d] = torch.where(can, f_star[0], 0)
+            thr[d] = torch.where(can, thr_d, FLT_MAX)
+            thr_bin[d] = torch.where(can, t_star[0], B)
+            alive = can
 
     return fid, thr, thr_bin, node
 

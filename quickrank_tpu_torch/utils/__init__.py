@@ -1,3 +1,3 @@
-from quickrank_tpu_torch.utils.profiling import phase_timer, trace
+from quickrank_tpu_torch.utils.profiling import phase_timer, span, trace
 
-__all__ = ["phase_timer", "trace"]
+__all__ = ["phase_timer", "span", "trace"]

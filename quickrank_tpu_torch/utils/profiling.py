@@ -3,9 +3,19 @@ quickrank_tpu/utils/profiling.py).
 
 The reference's observability is std::chrono phase prints (mart.cc:216-258,
 svml.cc:190-196).  Here: wall-clock phase timers for the host's
-orchestration, and ``torch.profiler`` traces of a code block (host
-operators, and the card's kernels when CUDA runs) written as Chrome trace
-JSON, which chrome://tracing and Perfetto open.
+orchestration, ``torch.profiler`` traces of a code block (host operators,
+and the card's kernels when CUDA runs) written as Chrome trace JSON, which
+chrome://tracing and Perfetto open, and the program's named spans
+(:func:`span`), which such a trace holds beside the kernels.
+
+Spans are named ``qr.<layer>[.<section>]`` and nest: ``qr.learn.init`` and
+one ``qr.boost.iter`` an iteration (``learning/mart.py``), inside it
+``qr.boost.lambdas``, ``qr.grow`` (the growers of ``trees/``, with their
+``qr.grow.split``, ``.readback``, ``.route``, ``.hist`` and ``.level``
+sections) and ``qr.boost.metrics``; ``qr.data.build`` around the host
+binning and upload; ``qr.score.dispatch`` around a scorer call.  Every
+blocking read of the card by the boosting loop sits in a ``*.readback``
+span, so a tree's host time splits into work and waiting.
 """
 
 from __future__ import annotations
@@ -13,6 +23,23 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+
+from torch.autograd import profiler as _profiler
+
+#: what :func:`span` returns while no profiler records: one shared context
+#: that does nothing
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program: ``record_function(name)`` while a
+    ``torch.profiler`` profile records, so that the range lands in its
+    trace on the clock of the card's kernels; otherwise the one shared
+    no-op context (:data:`_OFF`), which creates no profiler record and
+    allocates nothing.  The profiler being on is the only switch."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

@@ -3,10 +3,11 @@
 
 Trains on MSLR-shaped synthetic data (data/synthetic.py: query lengths in
 [38, 232), 136 features) under ``torch.profiler`` and reports, for the
-boosting iterations after the first ``--skip``: wall seconds per tree, the
-device's busy and idle share (union of kernel intervals over the iteration
-window), the ms of each iteration's gradients (lambdas; CUDA events around
-the learner's ``_gradients``), and device time by kernel name.  One warm-up run
+boosting iterations after the first ``--skip``: wall seconds per tree (the
+learner's ``history["iter_seconds"]``), the device's busy and idle share
+(union of kernel intervals over the program's ``qr.boost.iter`` spans), the
+ms of each iteration's gradients (lambdas; CUDA events around the learner's
+``_gradients``), and device time by kernel name.  One warm-up run
 first builds the kernels.  ``--f32-query-sums`` sums the lambdas' pairs and
 the metrics' per-query terms with ``torch.sum`` instead of
 ``metrics/core.py::query_sum``'s fixed-order kernel, to price the latter.
@@ -24,21 +25,19 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 
 def busy_share(events, windows):
     """Sum over ``windows`` of the union of the device's work intervals
     (kernels, copies, fills) inside each window, and the windows' total
     length (both in microseconds).  The device-side copies of
-    ``record_function`` ranges and the profiler's own buffer requests are
-    not work."""
+    spans (``qr.*``) and the profiler's own buffer requests are not work."""
     from torch.autograd import DeviceType
 
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
                      if e.device_type == DeviceType.CUDA
                      and not getattr(e, "is_user_annotation", False)
-                     and e.name != "boost_iteration"
+                     and not e.name.startswith("qr.")
                      and not e.name.startswith("Activity Buffer"))
     busy = total = 0.0
     for w0, w1 in windows:
@@ -61,6 +60,7 @@ def busy_share(events, windows):
 
 def main() -> int:
     import torch
+    from torch.autograd import DeviceType
 
     p = argparse.ArgumentParser()
     p.add_argument("--queries", type=int, default=19000)
@@ -85,7 +85,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
     from quickrank_tpu_torch.learning import LambdaMart, ObliviousLambdaMart
-    from quickrank_tpu_torch.learning.mart import Mart
     from quickrank_tpu_torch.metrics import core
     from quickrank_tpu_torch.metrics.metrics import metric_factory
     from quickrank_tpu_torch.trees import grow
@@ -109,17 +108,6 @@ def main() -> int:
     metric = metric_factory(args.metric)
     make(2).learn(ds, None, metric, verbose=False, device="cuda")
 
-    windows = []
-    step = Mart._step
-
-    def timed_step(self, *a, **k):
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("boost_iteration"):
-            out = step(self, *a, **k)
-            float(out[2])  # the host reads the metric each iteration
-        windows.append((t0, time.perf_counter()))
-        return out
-
     grad_events = []
     learner_cls = type(make(1))
     gradients = learner_cls._gradients
@@ -132,24 +120,22 @@ def main() -> int:
         grad_events.append(ev)
         return out
 
-    Mart._step = timed_step
     learner_cls._gradients = timed_gradients
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         lm = make(args.trees)
         grow.HOST_SYNCS = 0
         lm.learn(ds, None, metric, verbose=False, device="cuda")
-    Mart._step = step
     learner_cls._gradients = gradients
     torch.cuda.synchronize()
     gradient_ms = [round(a.elapsed_time(b), 4) for a, b in grad_events[args.skip:]]
     events = prof.events()
     marks = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == "boost_iteration")
+                   if e.name == "qr.boost.iter" and e.device_type == DeviceType.CPU)
     steady = marks[args.skip:]
     busy, total = busy_share(events, steady)
     splits = (~lm.ensemble.is_leaf).sum(dim=1).tolist()
-    per_tree = [round(b - a, 6) for a, b in windows[args.skip:]]
+    per_tree = [round(t, 6) for t in lm.history["iter_seconds"][args.skip:]]
     print(card)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     if args.trace:
