@@ -734,21 +734,43 @@ def main() -> int:
           f"{k4_times[scattered][0] / k4_times[as_run][0]:.2f}x the same docs as a run")
     print(f"  bounds: K4 root {k4_bound[0]:.4f} ms by {k4_bound[1]}, K5 {k5_bound[0]:.4f} "
           f"ms by {k5_bound[1]}")
+    # K4's histograms of the fold, kept for phase 6's split kernels as the
+    # growers hold them ([k, F, B, C]): the root; a split of it by its best
+    # (feature, bin), as [root, left, right = root - left]; 16 nodes of the
+    # random partition; and an oblivious level's 8 nodes on two channels
+    from quickrank_tpu_torch.ops import kernel_split
+    from quickrank_tpu_torch.trees import grow
+
+    def as_nodes(h, k, C):
+        return h.reshape(W, 256, k, C).permute(2, 0, 1, 3).contiguous()
+
+    root_h = as_nodes(kernel_histogram.node_histogram(binned, vt, pos_root, 256, 0, 1), 1, 3)
+    _, f_root, t_root, _ = kernel_split.split_scan(
+        root_h, torch.ones((1, W), dtype=torch.bool, device=dev), 1)
+    goes_left = grow.route_bits(binned, f_root[0], t_root[0])
+    left_h = as_nodes(kernel_histogram.node_histogram(
+        binned, vt, torch.where(td.step.doc_mask & goes_left, 0, 1).to(torch.int32), 256, 0, 1),
+        1, 3)
+    split_hists = {
+        "root": root_h, "split": torch.cat([root_h, left_h, root_h - left_h]).contiguous(),
+        "nodes": as_nodes(kernel_histogram.node_histogram(binned, vt, pos_nodes, 256, 0, 16),
+                          16, 3),
+        "level": as_nodes(kernel_histogram.node_histogram(binned, vt2, pos_nodes, 256, 0, 8),
+                          8, 2)}
     del td, binned, bins64, g, vt, vt2, sub, pos_root, pos_nodes, slots, vals, slot_ids
-    del k4_cases, tenth, tenth_rows
+    del k4_cases, tenth, tenth_rows, root_h, left_h, goes_left
 
     # -- phase 6: LambdaMART training at full width, both growers ----------
     phase(f"6: LambdaMART, {TRAIN_TREES} trees, {train_ds.num_queries} train "
           f"+ {valid_ds.num_queries} valid queries, on {card}")
     from quickrank_tpu_torch.learning.base import LTRAlgorithm
     from quickrank_tpu_torch.metrics import Ndcg
-    from quickrank_tpu_torch.trees import grow
-
-    from quickrank_tpu_torch.ops import kernel_query_sum
+    from quickrank_tpu_torch.ops import histogram, kernel_query_sum
 
     for name in kernel_histogram.LAUNCHES:
         kernel_histogram.LAUNCHES[name] = 0
     kernel_query_sum.LAUNCHES = 0
+    split_train_launches = dict.fromkeys(kernel_split.LAUNCHES, 0)
     train_runs = {}
 
     def report_run(name, lm, hist):
@@ -765,9 +787,42 @@ def main() -> int:
         lm = LambdaMart(ntrees=TRAIN_TREES, nleaves=16, nthresholds=255, growth=growth,
                         max_depth=4 if growth == "level" else 0, seed=1, esr=100)
         grow.HOST_SYNCS = 0
+        for name in kernel_split.LAUNCHES:
+            kernel_split.LAUNCHES[name] = 0
+        # each grown tree's splits, read before the valid fold's early stop
+        # truncates the ensemble (summed on the card: no read-back a tree)
+        grown, fit = [], lm._fit_and_assign
+
+        def fit_counting(*args, fit=fit, grown=grown, **kwargs):
+            tree, node, done = fit(*args, **kwargs)
+            grown.append((~tree.is_leaf).sum())
+            return tree, node, done
+
+        lm._fit_and_assign = fit_counting
         hist = lm.learn(train_ds, valid_ds, Ndcg(10), verbose=False)
+        del lm._fit_and_assign
         per_tree = report_run(f"{growth}@255", lm, hist)
         train_runs[growth] = (lm, per_tree)
+        # the split scan and node statistics (csrc/split_scan.cu, not TPU
+        # kernels): one scan a split decision, one node-statistics launch for
+        # the root and one for each split's two children (a decision that
+        # freezes its leaf launches none); the level-wise grower's scan a level
+        split_launches = dict(kernel_split.LAUNCHES)
+        for name, count_ in split_launches.items():
+            split_train_launches[name] += count_
+        splits_grown = int(torch.stack(grown).sum())
+        print(f"    split kernels: {split_launches}, a tree "
+              f"{ {k: v / TRAIN_TREES for k, v in split_launches.items()} }; "
+              f"{splits_grown} splits grown in {len(grown)} trees")
+        if growth == "best":
+            require(len(grown) == TRAIN_TREES
+                    and split_launches["split_scan"] == grow.HOST_SYNCS
+                    and split_launches["node_stats"] == TRAIN_TREES + splits_grown,
+                    f"best: split kernel launches {split_launches}, {grow.HOST_SYNCS} syncs, "
+                    f"{splits_grown} splits grown in {len(grown)} trees")
+        else:
+            require(split_launches["prefix_sum"] == 4 * TRAIN_TREES,
+                    f"level: split kernel launches {split_launches}")
         print(f"    train NDCG@10 {[round(x, 5) for x in hist['train']]}")
         print(f"    valid NDCG@10 {[round(x, 5) for x in hist['valid']]}, best "
               f"iteration {lm.best_iteration}")
@@ -812,6 +867,75 @@ def main() -> int:
               f"bound {bnd_[0]:.4f} ms by {bnd_[1]}); max |kernel - float64 sum| "
               f"{qsum_times[label][5]:.3g}")
     del pairs_, qsum_cases, got_, want_, f64_
+
+    # the split scan, node statistics and XLA-order sums (csrc/split_scan.cu,
+    # not TPU kernels) at the shapes the growers give them, on phase 5's K4
+    # histograms of the fold: bitwise their plain versions (the loops, on the
+    # same card tensors), timed beside their bound (bytes: each value read
+    # once, each output written once; operations: a scan's adds, the gain's
+    # 11 a bin, a sum's adds)
+    F_ = split_hists["root"].shape[1]
+    mask4 = torch.rand((4, F_), device=dev, generator=g_) < 0.6
+    mask4[:, 0] = True
+    level_cum = histogram._prefix_sum_loops(split_hists["level"], 2)
+    lc_, ls_ = level_cum[..., 0], level_cum[..., 1]
+    rc_, rs_ = level_cum[:, :, -1:, 0] - lc_, level_cum[:, :, -1:, 1] - ls_
+    node_gain = (ls_ * ls_ / torch.clamp(lc_, min=1.0)
+                 + rs_ * rs_ / torch.clamp(rc_, min=1.0)).movedim(0, -1)  # [F, B, 8]
+    table_ = split_hists["split"]
+    dv_ = torch.zeros(3, device=dev)
+
+    def children_stats():
+        kernel_split.node_stats(table_, dv_, 1, 2)
+        return dv_[1:3]
+
+    def split_case(h, masks, minls):
+        k, F, B, _ = h.shape
+        return (lambda: kernel_split.split_scan(h, masks, minls),
+                lambda: grow._best_splits_plain(h, masks, minls),
+                k * F * B * 2 * 4 + k * F + k * 21, k * F * B * 11)
+
+    def sum_case(kernel, plain, x, nbytes):
+        return kernel, plain, nbytes, x.numel()
+
+    split_cases = {
+        "split_scan [1, F, 256, 3] k=1, minls 1 (a best-first split)": split_case(
+            split_hists["root"], torch.ones((1, F_), dtype=torch.bool, device=dev), 1),
+        "split_scan [4, F, 256, 3] k=4, minls 40, sampled features": split_case(
+            split_hists["nodes"][:4].contiguous(), mask4, 40),
+        "node_stats a split's two children of [F, 256, 3]": (
+            children_stats, lambda: grow._deviance(*grow._node_stats(table_[1:3])),
+            2 * 256 * 3 * 4 + 2 * 4, 2 * (3 * 256 + 4)),
+        "prefix_sum [16, F, 256, 3] dim 2 (a level-wise level)": sum_case(
+            lambda: histogram.prefix_sum(split_hists["nodes"], 2),
+            lambda: histogram._prefix_sum_loops(split_hists["nodes"], 2),
+            split_hists["nodes"], 2 * split_hists["nodes"].numel() * 4),
+        "prefix_sum [8, F, 256, 2] dim 2 (an oblivious level)": sum_case(
+            lambda: histogram.prefix_sum(split_hists["level"], 2),
+            lambda: histogram._prefix_sum_loops(split_hists["level"], 2),
+            split_hists["level"], 2 * split_hists["level"].numel() * 4),
+        "tree_sum [F, 256, 8] (an oblivious level's node gains)": sum_case(
+            lambda: histogram.tree_sum(node_gain), lambda: histogram._tree_sum_loops(node_gain),
+            node_gain, (node_gain.numel() + node_gain.numel() // 8) * 4)}
+    split_times = {}
+    for label, (kernel_, plain_fn, nbytes_, ops_) in split_cases.items():
+        name_ = label.split()[0]
+        before_ = kernel_split.LAUNCHES[name_]
+        got_, want_ = kernel_(), plain_fn()
+        require(kernel_split.LAUNCHES[name_] == before_ + 1,
+                f"{label}: not one launch of the kernel")
+        got_ = got_ if isinstance(got_, tuple) else (got_,)
+        want_ = want_ if isinstance(want_, tuple) else (want_,)
+        for a_, b_ in zip(got_, want_, strict=True):
+            require(a_.dtype == b_.dtype and a_.shape == b_.shape and torch.equal(
+                a_.view(torch.int32) if a_.dtype == torch.float32 else a_,
+                b_.view(torch.int32) if b_.dtype == torch.float32 else b_),
+                f"{label}: not bitwise its plain version")
+        bnd_ = bound_ms(nbytes_, ops_)
+        split_times[label] = (time_ms(kernel_, reps=20), time_ms(plain_fn, reps=3), bnd_)
+        print(f"  {label}: bitwise its plain version; {split_times[label][0]:.4f} ms (plain "
+              f"{split_times[label][1]:.4f}; bound {bnd_[0]:.5f} ms by {bnd_[1]})")
+    del split_hists, level_cum, node_gain, table_, got_, want_
     with tempfile.TemporaryDirectory() as tmp:
         for growth, (lm, _) in train_runs.items():
             path = os.path.join(tmp, f"{growth}.xml")
@@ -3208,6 +3332,15 @@ def main() -> int:
         "replaces": None, "shape": q_label, "launches": qsum_launches, "max_abs_err": 0.0,
         "ms": q_t[0], "plain_ms": q_t[1], "float64_sum_ms": q_t[2], "bound_ms": q_t[4][0],
         "bound_by": q_t[4][1], "library_ms": q_t[3]}}))
+    # the split scan, node statistics and XLA-order sums: not TPU kernels
+    # either (launches: phase 6's training runs; held bitwise against their
+    # plain versions there, on K4's histograms of the fold)
+    print(json.dumps({"split_kernels": [
+        {"name": label.split()[0], "route": "cuda",
+         "source": "quickrank_tpu_torch/csrc/split_scan.cu", "replaces": None, "shape": label,
+         "launches": split_train_launches[label.split()[0]], "max_abs_err": 0.0, "ms": t[0],
+         "plain_ms": t[1], "bound_ms": t[2][0], "bound_by": t[2][1]}
+        for label, t in split_times.items()]}))
     print(f"  under a group (phases 35-36, 38-40; unsharded / 1-rank gloo group / 2 gloo "
           f"ranks): "
           + "; ".join(f"DART {k} {' / '.join(f'{x:.4f}' for x in v)} s/iteration"

@@ -30,8 +30,9 @@ Scans.  On the CPU the slot-axis and bin-axis scans are
 evaluates ``jnp.cumsum``, so the potentials and the search follow the JAX
 package's arithmetic (``exp`` differs from XLA's in the last bit, so the
 potentials are held to a tolerance, not bitwise).  On a CUDA tensor each
-scan is one ``torch.cumsum``: ``prefix_sum`` is a Python loop of small
-launches.
+scan is one ``torch.cumsum``, the card's order since RankBoost was ported
+(``prefix_sum`` is one launch there too, in XLA's order, but taking it would
+change the card's arithmetic).
 
 Reference semantics kept: pairs (i, j) with i < j in dataset order and
 label_j > label_i; alpha = 0.5 ln((z + r)/(z - r)) with the r >= 1 escape

@@ -64,6 +64,17 @@ SIGNATURES = {
     "partition_rows": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # x, rows, length, inner, out, stream
     "query_sum": [_P, _I64, _I64, _I64, _P, _P],
+    # f, bins: the blocks a node's rows take (0: past shared memory)
+    "split_scan_blocks": [_I64, _I64],
+    # hist, k, f, bins, channels, masks, minls, partial, counter, can, fstar,
+    # tstar, gain, stream
+    "split_scan": [_P, _I64, _I64, _I64, _I, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+                   _P],
+    # hist, f, bins, channels, start, count, deviance, stream
+    "node_stats": [_P, _I64, _I64, _I, _I64, _I64, _P, _P],
+    # x, ndim, sizes, strides, axis_stride, rows, length, out, stream
+    "xla_prefix_sum": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    "xla_tree_sum": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -14,7 +14,9 @@ does, so on the CPU the port's histograms are bitwise the JAX package's.
 
 ``prefix_sum`` and ``tree_sum`` reproduce the order in which XLA on the CPU
 sums a histogram's bin axis, so that the gain scan picks the same split
-from the same histogram, bit for bit.
+from the same histogram, bit for bit: on the CPU as Python loops of
+elementwise adds, on a CUDA tensor as one launch of a kernel that adds in
+the same order (``ops/kernel_split.py``).
 
 On the card every histogram is the kernels' fixed-point sum under a scale
 (:func:`histogram_scale`: the channels' max bits and the count of real docs,
@@ -38,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from quickrank_tpu_torch.ops import kernel_split
 from quickrank_tpu_torch.ops.binning import bin_rows
 
 NCHANNELS = 3  # count, sum_grad, sum_grad_sq
@@ -218,7 +221,16 @@ def _sequential_scan(x: torch.Tensor) -> torch.Tensor:
 def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Inclusive prefix sum along ``dim``, associated as XLA on the CPU
     associates ``cumsum``: sequential within blocks of 16, block totals
-    scanned the same way (recursively) and added to the next blocks."""
+    scanned the same way (recursively) and added to the next blocks.  A
+    CUDA tensor takes one kernel launch, the CPU :func:`_prefix_sum_loops`."""
+    if x.device.type == "cuda":
+        return kernel_split.prefix_sum(x, dim)
+    return _prefix_sum_loops(x, dim)
+
+
+def _prefix_sum_loops(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`prefix_sum` as Python loops of elementwise adds, on any device
+    (the kernel's plain version)."""
     x = x.movedim(dim, -1)
     n = x.shape[-1]
     if n <= _XLA_BLOCK_SCAN:
@@ -228,7 +240,7 @@ def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
         blocks = F.pad(x, (0, m * _XLA_BLOCK_SCAN - n)).reshape(
             x.shape[:-1] + (m, _XLA_BLOCK_SCAN))
         within = _sequential_scan(blocks)
-        totals = prefix_sum(within[..., -1], -1)
+        totals = _prefix_sum_loops(within[..., -1], -1)
         carry = F.pad(totals[..., :-1], (1, 0))
         out = (within + carry[..., None]).reshape(x.shape[:-1] + (-1,))[..., :n]
     return out.movedim(-1, dim)
@@ -254,7 +266,16 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     centred: at 101 bins they hold 19, 32, 32 and 18 elements.  This is the
     order inside the JAX package's jitted ``_node_stats`` and grower, at
     every length from 1 to 256 (``tests/test_torch_histogram.py``); the
-    padded zeros change no bit."""
+    padded zeros change no bit.  A CUDA tensor takes one kernel launch, the
+    CPU :func:`_tree_sum_loops`."""
+    if x.device.type == "cuda":
+        return kernel_split.tree_sum(x)
+    return _tree_sum_loops(x)
+
+
+def _tree_sum_loops(x: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_sum` as Python loops of elementwise adds, on any device
+    (the kernel's plain version)."""
     while x.shape[-1] >= _XLA_BLOCK_SUM:
         n = x.shape[-1]
         m = -(-n // _XLA_BLOCK_SUM)

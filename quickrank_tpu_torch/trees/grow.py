@@ -44,14 +44,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from quickrank_tpu_torch.ops import kernel_split
 from quickrank_tpu_torch.ops.binning import bin_columns, gather_bins
 from quickrank_tpu_torch.ops.histogram import (
+    _prefix_sum_loops,
+    _tree_sum_loops,
     doc_channels,
     group_histogram,
     histogram_scale,
     masked_histogram_t,
-    prefix_sum,
-    tree_sum,
 )
 from quickrank_tpu_torch.ops.scoring import descend_tree_binned
 from quickrank_tpu_torch.trees.structs import Tree
@@ -106,8 +107,9 @@ class GrowConfig:
 def _node_stats(hist_node: torch.Tensor):
     """(count, sum_g, sum_g2) of a node from its [F, B, 3] histogram (or of
     k nodes from [k, F, B, 3], each [k]): every feature sees each doc once,
-    so feature 0 is read, summed over bins in XLA's order."""
-    s = tree_sum(hist_node[..., 0, :, :].transpose(-1, -2))
+    so feature 0 is read, summed over bins in XLA's order (the loops, on
+    any device: the plain version of ``kernel_split.node_stats``)."""
+    s = _tree_sum_loops(hist_node[..., 0, :, :].transpose(-1, -2))
     return s[..., 0], s[..., 1], s[..., 2]
 
 
@@ -115,6 +117,17 @@ def _deviance(c, s, s2):
     """Node deviance sum g^2 - (sum g)^2 / count (rtnode_histogram.cc's
     squares_sum_ bookkeeping feeding rt.cc:59)."""
     return torch.where(c > 0, s2 - s * s / torch.clamp(c, min=1.0), 0.0)
+
+
+def set_deviance(deviance: torch.Tensor, hist: torch.Tensor, start: int, count: int) -> None:
+    """``deviance[start:start + count]`` = the deviance of the nodes
+    ``hist[start:start + count]`` of the grower's ``[nodes, F, B, 3]``
+    table, in place: one launch of ``kernel_split.node_stats`` on the card,
+    :func:`_deviance` of :func:`_node_stats` on the CPU."""
+    if hist.device.type == "cuda":
+        kernel_split.node_stats(hist, deviance, start, count)
+    else:
+        deviance[start:start + count] = _deviance(*_node_stats(hist[start:start + count]))
 
 
 def _feature_sample_mask(generator: Optional[torch.Generator], F: int, k: int):
@@ -130,9 +143,19 @@ def _best_splits(hist_nodes: torch.Tensor, feat_masks: torch.Tensor, minls: int)
     """Scan the cumulative histograms ``[k, F, B, 3]`` of k nodes, each under
     its own feature mask ``[k, F]``, for the max-gain (feature, bin):
     ``(can_split, f_star, t_star, gain)``, each ``[k]`` (rt.cc:257-313).
-    ``torch.argmax`` takes the first maximum, as ``jnp.argmax`` does."""
+    One launch of ``kernel_split.split_scan`` on the card,
+    :func:`_best_splits_plain` on the CPU."""
+    if hist_nodes.device.type == "cuda":
+        return kernel_split.split_scan(hist_nodes, feat_masks, minls)
+    return _best_splits_plain(hist_nodes, feat_masks, minls)
+
+
+def _best_splits_plain(hist_nodes: torch.Tensor, feat_masks: torch.Tensor, minls: int):
+    """:func:`_best_splits` in plain PyTorch on any device: the scan's loops
+    (XLA's order), the gain, and ``torch.argmax``, which takes the first
+    maximum, as ``jnp.argmax`` does."""
     k, _, B, _ = hist_nodes.shape
-    cum = prefix_sum(hist_nodes, 2)
+    cum = _prefix_sum_loops(hist_nodes, 2)
     lc = cum[..., 0]
     ls = cum[..., 1]
     rc = cum[:, :, -1:, 0] - lc
@@ -224,7 +247,7 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
     deviance = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
     with span("qr.grow.hist"):
         hist[0] = hist_of(doc_mask)
-        deviance[0] = _deviance(*_node_stats(hist[0]))
+        set_deviance(deviance, hist, 0, 1)
 
     feature = np.full(max_nodes, -1, np.int32)
     threshold = np.zeros(max_nodes, np.float32)
@@ -279,8 +302,7 @@ def fit_tree(binned: torch.Tensor, grad: torch.Tensor, doc_mask: torch.Tensor,
             left_hist = hist_of(in_leaf & goes_left & doc_mask)
             hist[a] = left_hist
             hist[b] = h_leaf - left_hist
-            deviance[a] = _deviance(*_node_stats(hist[a]))
-            deviance[b] = _deviance(*_node_stats(hist[b]))
+            set_deviance(deviance, hist, a, 2)
         feature[leaf] = f_star
         threshold[leaf] = thr_host[f_star, t_star]
         threshold_bin[leaf] = t_star

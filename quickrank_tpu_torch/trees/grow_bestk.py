@@ -44,12 +44,11 @@ from quickrank_tpu_torch.trees.grow import (
     NEG_INF,
     GrowConfig,
     _best_splits,
-    _deviance,
     _finish_tree,
-    _node_stats,
     feature_masks,
     global_width,
     route_bits,
+    set_deviance,
 )
 from quickrank_tpu_torch.utils.profiling import span
 
@@ -83,7 +82,7 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
     hist = torch.zeros((max_nodes, F, B, 3), dtype=torch.float32, device=dev)
     hist[0] = hists_of(torch.where(doc_mask, 0, 1), 1)[0]
     deviance = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
-    deviance[0] = _deviance(*_node_stats(hist[0]))
+    set_deviance(deviance, hist, 0, 1)
 
     feature = np.full(max_nodes, -1, np.int32)
     threshold = np.zeros(max_nodes, np.float32)
@@ -161,8 +160,7 @@ def fit_tree_bestk(binned: torch.Tensor, grad: torch.Tensor,
         right_hist = hist[leaves_t] - left_hist
         hist[a_t] = left_hist
         hist[a_t + 1] = right_hist
-        deviance[a_t] = _deviance(*_node_stats(left_hist))
-        deviance[a_t + 1] = _deviance(*_node_stats(right_hist))
+        set_deviance(deviance, hist, n_nodes, 2 * n_sel)  # the children a_ids, a_ids + 1
         for (leaf, f, t), a in zip(splits, a_ids):
             b = a + 1
             feature[leaf] = f

@@ -47,10 +47,9 @@ from quickrank_tpu_torch.trees.grow import (
     NEG_INF,
     GrowConfig,
     _best_split,
-    _deviance,
     _feature_sample_mask,
     _finish_tree,
-    _node_stats,
+    set_deviance,
 )
 from quickrank_tpu_torch.utils.profiling import span
 
@@ -155,7 +154,7 @@ def fit_tree_clustered(binned: torch.Tensor, grad: torch.Tensor,
     hist = torch.zeros((max_nodes, F_real, B, 3), dtype=torch.float32, device=dev)
     hist[0] = hist_of(rows, chan_t, (pos == 0) & live)
     deviance = torch.zeros(max_nodes, dtype=torch.float32, device=dev)
-    deviance[0] = _deviance(*_node_stats(hist[0]))
+    set_deviance(deviance, hist, 0, 1)
     # first tile and tile count (0 = none) of each node's run
     run_tile = torch.zeros(max_nodes, dtype=torch.int64, device=dev)
     run_ntiles = torch.zeros(max_nodes, dtype=torch.int64, device=dev)
@@ -213,8 +212,7 @@ def fit_tree_clustered(binned: torch.Tensor, grad: torch.Tensor,
         left_hist = hist_of(rows, chan_t, to_left)
         hist[a] = left_hist
         hist[b] = h_leaf - left_hist
-        deviance[a] = _deviance(*_node_stats(hist[a]))
-        deviance[b] = _deviance(*_node_stats(hist[b]))
+        set_deviance(deviance, hist, a, 2)
 
         # partition directives: per-tile child counts padded to 8 rows, child
         # runs of whole tiles plus one guard tile, the children in the leaf's

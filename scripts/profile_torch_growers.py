@@ -22,11 +22,19 @@ times a parent commit unpacked beside the working tree:
 
 Hosts differ by tens of percent in the time they take to launch a tree's
 kernels, so only runs of one call compare.
+
+``--save FILE`` writes each grower's ensemble tensors; ``--against FILE``
+holds them bit for bit against a file that another checkout's run saved,
+and exits 1 where any differs:
+
+    python scripts/profile_torch_growers.py --repo build/parent --trees 100 --save p.pt
+    python scripts/profile_torch_growers.py --trees 100 --against p.pt
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -44,6 +52,9 @@ def main() -> int:
     p.add_argument("--trees", type=int, default=8)
     p.add_argument("--growers", default="level@255,oblivious@255,bestk@255,best@255",
                    help="comma-separated growers to train; '' for K5 alone")
+    p.add_argument("--save", default="", help="write each grower's ensemble tensors here")
+    p.add_argument("--against", default="",
+                   help="hold each grower's ensemble bit for bit against this --save file")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_growers: no CUDA device", file=sys.stderr)
@@ -68,12 +79,17 @@ def main() -> int:
     report = {"repo": os.path.abspath(args.repo), "card": card, "docs": ds.num_docs,
               "queries": ds.num_queries, "growers": {}}
     wanted = [g for g in args.growers.split(",") if g]
+    trees = {}
     for name, make in growers.items():
         if name not in wanted:
             continue
         for counter in kernel_histogram.LAUNCHES:
             kernel_histogram.LAUNCHES[counter] = 0
-        hist = make().learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+        model = make()
+        hist = model.learn(ds, None, Ndcg(10), verbose=False, device="cuda")
+        ens = model.ensemble
+        trees[name] = {f.name: getattr(ens, f.name).cpu() for f in dataclasses.fields(ens)
+                       if isinstance(getattr(ens, f.name), torch.Tensor)}
         it = [round(s, 6) for s in hist["iter_seconds"]]
         report["growers"][name] = {
             "seconds_per_tree": statistics.median(it[2:]), "iterations": it,
@@ -83,8 +99,23 @@ def main() -> int:
               f"(median of iterations 2+; all: {it})")
     report["k5"] = time_k5(torch, kernel_histogram)
     print(f"K5: {report['k5']}")
+    if args.save:
+        torch.save(trees, args.save)
+    same = True
+    if args.against:
+        other = torch.load(args.against)
+        for name, tensors in trees.items():
+            theirs = other.get(name, {})
+            diff = [k for k, v in tensors.items()  # bit for bit: dtype, shape and bytes
+                    if k not in theirs or v.dtype != theirs[k].dtype
+                    or v.shape != theirs[k].shape
+                    or v.numpy().tobytes() != theirs[k].numpy().tobytes()]
+            report["growers"][name]["bitwise_against"] = not diff
+            same = same and not diff
+            print(f"{name}: {len(tensors)} ensemble tensors against {args.against}: "
+                  + ("equal bit for bit" if not diff else f"differ in {diff}"))
     print(json.dumps(report))
-    return 0
+    return 0 if same else 1
 
 
 def time_k5(torch, kernel_histogram, n=2558976, reps=200):

@@ -29,7 +29,7 @@ import sys
 import time
 
 SECTIONS = ("build_work_buffer", "_channels", "masked_histogram_t", "partition_rows",
-            "descend_tree_binned", "_best_split", "_node_stats", "_finish_tree")
+            "descend_tree_binned", "_best_split", "set_deviance", "_finish_tree")
 
 
 def main() -> int:

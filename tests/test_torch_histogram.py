@@ -166,6 +166,23 @@ def test_cpu_wrappers_launch_nothing():
     assert kernel_histogram.LAUNCHES == before
 
 
+def test_cpu_growers_launch_no_split_kernel():
+    """A best-first and an oblivious tree grown on the CPU take the loops:
+    no split-scan, node-statistics or XLA-order sum launch."""
+    from quickrank_tpu_torch.ops import kernel_split
+    from quickrank_tpu_torch.trees import grow
+    from quickrank_tpu_torch.trees.oblivious import fit_oblivious_tree
+
+    binned, chan, mask, node, B = _problem(64, seed=6)
+    args = (torch.from_numpy(binned.astype(np.uint8)), torch.from_numpy(chan[:, 1].copy()),
+            torch.from_numpy(mask), torch.zeros((binned.shape[1], B)))
+    before = dict(kernel_split.LAUNCHES)
+    tree, _ = grow.fit_tree(*args, grow.GrowConfig(nleaves=8, num_bins=B))
+    assert int((~tree.is_leaf).sum()) > 0
+    fit_oblivious_tree(*args, depth=3)
+    assert kernel_split.LAUNCHES == before
+
+
 @pytest.mark.parametrize("bad", ["dtype", "values", "pos", "contiguous", "channels", "device"])
 def test_wrappers_reject_bad_input(bad):
     binned = torch.zeros((16, 4), dtype=torch.uint8)
