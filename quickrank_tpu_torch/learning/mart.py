@@ -929,8 +929,12 @@ def rescore_binned(ens: EnsembleTensors, sd: StepData, max_depth: int) -> torch.
     fused Kahan step of the training carry, so with the model's live trees
     the result is bitwise the scores training carried."""
     if sd.binned.device.type == "cuda":
-        return score_qs(scorer_rows(sd.binned),
-                        ensemble_to_qs(ens, space="bin").to(sd.binned.device))
+        with span("qr.boost.readback"):
+            host = ens.to("cpu")
+        qs = ensemble_to_qs(host, space="bin")
+        with span("qr.boost.readback"):  # pageable uploads sync the stream
+            qs = qs.to(sd.binned.device)
+        return score_qs(scorer_rows(sd.binned), qs)
     s = torch.zeros(sd.binned.shape[0], dtype=torch.float32)
     c = torch.zeros_like(s)
     zero = torch.zeros((), dtype=torch.float32)

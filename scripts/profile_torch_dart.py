@@ -5,11 +5,13 @@ Trains DART (LambdaMART with tree dropout) on MSLR-shaped synthetic data
 (data/synthetic.py: query lengths in [38, 232), 136 features) with a valid
 fold, under ``torch.profiler``, and reports for the iterations after the
 first ``--skip``: wall seconds per iteration, the device's busy and idle
-share over those iterations and device time by kernel (a run under the
-profiler), and the time of the iteration's sections (the tree fit, the
-dropped-set delta, the metric evaluations, the packed table's append, the
-periodic rescore) per iteration, each ended by a synchronize (a second run,
-without the profiler).  One short warm-up run first builds the kernels.
+share over the program's ``qr.boost.iter`` spans, device time by kernel,
+and the host ms an iteration of each of the program's spans inside the
+iteration (self time: less the program spans inside it), such as
+``qr.dart.drop`` (the dropout draws and the delta's launches),
+``qr.boost.lambdas``, ``qr.grow``, ``qr.dart.restore``, ``qr.boost.metrics``,
+``qr.boost.readback`` and ``qr.dart.rescore``.  One short warm-up run first
+builds the kernels.
 
 Run from the repository root:
     python scripts/profile_torch_dart.py --queries 19000 --trees 40
@@ -18,12 +20,10 @@ Run from the repository root:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
 import sys
-import time
 
 
 def main() -> int:
@@ -49,7 +49,7 @@ def main() -> int:
     from torch.autograd import DeviceType
 
     from quickrank_tpu_torch.data.synthetic import make_ranking_dataset
-    from quickrank_tpu_torch.learning import dart as dart_mod
+    from quickrank_tpu_torch.learning.dart import Dart
     from quickrank_tpu_torch.metrics import Ndcg
 
     card = subprocess.run(
@@ -59,90 +59,44 @@ def main() -> int:
     valid = make_ranking_dataset(num_queries=args.valid_queries, seed=12)
 
     def make(ntrees):
-        return dart_mod.Dart(ntrees=ntrees, nleaves=16, nthresholds=255, seed=1, esr=0,
-                             rate_drop=args.rate_drop, sample_type=args.sample_type,
-                             normalize_type=args.normalize_type)
+        return Dart(ntrees=ntrees, nleaves=16, nthresholds=255, seed=1, esr=0,
+                    rate_drop=args.rate_drop, sample_type=args.sample_type,
+                    normalize_type=args.normalize_type)
 
     make(3).learn(train, valid, Ndcg(10), verbose=False, device="cuda")
-
-    # sections: seconds of each call by iteration; an iteration opens at its
-    # dropout count, the first host step of the loop
-    host = {}
-    state = {"range": None, "m": -1, "sync": False}
-
-    def section(name, fn):
-        def wrapped(*a, **k):
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(name):
-                out = fn(*a, **k)
-                if state["sync"]:
-                    torch.cuda.synchronize()
-            host.setdefault(name, {}).setdefault(state["m"], 0.0)
-            host[name][state["m"]] += time.perf_counter() - t0
-            return out
-        return wrapped
-
-    count = dart_mod.Dart._trees_to_dropout
-
-    def open_iteration(self, *a, **k):
-        if state["range"] is not None:
-            state["range"].__exit__(None, None, None)
-        state["m"] += 1
-        state["range"] = torch.profiler.record_function("dart_iteration")
-        state["range"].__enter__()
-        return count(self, *a, **k)
-
-    patched = {
-        (dart_mod.Dart, "_trees_to_dropout"): open_iteration,
-        (dart_mod.Dart, "_fit"): section("fit", dart_mod.Dart._fit),
-        (dart_mod.DropTable, "delta"): section("delta", dart_mod.DropTable.delta),
-        (dart_mod.DropTable, "append"): section("table_append", dart_mod.DropTable.append),
-        (dart_mod, "eval_metric"): section("eval_metric", dart_mod.eval_metric),
-        (dart_mod, "rescore_binned"): section("rescore", dart_mod.rescore_binned),
-    }
-    saved = {key: getattr(*key) for key in patched}
-
-    def run(profile: bool):
-        state.update(range=None, m=-1, sync=not profile)
-        host.clear()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        ctx = torch.profiler.profile(activities=acts) if profile else contextlib.nullcontext()
-        for (obj, name), fn in patched.items():
-            setattr(obj, name, fn)
-        try:
-            with ctx as prof:
-                hist = make(args.trees).learn(train, valid, Ndcg(10), verbose=False,
-                                              device="cuda")
-                if state["range"] is not None:
-                    state["range"].__exit__(None, None, None)
-                torch.cuda.synchronize()
-        finally:
-            for (obj, name), fn in saved.items():
-                setattr(obj, name, fn)
-        return prof, hist
-
-    prof, hist = run(profile=True)
-    _, synced = run(profile=False)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        hist = make(args.trees).learn(train, valid, Ndcg(10), verbose=False, device="cuda")
+        torch.cuda.synchronize()
     events = prof.events()
-    # the host's ranges (the profiler also copies annotations to the device)
-    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
-                    if e.name == "dart_iteration" and e.device_type == DeviceType.CPU)
-    steady = ranges[args.skip:]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.name.startswith("qr.") and e.device_type == DeviceType.CPU)
+    steady = [(s, e) for s, e, n in spans if n == "qr.boost.iter"][args.skip:]
     busy, total = busy_share(events, steady)
-    iters = range(args.skip, args.trees)
-    per_section = {name: sum(v.get(m, 0.0) for m in iters) / len(iters) * 1e3
-                   for name, v in host.items()}
+    # each span's self time: its length less that of the spans directly inside
+    # it (spans nest: a stack in start order finds each one's parent)
+    per_section: dict = {}
+    stack: list = []
+    for s0, s1, n in sorted(spans, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][1] <= s0:
+            stack.pop()
+        inside = any(w0 <= s0 and s1 <= w1 for w0, w1 in steady)
+        if stack and stack[-1][3]:
+            per_section[stack[-1][2]] -= s1 - s0
+        if inside and n != "qr.boost.iter":
+            per_section[n] = per_section.get(n, 0.0) + s1 - s0
+        stack.append((s0, s1, n, inside and n != "qr.boost.iter"))
+    per_section = {n: v / 1e3 / max(len(steady), 1) for n, v in sorted(per_section.items())}
     kernels = {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if t and any(k in e.key for k in ("qs_score", "histogram", "absmax", "to_float")):
+        if t and any(k in e.key for k in ("qs_score", "histogram", "split_scan", "node_stats")):
             kernels[e.key[:60]] = {"count": e.count, "device_ms_total": t / 1e3}
     print(card)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     if args.trace:
         prof.export_chrome_trace(args.trace)
     it = hist["iter_seconds"][args.skip:]
-    it_synced = synced["iter_seconds"][args.skip:]
     print(json.dumps({
         "docs": train.num_docs, "queries": train.num_queries, "trees": args.trees,
         "rate_drop": args.rate_drop, "sample_type": args.sample_type,
@@ -151,8 +105,8 @@ def main() -> int:
         "median_seconds_per_iteration": sorted(it)[len(it) // 2],
         "dropped_per_iteration": hist["dropped_per_iter"][args.skip:],
         "delta_ms": [round(x, 4) for x in hist["delta_ms"][-len(it):]],
-        "synchronized_median_seconds_per_iteration": sorted(it_synced)[len(it_synced) // 2],
-        "synchronized_ms_per_iteration_by_section": per_section,
+        "host_ms_per_iteration_by_span": per_section,
+        "rescored": hist["rescored"],
         "device_busy_share": busy / total if total else None,
         "device_idle_share": 1 - busy / total if total else None,
         "window_us": total, "busy_us": busy, "windows": len(steady), "kernels": kernels,
