@@ -629,20 +629,64 @@ def main() -> int:
           f"{pf_bound[0]:.4f} ms by {pf_bound[1]}")
 
     # -- phase 5: histogram kernels against their plain versions ----------
-    from quickrank_tpu_torch.learning.mart import TrainData
-    from quickrank_tpu_torch.ops import kernel_histogram
+    from quickrank_tpu_torch.data.dataset import shard_and_pad
+    from quickrank_tpu_torch.learning.mart import TrainData, column_map
+    from quickrank_tpu_torch.ops import binning, kernel_histogram
     from quickrank_tpu_torch.ops.histogram import doc_channels
 
     t0 = time.perf_counter()
     train_ds = make_ranking_dataset(num_queries=TRAIN_QUERIES, seed=11)
     valid_ds = make_ranking_dataset(num_queries=VALID_QUERIES, seed=12)
+    binning.DEVICE_BUILDS = 0
     td = TrainData.build(train_ds, 255, device=dev)
+    require(binning.DEVICE_BUILDS == 1, "the train fold's build did not bin on the card")
     binned = td.step.binned
     N, W = binned.shape
     phase(f"5: histogram kernels against the plain versions on "
           f"{train_ds.num_docs} docs ({train_ds.num_queries} queries, padded to "
           f"{N}) x {W} u8 columns; data + binning "
           f"{time.perf_counter() - t0:.1f} s")
+    # the bin wire the build wrote (csrc/bin_apply.cu, not a TPU kernel; a
+    # launch a piece of rows) against its plain version, the host binner of
+    # the padded host layout: bitwise; one launch on the whole fold timed
+    # beside the bound (each row byte read once, each wire byte written
+    # once) and the one PyTorch call that computes the ids, searchsorted
+    # (lower_bound) clamped to the top bin, laid out as the wire (timed,
+    # never used)
+    n_ds, F_ds, B_ = train_ds.num_docs, train_ds.num_features, td.thresholds.shape[1]
+    th_ = td.thresholds[:F_ds]
+    cmap_ = column_map(F_ds, W, None)
+    t1 = time.perf_counter()
+    host_wire = binning.bin_wire(binning.host_bin_ids(
+        shard_and_pad(train_ds).features, th_, cmap_), B_)
+    bin_plain_ms = (time.perf_counter() - t1) * 1e3
+    require(torch.equal(binned.cpu(), torch.from_numpy(host_wire)),
+            "bin wire: the card's differs from the host binner's")
+    del host_wire
+    xd = torch.from_numpy(train_ds.features).to(dev)
+    thd = torch.from_numpy(th_).to(dev)
+    cmd = torch.from_numpy(cmap_.astype(np.int32)).to(dev)
+    wire_ = torch.empty_like(binned)
+    require(torch.equal(binning.bin_apply(xd, thd, cmd, wire_), binned),
+            "bin wire: one launch on the whole fold differs from the build's pieces")
+
+    def library_wire():
+        ids = torch.searchsorted(thd, xd.T.contiguous()).clamp_(max=B_ - 1)
+        pad = torch.searchsorted(thd, torch.zeros((F_ds, 1), device=dev)).clamp_(max=B_ - 1)
+        out = torch.zeros_like(binned)
+        out[:n_ds, :F_ds] = ids.T
+        out[n_ds:, :F_ds] = pad.T
+        return out
+
+    bin_lib_diff = int((library_wire() != binned).sum())
+    bin_times = (time_ms(lambda: binning.bin_apply(xd, thd, cmd, wire_), reps=20),
+                 bin_plain_ms, time_ms(library_wire, reps=5),
+                 bound_ms(nbytes_of(xd, thd, cmd, wire_), N * F_ds * int(np.ceil(np.log2(B_ + 1)))))
+    bin_shape = f"[{n_ds}, {F_ds}] -> [{N}, {W}] u8 at {B_} bins"
+    print(f"  bin_apply_wire {bin_shape}: bitwise the host binner; {bin_times[0]:.4f} ms a launch (host binner {bin_plain_ms:.1f} ms, "
+          f"searchsorted {bin_times[2]:.4f} ms, {bin_lib_diff} ids differ; bound "
+          f"{bin_times[3][0]:.4f} ms by {bin_times[3][1]})")
+    del xd, thd, cmd, wire_
     gen = torch.Generator(device="cpu").manual_seed(5)
     g = torch.randn(N, generator=gen).to(dev)
     vt = doc_channels(g, td.step.doc_mask).T.contiguous()
@@ -3332,6 +3376,15 @@ def main() -> int:
         "replaces": None, "shape": q_label, "launches": qsum_launches, "max_abs_err": 0.0,
         "ms": q_t[0], "plain_ms": q_t[1], "float64_sum_ms": q_t[2], "bound_ms": q_t[4][0],
         "bound_by": q_t[4][1], "library_ms": q_t[3]}}))
+    # the bin wire: not a TPU kernel either (launches: phase 5's build; held
+    # bitwise against the host binner there, on the train fold)
+    print(json.dumps({"bin_apply": {
+        "name": "bin_apply_wire", "route": "cuda",
+        "source": "quickrank_tpu_torch/csrc/bin_apply.cu", "replaces": None,
+        "shape": bin_shape, "builds": 1,
+        "max_abs_err": 0.0, "ms": bin_times[0], "plain_ms": bin_times[1], "plain_on": "host",
+        "bound_ms": bin_times[3][0], "bound_by": bin_times[3][1], "library_ms": bin_times[2],
+        "library_ids_differ": bin_lib_diff}}))
     # the split scan, node statistics and XLA-order sums: not TPU kernels
     # either (launches: phase 6's training runs; held bitwise against their
     # plain versions there, on K4's histograms of the fold)

@@ -150,7 +150,8 @@ class PaddedDataset:
     shard's block alone.  Tensors are CPU torch tensors; callers move what
     they need to their device.
 
-      features   f32 numpy ``[S * docs_per_shard, F]`` (padding rows zero)
+      features   f32 numpy ``[S * docs_per_shard, F]`` (padding rows zero);
+                 None where the layout was made without it (``features=False``)
       labels     f32 ``[S * docs_per_shard]``
       doc_mask   bool ``[S * docs_per_shard]`` (False on padding rows)
       pad_index  int64 ``[S * queries_per_shard, max_docs]``: row of each
@@ -168,7 +169,7 @@ class PaddedDataset:
     With one block the indices are the flat layout's own.  JAX holds the
     index arrays in int32; torch indexes with int64, values equal."""
 
-    features: np.ndarray
+    features: Optional[np.ndarray]
     labels: torch.Tensor
     doc_mask: torch.Tensor
     pad_index: torch.Tensor
@@ -213,6 +214,7 @@ def shard_and_pad(
     doc_align: int = DOC_ALIGN,
     block: Optional[int] = None,
     force_dims: Optional[tuple] = None,
+    features: bool = True,
 ) -> PaddedDataset:
     """Lay ``ds`` out in the padded format, the JAX package's layout element
     for element (JAX dataset.py:209): queries packed into ``num_shards``
@@ -221,7 +223,11 @@ def shard_and_pad(
     rounded up to ``doc_align`` (the JAX package's histogram tile; kept so
     both packages pad alike).  ``block=s`` lays out shard ``s``'s block
     alone (a rank's own data).  ``force_dims`` = (queries, rows, longest
-    query) a block, agreed between processes (``parallel/multihost.py``)."""
+    query) a block, agreed between processes (``parallel/multihost.py``).
+    ``features=False`` lays out the index arrays alone and leaves
+    ``features`` None: a caller that bins reads a block's rows from ``ds``
+    itself (its real docs are ``ds``'s rows ``orig_index[0]`` on, in order;
+    ``learning/mart.py::block_wire``)."""
     counts = ds.docs_per_query()
     if len(counts) < num_shards:
         raise ValueError(f"num_queries={len(counts)} < num_shards={num_shards}")
@@ -238,11 +244,11 @@ def shard_and_pad(
                              f"{(q_loc, n_loc, dmax)}")
         q_loc, n_loc, dmax = fq, fn, fd
     shards = range(num_shards) if block is None else [block]
-    parts = [_pad_block(ds, groups[s], q_loc, n_loc, dmax) for s in shards]
+    parts = [_pad_block(ds, groups[s], q_loc, n_loc, dmax, features) for s in shards]
     cat = lambda k: np.concatenate([p[k] for p in parts])  # noqa: E731
     t = lambda k: torch.from_numpy(cat(k))  # noqa: E731
     return PaddedDataset(
-        features=cat("features"), labels=t("labels"), doc_mask=t("doc_mask"),
+        features=cat("features") if features else None, labels=t("labels"), doc_mask=t("doc_mask"),
         pad_index=t("pad_index"), slot_mask=t("slot_mask"), query_mask=t("query_mask"),
         nvalid=t("nvalid"), orig_index=t("orig_index"), inv_q=t("inv_q"),
         inv_slot=t("inv_slot"), num_docs_padded=len(parts) * n_loc,
@@ -251,16 +257,17 @@ def shard_and_pad(
     )
 
 
-def _pad_block(ds: Dataset, queries: list, q_loc: int, n_loc: int, dmax: int) -> dict:
+def _pad_block(ds: Dataset, queries: list, q_loc: int, n_loc: int, dmax: int,
+               features: bool) -> dict:
     """One shard's block: ``queries`` (contiguous ids) in dataset order from
-    row 0, padded to ``q_loc`` queries and ``n_loc`` rows."""
+    row 0, padded to ``q_loc`` queries and ``n_loc`` rows (the feature rows
+    only with ``features``)."""
     counts = ds.docs_per_query()[queries]
     Q = len(queries)
     r0 = int(ds.query_offsets[queries[0]])
     n = int(counts.sum())
     rows = slice(r0, r0 + n)
     out = dict(
-        features=np.zeros((n_loc, ds.num_features), dtype=FEATURE_DTYPE),
         labels=np.zeros((n_loc,), dtype=LABEL_DTYPE),
         doc_mask=np.zeros((n_loc,), dtype=bool),
         orig_index=np.full((n_loc,), -1, dtype=np.int64),
@@ -271,7 +278,9 @@ def _pad_block(ds: Dataset, queries: list, q_loc: int, n_loc: int, dmax: int) ->
         query_mask=np.zeros((q_loc,), dtype=bool),
         nvalid=np.zeros((q_loc,), dtype=np.int32),
     )
-    out["features"][:n] = ds.features[rows]
+    if features:
+        out["features"] = np.zeros((n_loc, ds.num_features), dtype=FEATURE_DTYPE)
+        out["features"][:n] = ds.features[rows]
     out["labels"][:n] = ds.labels[rows]
     out["doc_mask"][:n] = True
     out["orig_index"][:n] = np.arange(r0, r0 + n)

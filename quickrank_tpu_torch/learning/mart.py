@@ -77,9 +77,8 @@ from quickrank_tpu_torch.learning.base import LTRAlgorithm, resolve_device
 from quickrank_tpu_torch.metrics.metrics import Metric
 from quickrank_tpu_torch.ops.binning import (
     FLT_MAX,
-    apply_bins,
-    bin_wire,
     build_thresholds,
+    device_bin_wire,
     scorer_rows,
 )
 from quickrank_tpu_torch.ops.kernel_perfect import score_perfect
@@ -215,12 +214,13 @@ class TrainData:
             group = data_group(group)
             device = resolve_device(group.device if group is not None else device)
             if group is None:
-                padded = shard_and_pad(ds)
+                padded = shard_and_pad(ds, features=False)
             elif force_dims is None:
-                padded = shard_and_pad(ds, group.world_size, block=group.rank)
+                padded = shard_and_pad(ds, group.world_size, block=group.rank,
+                                       features=False)
                 group = group.with_num_docs(ds.num_docs)
             else:
-                padded = shard_and_pad(ds, force_dims=force_dims)
+                padded = shard_and_pad(ds, force_dims=force_dims, features=False)
                 group = group.with_num_docs(num_docs)
             if thresholds is None:
                 thresholds, _ = build_thresholds(ds.features, nthresholds)
@@ -233,30 +233,21 @@ class TrainData:
             # never chosen.  The port keeps the same widths so that histograms
             # and trees line up with JAX's, and global feature ids with the
             # unsharded run's.
-            F = padded.features.shape[1]
+            F = ds.num_features
             k = feat_comm.world_size if feat_comm is not None else 1
             g_align = 64 if thresholds.shape[1] <= 64 else 32
             f_blk = (-(-F // k) + g_align - 1) // g_align * g_align
             if k == 1 and f_blk - F < 8:
                 f_blk += g_align
-            feat = None
-            if feat_comm is None:
-                binned = apply_bins(padded.features, thresholds)
-            else:
-                # the stats column (global column 0), then this rank's block
-                feat = FeatureShard(feat_comm, f_blk)
-                cols = [0] + list(range(feat.lo, min(feat.lo + f_blk, F)))
-                binned = np.zeros((padded.features.shape[0], 1 + f_blk), np.int32)
-                binned[:, :len(cols)] = apply_bins(
-                    np.ascontiguousarray(padded.features[:, cols]), thresholds[cols])
+            feat = None if feat_comm is None else FeatureShard(feat_comm, f_blk)
+            # the JAX package's wire (mart.py:203-209): u8, u16 beyond 256
+            # bins, int32 beyond 65,536; the kernels widen the ids.  Binned
+            # from the dataset's own rows: the layout holds no feature copy
+            with span("qr.data.bin"):
+                wire = block_wire(ds, padded, thresholds, column_map(F, f_blk, feat), device)
             if f_blk * k != F:
                 thresholds = np.pad(thresholds, ((0, f_blk * k - F), (0, 0)),
                                     constant_values=FLT_MAX)
-            if feat is None and binned.shape[1] != f_blk:
-                binned = np.pad(binned, ((0, 0), (0, f_blk - F)))
-            # the JAX package's wire (mart.py:203-209): u8, u16 beyond 256
-            # bins, int32 beyond 65,536; the kernels widen the ids
-            wire = torch.from_numpy(bin_wire(binned, thresholds.shape[1]))
             to = lambda t: t.to(device)  # noqa: E731
             sd = StepData(
                 binned=to(wire),
@@ -293,6 +284,34 @@ class TrainData:
         if self.group is not None:
             return self.group.num_docs
         return int(self.padded.doc_mask.sum())
+
+
+def column_map(F: int, f_blk: int, feat: Optional[FeatureShard]) -> np.ndarray:
+    """Each column of a block's bin matrix: the dataset column it bins, or
+    -1 for a pad column (id 0).  One block: the ``F`` columns, then pad
+    columns up to ``f_blk``; under a 2-D mesh (``feat``) the stats column
+    (global column 0), then the rank's block of the global columns, padded
+    to ``1 + f_blk``."""
+    if feat is None:
+        cols, width = list(range(F)), f_blk
+    else:
+        cols, width = [0] + list(range(feat.lo, min(feat.lo + f_blk, F))), 1 + f_blk
+    out = np.full(width, -1, np.int64)
+    out[:len(cols)] = cols
+    return out
+
+
+def block_wire(ds: Dataset, padded: PaddedDataset, thresholds: np.ndarray,
+               col_map: np.ndarray, device) -> torch.Tensor:
+    """The bin wire of ``padded``, one block laid out without its features,
+    binned from ``ds``'s own rows (``ops/binning.py::device_bin_wire``: on a
+    CUDA device by the card's kernel, on the CPU by the host binner): the
+    block's real docs are the rows of ``ds`` from ``orig_index[0]`` on, in
+    order, and its other rows are padding."""
+    n = int(padded.doc_mask.sum())
+    r0 = int(padded.orig_index[0])
+    return device_bin_wire(ds.features[r0:r0 + n], thresholds[:ds.num_features], col_map,
+                           padded.num_docs_padded, device)
 
 
 def build_valid_traindata(tr: TrainData, valid: Optional[Dataset],

@@ -75,6 +75,8 @@ SIGNATURES = {
     # x, ndim, sizes, strides, axis_stride, rows, length, out, stream
     "xla_prefix_sum": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
     "xla_tree_sum": [_P, _I, _P, _P, _I64, _I64, _I64, _P, _P],
+    # x, n, f, thresholds, bins, col_map, width, n_loc, out_bytes, out, stream
+    "bin_apply_wire": [_P, _I64, _I64, _P, _I64, _P, _I64, _I64, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,8 +12,10 @@ Spans are named ``qr.<layer>[.<section>]`` and nest: ``qr.learn.init`` and
 one ``qr.boost.iter`` an iteration (``learning/mart.py``), inside it
 ``qr.boost.lambdas``, ``qr.grow`` (the growers of ``trees/``, with their
 ``qr.grow.split``, ``.readback``, ``.route``, ``.hist`` and ``.level``
-sections) and ``qr.boost.metrics``; ``qr.data.build`` around the host
-binning and upload; ``qr.score.dispatch`` around a scorer call.  Every
+sections) and ``qr.boost.metrics``; ``qr.data.build`` around the layout,
+binning and upload, with ``qr.data.bin`` inside it around the binning (on
+the card the rows' upload and the binning kernel's launches);
+``qr.score.dispatch`` around a scorer call.  Every
 blocking read of the card by the boosting loop sits in a ``*.readback``
 span, so a tree's host time splits into work and waiting.
 """

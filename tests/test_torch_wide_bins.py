@@ -320,7 +320,7 @@ def test_learners_on_u16_equal_int32_wire(folds, name, monkeypatch):
     runs = []
     for wide in (False, True):
         if wide:
-            monkeypatch.setattr(port_mart, "bin_wire", lambda b, nb: b.astype(np.int32))
+            monkeypatch.setattr(binning, "bin_wire", lambda b, nb: b.astype(np.int32))
         m = LEARNERS[name]()
         h = m.learn(train, valid, Ndcg(10), verbose=False, device="cpu")
         runs.append((m, h))
